@@ -1,0 +1,260 @@
+"""Pluggable execution backends (port of ``repro/core/backends.py``).
+
+One trained twin, several substrates, one abstraction:
+
+    Backend.program(field, params) -> ExecState     ("deploy" the weights)
+    Backend.apply(state, t, x)     -> dx/dt         (one vector-field eval)
+    Backend.rollout(state, y0, ts) -> ys            (full IVP solve)
+    Backend.rollout_batch(state, y0s, ts) -> yss    (fleet of N twins)
+
+``DigitalBackend`` integrates with plain tensor ops (:func:`repro_torch.core.ode.odeint`);
+``FusedCudaBackend`` (``"fused_cuda"``) runs the whole RK4 trajectory of
+the fleet in one launch of the hand-written CUDA kernel K1
+(:mod:`repro_torch.kernels.fused_ode_mlp`), the counterpart of the JAX
+package's ``FusedPallasBackend``.  The fleet axis is a batch dimension
+written out, where JAX vmaps.
+
+Not ported yet (ROADMAP.md, queue 1): ``rollout_batch_resumed``, the
+adjoint backward, ``dopri5``, the analogue backends, and mesh sharding.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.ode import odeint
+
+Params = Any
+
+
+class ExecState(NamedTuple):
+    """A programmed twin: the executable field plus whatever parameters
+    still live off-substrate."""
+    field: Callable          # f(t, y, params) -> dy/dt
+    params: Params           # threaded to the field, or None
+    extra: Any = None        # backend-private staging (e.g. fused operands)
+
+
+def _with_drive(state: ExecState, drive: Optional[Callable]) -> ExecState:
+    """Re-bind the drive u(t) on a programmed field (fields are frozen
+    dataclasses with a ``drive`` attribute)."""
+    return state._replace(field=dataclasses.replace(state.field, drive=drive))
+
+
+def _fleet_drive(drive_family: Callable, drive_params: torch.Tensor):
+    """u(t) of every fleet member, (N, Du): ``drive_family(t, theta_i)``
+    evaluated over the rows of ``drive_params`` (as ``jax.vmap`` does)."""
+    def drive(t):
+        u = torch.func.vmap(lambda th: drive_family(t, th))(drive_params)
+        return u.reshape(u.shape[0], -1)
+    return drive
+
+
+def _leaves(params) -> list:
+    if params is None:
+        return []
+    return [x for layer in params for x in layer.values()]
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(x, torch.Tensor) and x.requires_grad for x in tensors)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class BaseBackend:
+    """Default implementations shared by the concrete backends."""
+
+    name = "base"
+
+    def program(self, field: Callable, params: Params) -> ExecState:
+        return ExecState(field=field, params=params)
+
+    def apply(self, state: ExecState, t, x):
+        return state.field(t, x, state.params)
+
+    def rollout(self, state: ExecState, y0, ts, *, method: str = "rk4",
+                steps_per_interval: int = 1,
+                gradient: str = "direct") -> torch.Tensor:
+        """Default: direct fixed-step odeint over ``apply``."""
+        del gradient  # substrate-specific backends decide differentiability
+        return odeint(state.field, y0, ts, state.params, method=method,
+                      steps_per_interval=steps_per_interval)
+
+    def rollout_batch(self, state: ExecState, y0s, ts, *,
+                      drive_family: Optional[Callable] = None,
+                      drive_params: Optional[torch.Tensor] = None,
+                      **kw) -> torch.Tensor:
+        """Fleet rollout: N independent twins -> (N, T+1, D), matching
+        ``torch.stack([rollout(y0_i) for i])``.  ``drive_family(t, theta)``
+        with per-twin ``drive_params`` (N, ...) re-binds each member's
+        drive.  One device; the JAX package's ``mesh=`` is not ported."""
+        return self.rollout_batch_local(state, y0s, ts,
+                                        drive_family=drive_family,
+                                        drive_params=drive_params, **kw)
+
+    def rollout_batch_local(self, state: ExecState, y0s, ts, *,
+                            drive_family: Optional[Callable] = None,
+                            drive_params: Optional[torch.Tensor] = None,
+                            **kw) -> torch.Tensor:
+        """Single-device fleet implementation: the fleet is the leading
+        batch axis of one rollout (the JAX package vmaps N rollouts)."""
+        if drive_family is not None:
+            state = _with_drive(state, _fleet_drive(drive_family,
+                                                    drive_params))
+        return self.rollout(state, y0s, ts, **kw).transpose(0, 1)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DigitalBackend(BaseBackend):
+    """Plain tensor-op execution: the reference substrate.
+
+    ``gradient="direct"`` backpropagates through the unrolled solver with
+    autograd.  The continuous adjoint (``"adjoint"``, the twins' default)
+    is not ported yet: its forward runs, and it raises when autograd would
+    need its gradient.
+    """
+
+    name = "digital"
+
+    def rollout(self, state: ExecState, y0, ts, *, method: str = "rk4",
+                steps_per_interval: int = 1,
+                gradient: str = "adjoint") -> torch.Tensor:
+        if method == "dopri5":
+            raise NotImplementedError(
+                "dopri5 is not ported yet (ROADMAP.md, queue 1)")
+        if gradient == "adjoint" and _needs_grad(
+                y0, *_leaves(state.params)):
+            raise NotImplementedError(
+                "DigitalBackend: the continuous-adjoint gradient is not "
+                "ported yet (ROADMAP.md, queue 1); use gradient='direct'")
+        return odeint(state.field, y0, ts, state.params, method=method,
+                      steps_per_interval=steps_per_interval)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class FusedCudaBackend(BaseBackend):
+    """Whole-trajectory RK4 in one launch of the hand-written CUDA kernel
+    K1, weights resident in shared memory (counterpart of the JAX
+    package's ``FusedPallasBackend``).
+
+    ``rollout`` samples the drive on the RK4 half-step grid and hands the
+    full solve to :func:`repro_torch.kernels.ops.fused_node_rollout`.  It
+    needs a uniform, concrete time grid and ``method='rk4'``.  A fleet
+    whose size does not divide ``batch_tile`` is padded up to the next
+    multiple (padded rows replicate the last twin and are dropped).
+
+    Gradients: ``gradient="stopgrad"`` detaches the solve; any other mode
+    raises when autograd would need a gradient, until the backward
+    kernel K2 is ported.  Only the float32 policy exists so far.  On CPU
+    tensors the kernel's plain version runs instead (the tests).
+    """
+
+    name = "fused_cuda"
+    batch_tile: int = 64
+
+    def program(self, field: Callable, params: Params) -> ExecState:
+        """Stage float32 weight and bias operands for the kernel."""
+        if params is None:
+            raise ValueError("FusedCudaBackend needs the MLP params")
+        weights = [p["w"].to(torch.float32) for p in params]
+        biases = [p["b"].to(torch.float32) for p in params]
+        return ExecState(field=field, params=params,
+                         extra={"weights": weights, "biases": biases})
+
+    def _grid(self, ts, steps_per_interval: int, device):
+        """Validate + densify the time grid; returns (ts_fine, dt, sub)."""
+        tsn = np.asarray(torch.as_tensor(ts).detach().cpu(), dtype=np.float64)
+        if tsn.size < 2:
+            raise ValueError("FusedCudaBackend needs a uniform time grid")
+        # Uniformity is judged on the grid VALUES, not consecutive diffs:
+        # float32 linspace diffs wobble by ~eps*t_max, but the values stay
+        # within float32 rounding of the ideal line.
+        dt0 = (tsn[-1] - tsn[0]) / (tsn.size - 1)
+        drift = np.abs(tsn - (tsn[0] + dt0 * np.arange(tsn.size))).max()
+        tol = max(32 * np.finfo(np.float32).eps * np.abs(tsn).max(), 1e-9)
+        if dt0 == 0 or drift > tol:
+            raise ValueError("FusedCudaBackend needs a uniform time grid")
+        sub = int(steps_per_interval)
+        T = (tsn.size - 1) * sub
+        ts_fine = torch.from_numpy(
+            np.linspace(tsn[0], tsn[-1], T + 1).astype(np.float32)).to(device)
+        return ts_fine, float(dt0) / sub, sub
+
+    def _u_half(self, drive: Optional[Callable], ts_fine: torch.Tensor):
+        """Sample u(t) on the RK4 half-step grid, (2T+1, Du)."""
+        from repro_torch.kernels.ops import half_step_drive
+        T = ts_fine.shape[0] - 1
+        if drive is None:
+            return torch.zeros((2 * T + 1, 0), dtype=torch.float32,
+                               device=ts_fine.device)
+        return half_step_drive(drive, ts_fine).to(torch.float32)
+
+    def _solve(self, state: ExecState, y0s, uh, dt, bt, gradient):
+        """The fused solve: 'stopgrad' detaches, every other mode is the
+        (not yet ported) fused VJP."""
+        from repro_torch.kernels import ops
+        params = [{"w": w, "b": b} for w, b in
+                  zip(state.extra["weights"], state.extra["biases"])]
+        mode = "stopgrad" if gradient == "stopgrad" else "fused_vjp"
+        return ops.fused_node_rollout(params, y0s, uh, dt, batch_tile=bt,
+                                      gradient=mode)
+
+    def rollout(self, state: ExecState, y0, ts, *, method: str = "rk4",
+                steps_per_interval: int = 1,
+                gradient: str = "fused_vjp") -> torch.Tensor:
+        if method != "rk4":
+            raise ValueError(
+                f"FusedCudaBackend integrates RK4 only, got {method!r}")
+        ts_fine, dt, sub = self._grid(ts, steps_per_interval, y0.device)
+        uh = self._u_half(getattr(state.field, "drive", None), ts_fine)
+        traj = self._solve(state, y0[None, :], uh, dt, 1, gradient)
+        return traj[::sub, 0, :]
+
+    def rollout_batch_local(self, state: ExecState, y0s, ts, *,
+                            drive_family: Optional[Callable] = None,
+                            drive_params: Optional[torch.Tensor] = None,
+                            method: str = "rk4", steps_per_interval: int = 1,
+                            gradient: str = "fused_vjp") -> torch.Tensor:
+        """Fleet solve in one kernel launch: per-twin drives sampled on
+        the half-step grid as (B, 2T+1, Du), the fleet padded to a tile
+        multiple, padding dropped from the (N, T+1, D) result."""
+        from repro_torch.kernels.fused_ode_mlp import pad_fleet_to_tile
+        if method != "rk4":
+            raise ValueError(
+                f"FusedCudaBackend integrates RK4 only, got {method!r}")
+        ts_fine, dt, sub = self._grid(ts, steps_per_interval, y0s.device)
+        if drive_family is None:
+            uh = self._u_half(getattr(state.field, "drive", None), ts_fine)
+        else:
+            uh = torch.func.vmap(
+                lambda th_: self._u_half(lambda t: drive_family(t, th_),
+                                         ts_fine))(drive_params)
+        y0s, uh, bt, B = pad_fleet_to_tile(y0s, uh, self.batch_tile)
+        traj = self._solve(state, y0s, uh, dt, bt, gradient)
+        return traj[::sub, :B].transpose(0, 1)
+
+
+DEFAULT_BACKEND = DigitalBackend()
+
+#: Registry of substrate names accepted anywhere a Backend is expected.
+BACKENDS = {
+    "digital": DigitalBackend,
+    "fused_cuda": FusedCudaBackend,
+}
+
+
+def resolve_backend(backend):
+    """Accept a Backend instance, a registry name, or None (digital)."""
+    if backend is None:
+        return DEFAULT_BACKEND
+    if isinstance(backend, str):
+        try:
+            return BACKENDS[backend]()
+        except KeyError:
+            raise ValueError(
+                f"unknown backend {backend!r}; have {sorted(BACKENDS)}")
+    return backend

@@ -1,0 +1,120 @@
+"""Neural-ODE modules (port of ``repro/core/node.py``).
+
+* ``mlp_init`` / ``mlp_apply`` — the small ReLU MLP the paper deploys on
+  the memristor crossbars (HP twin: 2->14->14->1; Lorenz96: 6->64->64->6),
+  with the JAX package's parameter layout: a list of
+  ``{"w": (in, out), "b": (out,)}`` tensors.
+* ``MLPVectorField`` — dy/dt = MLP([u(t), y]) or MLP(y).
+* ``NeuralODE`` — ties a vector field to an integrator, a gradient mode
+  and an execution backend.
+
+``ContinuousDepthBlock`` is not ported yet (ROADMAP.md, queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Optional, Sequence
+
+import torch
+
+from repro_torch.core.backends import resolve_backend
+from repro_torch.device import resolve_device
+
+Params = list
+
+
+def mlp_init(generator: torch.Generator, sizes: Sequence[int], *,
+             device=None, dtype=torch.float32) -> Params:
+    """He-init MLP parameters: list of {'w': (in,out), 'b': (out,)}.
+
+    Draws from ``generator`` (a CPU ``torch.Generator``) and then moves
+    the tensors to ``device`` (default ``cuda``), so one seed gives the
+    same weights on every device."""
+    device = resolve_device(device)
+    params = []
+    for din, dout in zip(sizes[:-1], sizes[1:]):
+        w = torch.randn((din, dout), generator=generator, dtype=dtype)
+        w = w * math.sqrt(2.0 / din)
+        params.append({"w": w.to(device),
+                       "b": torch.zeros((dout,), dtype=dtype, device=device)})
+    return params
+
+
+def mlp_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """ReLU MLP, no activation on the output layer (paper, Methods)."""
+    for i, layer in enumerate(params):
+        x = x @ layer["w"] + layer["b"]
+        if i < len(params) - 1:
+            x = torch.relu(x)
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class MLPVectorField:
+    """dy/dt = MLP([u(t), y]) (driven) or MLP(y) (autonomous).
+
+    ``drive(t)`` returns u(t) as a scalar or (Du,) tensor shared by every
+    twin, or (N, Du) with one row per twin of an (N, D) fleet state.
+    """
+    sizes: tuple
+    drive: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+
+    def init(self, generator: torch.Generator, *, device=None) -> Params:
+        return mlp_init(generator, self.sizes, device=device)
+
+    def __call__(self, t, y: torch.Tensor, params: Params) -> torch.Tensor:
+        if self.drive is not None:
+            u = torch.atleast_1d(torch.as_tensor(
+                self.drive(t), dtype=y.dtype, device=y.device))
+            if u.ndim < y.ndim:
+                u = u.expand(*y.shape[:-1], u.shape[-1])
+            inp = torch.cat([u, y], dim=-1)
+        else:
+            inp = y
+        return mlp_apply(params, inp)
+
+
+@dataclasses.dataclass(frozen=True)
+class NeuralODE:
+    """The memristive neural-ODE solver's software twin.
+
+    gradient: 'adjoint' (the paper's training method; its backward is not
+    ported yet) or 'direct' (autograd through the unrolled solver).
+    ``backend`` selects the execution substrate (None -> digital).
+    """
+    field: Callable  # f(t, y, params) -> dy/dt
+    method: str = "rk4"
+    steps_per_interval: int = 1
+    gradient: str = "adjoint"
+    backend: Any = None
+
+    def init(self, generator: torch.Generator, *, device=None) -> Params:
+        init = getattr(self.field, "init", None)
+        if init is None:
+            raise ValueError("vector field has no .init; pass params explicitly")
+        return init(generator, device=device)
+
+    def _solver_kw(self) -> dict:
+        return dict(method=self.method,
+                    steps_per_interval=self.steps_per_interval,
+                    gradient=self.gradient)
+
+    def trajectory(self, params: Params, y0: torch.Tensor,
+                   ts: torch.Tensor) -> torch.Tensor:
+        """Solve the IVP, returning y at every ts (leading axis len(ts))."""
+        backend = resolve_backend(self.backend)
+        state = backend.program(self.field, params)
+        return backend.rollout(state, y0, ts, **self._solver_kw())
+
+    def trajectory_batch(self, params: Params, y0s: torch.Tensor,
+                         ts: torch.Tensor, *, drive_family=None,
+                         drive_params=None) -> torch.Tensor:
+        """Fleet solve: N initial conditions (and optionally per-twin
+        drive parameters) in one program, (N, len(ts), D)."""
+        backend = resolve_backend(self.backend)
+        state = backend.program(self.field, params)
+        return backend.rollout_batch(state, y0s, ts,
+                                     drive_family=drive_family,
+                                     drive_params=drive_params,
+                                     **self._solver_kw())

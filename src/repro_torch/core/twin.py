@@ -1,0 +1,123 @@
+"""Digital-twin façade (port of ``repro/core/twin.py``).
+
+A twin = (vector field, integrator, gradient mode) + a pluggable
+execution backend (digital tensor ops or the fused CUDA kernel — see
+:mod:`repro_torch.core.backends`).  ``TwinFleet`` scales it to N
+independent twins in one program.
+
+Not ported yet: ``deploy_analogue``, ``rollout_batch_resumed`` and
+``reference_trajectory`` (ROADMAP.md, queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch.core.backends import resolve_backend
+from repro_torch.core.node import MLPVectorField, NeuralODE
+
+Params = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class DigitalTwin:
+    """Continuous-time digital twin of a physical asset."""
+    field: Any                       # f(t, y, params)
+    node: NeuralODE
+    state_dim: int
+
+    @property
+    def backend(self):
+        return resolve_backend(self.node.backend)
+
+    def init(self, generator: torch.Generator, *, device=None) -> Params:
+        return self.field.init(generator, device=device)
+
+    def with_backend(self, backend) -> "DigitalTwin":
+        """The same twin executing on another substrate (a Backend
+        instance or a registry name: 'digital', 'fused_cuda')."""
+        backend = resolve_backend(backend)
+        return dataclasses.replace(
+            self, node=dataclasses.replace(self.node, backend=backend))
+
+    def simulate(self, params: Params, y0: torch.Tensor, ts: torch.Tensor):
+        return self.node.trajectory(params, y0, ts)
+
+    def simulate_batch(self, params: Params, y0s: torch.Tensor,
+                       ts: torch.Tensor, *,
+                       drive_family: Optional[Callable] = None,
+                       drive_params: Optional[torch.Tensor] = None):
+        """Batched fleet rollout: (N, D) initial conditions -> (N, T+1, D),
+        equal to stacking N single-trajectory solves but executed as one
+        program (one kernel launch on the fused backend)."""
+        return self.node.trajectory_batch(params, y0s, ts,
+                                          drive_family=drive_family,
+                                          drive_params=drive_params)
+
+
+@dataclasses.dataclass(frozen=True)
+class TwinFleet:
+    """N independent instances of one trained twin (one per physical
+    asset), rolled out in a single program.
+
+    ``drive_family(t, theta) -> u`` is a parametric stimulus family; each
+    fleet member i gets ``drive_params[i]``.  Autonomous fleets leave both
+    None.
+    """
+    twin: DigitalTwin
+    drive_family: Optional[Callable] = None
+
+    @property
+    def backend(self):
+        return self.twin.backend
+
+    def with_backend(self, backend) -> "TwinFleet":
+        return dataclasses.replace(self, twin=self.twin.with_backend(backend))
+
+    def simulate(self, params: Params, y0s: torch.Tensor, ts: torch.Tensor,
+                 drive_params: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.rollout_batch(params, y0s, ts, drive_params)
+
+    def rollout_batch(self, params: Params, y0s: torch.Tensor,
+                      ts: torch.Tensor,
+                      drive_params: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+        """Fleet rollout on the current device -> (N, T+1, D)."""
+        if (drive_params is None) != (self.drive_family is None):
+            raise ValueError(
+                "drive_params and drive_family must be given together")
+        return self.twin.simulate_batch(params, y0s, ts,
+                                        drive_family=self.drive_family,
+                                        drive_params=drive_params)
+
+
+def make_driven_twin(state_dim: int, drive: Callable, hidden: int = 14,
+                     n_hidden_layers: int = 2, method: str = "rk4",
+                     gradient: str = "adjoint",
+                     steps_per_interval: int = 1,
+                     backend=None) -> DigitalTwin:
+    """HP-memristor-style twin: dy/dt = MLP([u(t), y]).
+
+    Default sizes (2 -> 14 -> 14 -> 1) are the paper's three crossbar
+    arrays (2x14, 14x14, 14x1) for state_dim=1.
+    """
+    sizes = (1 + state_dim,) + (hidden,) * n_hidden_layers + (state_dim,)
+    field = MLPVectorField(sizes=sizes, drive=drive)
+    node = NeuralODE(field=field, method=method, gradient=gradient,
+                     steps_per_interval=steps_per_interval, backend=backend)
+    return DigitalTwin(field=field, node=node, state_dim=state_dim)
+
+
+def make_autonomous_twin(state_dim: int, hidden: int = 64,
+                         n_hidden_layers: int = 2, method: str = "rk4",
+                         gradient: str = "adjoint",
+                         steps_per_interval: int = 1,
+                         backend=None) -> DigitalTwin:
+    """Lorenz96-style twin: dy/dt = MLP(y) (no external stimulation)."""
+    sizes = (state_dim,) + (hidden,) * n_hidden_layers + (state_dim,)
+    field = MLPVectorField(sizes=sizes, drive=None)
+    node = NeuralODE(field=field, method=method, gradient=gradient,
+                     steps_per_interval=steps_per_interval, backend=backend)
+    return DigitalTwin(field=field, node=node, state_dim=state_dim)

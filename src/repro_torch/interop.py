@@ -1,0 +1,28 @@
+"""Carry MLP parameters between the JAX package and the port as numpy.
+
+Both packages keep the same layout, a list of ``{"w": (in, out),
+"b": (out,)}`` arrays, so the hand-off is a 1:1 map.  Anything
+``numpy.asarray`` accepts (JAX arrays included) goes in.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+def params_from_numpy(params: Sequence[dict], device=None) -> list[dict]:
+    """``[{"w", "b"}, ...]`` of arrays -> the same list of tensors on
+    ``device`` (default ``cuda``), values and dtypes unchanged."""
+    device = resolve_device(device)
+    return [{k: torch.from_numpy(np.array(v, copy=True)).to(device)
+             for k, v in layer.items()} for layer in params]
+
+
+def params_to_numpy(params: Sequence[dict]) -> list[dict]:
+    """The inverse: tensors on any device -> numpy arrays on the host."""
+    return [{k: v.detach().cpu().numpy() for k, v in layer.items()}
+            for layer in params]
