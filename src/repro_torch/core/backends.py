@@ -14,8 +14,8 @@ the fleet in one launch of the hand-written CUDA kernel K1
 package's ``FusedPallasBackend``.  The fleet axis is a batch dimension
 written out, where JAX vmaps.
 
-Not ported yet (ROADMAP.md, queue 1): ``rollout_batch_resumed``, the
-adjoint backward, ``dopri5``, the analogue backends, and mesh sharding.
+Not ported yet (ROADMAP.md, queue 1): ``rollout_batch_resumed``,
+``dopri5``, the analogue backends, and mesh sharding.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.adjoint import odeint_adjoint
 from repro_torch.core.ode import odeint
 
 Params = Any
@@ -36,6 +37,26 @@ class ExecState(NamedTuple):
     field: Callable          # f(t, y, params) -> dy/dt
     params: Params           # threaded to the field, or None
     extra: Any = None        # backend-private staging (e.g. fused operands)
+
+
+def uniform_dt(ts, who: str) -> float:
+    """The step of a uniform time grid: ``ts`` is one grid (n,) or a stack
+    (S, n) of grids that share one step, each from its own start.
+
+    Uniformity is judged on the grid VALUES, not consecutive diffs:
+    float32 linspace diffs wobble by ~eps*t_max, but the values stay
+    within float32 rounding of the ideal line.  Raises ``ValueError``
+    naming ``who`` otherwise."""
+    tsn = np.atleast_2d(np.asarray(torch.as_tensor(ts).detach().cpu(),
+                                   dtype=np.float64))
+    n = tsn.shape[-1]
+    if n > 1:
+        dt = float(np.mean(tsn[:, -1] - tsn[:, 0]) / (n - 1))
+        drift = np.abs(tsn - (tsn[:, :1] + dt * np.arange(n))).max()
+        tol = max(32 * np.finfo(np.float32).eps * np.abs(tsn).max(), 1e-9)
+        if dt != 0 and drift <= tol:
+            return dt
+    raise ValueError(f"{who} needs a uniform time grid")
 
 
 def _with_drive(state: ExecState, drive: Optional[Callable]) -> ExecState:
@@ -51,17 +72,6 @@ def _fleet_drive(drive_family: Callable, drive_params: torch.Tensor):
         u = torch.func.vmap(lambda th: drive_family(t, th))(drive_params)
         return u.reshape(u.shape[0], -1)
     return drive
-
-
-def _leaves(params) -> list:
-    if params is None:
-        return []
-    return [x for layer in params for x in layer.values()]
-
-
-def _needs_grad(*tensors) -> bool:
-    return torch.is_grad_enabled() and any(
-        isinstance(x, torch.Tensor) and x.requires_grad for x in tensors)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -113,9 +123,8 @@ class DigitalBackend(BaseBackend):
     """Plain tensor-op execution: the reference substrate.
 
     ``gradient="direct"`` backpropagates through the unrolled solver with
-    autograd.  The continuous adjoint (``"adjoint"``, the twins' default)
-    is not ported yet: its forward runs, and it raises when autograd would
-    need its gradient.
+    autograd; ``"adjoint"`` (the twins' default) integrates the
+    continuous adjoint backwards (:func:`repro_torch.core.adjoint.odeint_adjoint`).
     """
 
     name = "digital"
@@ -126,11 +135,9 @@ class DigitalBackend(BaseBackend):
         if method == "dopri5":
             raise NotImplementedError(
                 "dopri5 is not ported yet (ROADMAP.md, queue 1)")
-        if gradient == "adjoint" and _needs_grad(
-                y0, *_leaves(state.params)):
-            raise NotImplementedError(
-                "DigitalBackend: the continuous-adjoint gradient is not "
-                "ported yet (ROADMAP.md, queue 1); use gradient='direct'")
+        if gradient == "adjoint":
+            return odeint_adjoint(state.field, y0, ts, state.params,
+                                  method, steps_per_interval)
         return odeint(state.field, y0, ts, state.params, method=method,
                       steps_per_interval=steps_per_interval)
 
@@ -147,10 +154,11 @@ class FusedCudaBackend(BaseBackend):
     whose size does not divide ``batch_tile`` is padded up to the next
     multiple (padded rows replicate the last twin and are dropped).
 
-    Gradients: ``gradient="stopgrad"`` detaches the solve; any other mode
-    raises when autograd would need a gradient, until the backward
-    kernel K2 is ported.  Only the float32 policy exists so far.  On CPU
-    tensors the kernel's plain version runs instead (the tests).
+    Gradients: ``gradient="stopgrad"`` detaches the solve; every other
+    mode differentiates it through the reverse-time kernel K2
+    (:mod:`repro_torch.kernels.fused_ode_mlp_bwd`).  Only the float32
+    policy exists so far.  On CPU tensors the kernels' plain versions run
+    instead (the tests).
     """
 
     name = "fused_cuda"
@@ -168,21 +176,12 @@ class FusedCudaBackend(BaseBackend):
     def _grid(self, ts, steps_per_interval: int, device):
         """Validate + densify the time grid; returns (ts_fine, dt, sub)."""
         tsn = np.asarray(torch.as_tensor(ts).detach().cpu(), dtype=np.float64)
-        if tsn.size < 2:
-            raise ValueError("FusedCudaBackend needs a uniform time grid")
-        # Uniformity is judged on the grid VALUES, not consecutive diffs:
-        # float32 linspace diffs wobble by ~eps*t_max, but the values stay
-        # within float32 rounding of the ideal line.
-        dt0 = (tsn[-1] - tsn[0]) / (tsn.size - 1)
-        drift = np.abs(tsn - (tsn[0] + dt0 * np.arange(tsn.size))).max()
-        tol = max(32 * np.finfo(np.float32).eps * np.abs(tsn).max(), 1e-9)
-        if dt0 == 0 or drift > tol:
-            raise ValueError("FusedCudaBackend needs a uniform time grid")
+        dt0 = uniform_dt(tsn, "FusedCudaBackend")
         sub = int(steps_per_interval)
         T = (tsn.size - 1) * sub
         ts_fine = torch.from_numpy(
             np.linspace(tsn[0], tsn[-1], T + 1).astype(np.float32)).to(device)
-        return ts_fine, float(dt0) / sub, sub
+        return ts_fine, dt0 / sub, sub
 
     def _u_half(self, drive: Optional[Callable], ts_fine: torch.Tensor):
         """Sample u(t) on the RK4 half-step grid, (2T+1, Du)."""
@@ -195,7 +194,7 @@ class FusedCudaBackend(BaseBackend):
 
     def _solve(self, state: ExecState, y0s, uh, dt, bt, gradient):
         """The fused solve: 'stopgrad' detaches, every other mode is the
-        (not yet ported) fused VJP."""
+        fused VJP (K1 forward, K2 backward)."""
         from repro_torch.kernels import ops
         params = [{"w": w, "b": b} for w, b in
                   zip(state.extra["weights"], state.extra["biases"])]

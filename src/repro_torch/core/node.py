@@ -55,7 +55,10 @@ class MLPVectorField:
     """dy/dt = MLP([u(t), y]) (driven) or MLP(y) (autonomous).
 
     ``drive(t)`` returns u(t) as a scalar or (Du,) tensor shared by every
-    twin, or (N, Du) with one row per twin of an (N, D) fleet state.
+    twin, or (N, Du) with one row per twin of an (N, D) fleet state.  A
+    time tensor ``t`` of shape (N,) gives one time per row of an (N, D)
+    state (the batch the JAX package forms with ``vmap``); the drive then
+    returns (N,) or (N, Du).
     """
     sizes: tuple
     drive: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
@@ -65,8 +68,10 @@ class MLPVectorField:
 
     def __call__(self, t, y: torch.Tensor, params: Params) -> torch.Tensor:
         if self.drive is not None:
-            u = torch.atleast_1d(torch.as_tensor(
-                self.drive(t), dtype=y.dtype, device=y.device))
+            u = torch.as_tensor(self.drive(t), dtype=y.dtype,
+                                device=y.device)
+            t_shape = torch.as_tensor(t).shape
+            u = u.reshape(*t_shape, -1) if t_shape else torch.atleast_1d(u)
             if u.ndim < y.ndim:
                 u = u.expand(*y.shape[:-1], u.shape[-1])
             inp = torch.cat([u, y], dim=-1)
@@ -79,8 +84,9 @@ class MLPVectorField:
 class NeuralODE:
     """The memristive neural-ODE solver's software twin.
 
-    gradient: 'adjoint' (the paper's training method; its backward is not
-    ported yet) or 'direct' (autograd through the unrolled solver).
+    gradient: 'adjoint' (the paper's training method: the continuous
+    adjoint, or the fused VJP on the fused backend) or 'direct' (autograd
+    through the unrolled solver).
     ``backend`` selects the execution substrate (None -> digital).
     """
     field: Callable  # f(t, y, params) -> dy/dt

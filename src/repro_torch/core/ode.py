@@ -1,10 +1,11 @@
 """Explicit fixed-step ODE integrators (port of ``repro/core/ode.py``).
 
 All steppers share one contract, ``f(t, y, *f_args) -> dy/dt`` on a
-tensor state ``y`` of any shape (a fleet is a leading batch axis), and
-keep the JAX package's arithmetic order so results agree to float32
-rounding.  ``odeint`` is a plain Python loop; the adaptive ``dopri5``
-solver is not ported yet (ROADMAP queue 1).
+state ``y`` that is a tensor of any shape (a fleet is a leading batch
+axis) or a tree of tensors (the adjoint's augmented state), and keep the
+JAX package's arithmetic order so results agree to float32 rounding.
+``odeint`` is a plain Python loop; the adaptive ``dopri5`` solver is not
+ported yet (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -12,18 +13,20 @@ from typing import Callable, Sequence
 
 import torch
 
+from repro_torch.tree import tree_map
+
 VectorField = Callable[..., torch.Tensor]
 
 
-def _axpy(a, x, y):
-    """y + a * x."""
-    return y + a * x
+def _axpy(a, xs, ys):
+    """ys + a * xs over trees."""
+    return tree_map(lambda x, y: y + a * x, xs, ys)
 
 
-def _weighted_sum(coeffs: Sequence[float], xs: Sequence[torch.Tensor]):
-    acc = coeffs[0] * xs[0]
-    for c, x in zip(coeffs[1:], xs[1:]):
-        acc = acc + c * x
+def _weighted_sum(coeffs: Sequence[float], trees: Sequence):
+    acc = tree_map(lambda x: coeffs[0] * x, trees[0])
+    for c, t in zip(coeffs[1:], trees[1:]):
+        acc = tree_map(lambda a, x: a + c * x, acc, t)
     return acc
 
 
@@ -34,7 +37,7 @@ def euler_step(f: VectorField, t, y, dt, *f_args):
 def heun_step(f: VectorField, t, y, dt, *f_args):
     k1 = f(t, y, *f_args)
     k2 = f(t + dt, _axpy(dt, k1, y), *f_args)
-    return _axpy(dt / 2.0, k1 + k2, y)
+    return _axpy(dt / 2.0, tree_map(lambda a, b: a + b, k1, k2), y)
 
 
 def midpoint_step(f: VectorField, t, y, dt, *f_args):

@@ -5,8 +5,8 @@ execution backend (digital tensor ops or the fused CUDA kernel — see
 :mod:`repro_torch.core.backends`).  ``TwinFleet`` scales it to N
 independent twins in one program.
 
-Not ported yet: ``deploy_analogue``, ``rollout_batch_resumed`` and
-``reference_trajectory`` (ROADMAP.md, queue 1).
+Not ported yet: ``deploy_analogue`` and ``rollout_batch_resumed``
+(ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core.backends import resolve_backend
 from repro_torch.core.node import MLPVectorField, NeuralODE
+from repro_torch.core.ode import odeint
 
 Params = Any
 
@@ -121,3 +122,10 @@ def make_autonomous_twin(state_dim: int, hidden: int = 64,
     node = NeuralODE(field=field, method=method, gradient=gradient,
                      steps_per_interval=steps_per_interval, backend=backend)
     return DigitalTwin(field=field, node=node, state_dim=state_dim)
+
+
+def reference_trajectory(f: Callable, y0: torch.Tensor, ts: torch.Tensor,
+                         *args, steps_per_interval: int = 16) -> torch.Tensor:
+    """High-accuracy ground-truth solve (dense RK4) for data generation."""
+    return odeint(f, y0, ts, *args, method="rk4",
+                  steps_per_interval=steps_per_interval)

@@ -35,7 +35,8 @@ SMEM_LIMIT_BYTES = 232_448
 #: the H100's 132 SMs (64, the JAX batch tile, would fill only 16).
 ROWS_PER_BLOCK = 8
 
-#: Layers the kernel's argument struct holds (K1_MAX_LAYERS in the source).
+#: Layers the kernels' argument structs hold (K1_MAX_LAYERS and
+#: K2_MAX_LAYERS in the sources).
 MAX_LAYERS = 8
 
 #: Launches of the CUDA kernel in this process (one per kernel launch).
@@ -203,27 +204,35 @@ def fused_node_rollout(
             f"[u (Du={du}), y (D={D})] to dy/dt (D={D})")
     smem = check_smem_fit(sizes)
 
-    tensors = [y0, u_half, *weights, *biases]
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(
-            f"fused_node_rollout: inputs lie on several devices "
-            f"{sorted(str(d) for d in devices)}; put them on one")
-    device = devices.pop()
-    y0 = y0.to(torch.float32).contiguous()
-    u_half = u_half.to(torch.float32).contiguous()
-    weights = [w.to(torch.float32).contiguous() for w in weights]
-    biases = [b.to(torch.float32).contiguous() for b in biases]
+    L = len(weights)
+    device, (y0, u_half, *wb) = placed_f32(
+        "fused_node_rollout", [y0, u_half, *weights, *biases], L)
+    weights, biases = wb[:L], wb[L:]
     if device.type == "cpu":
         return ref.fused_node_rollout_ref(y0, u_half, weights, biases,
                                           float(dt))
-    if device.type != "cuda":
-        raise ValueError(
-            f"fused_node_rollout: tensors on {device} — the kernel runs on "
-            f"CUDA and its plain version on the CPU")
-    if len(weights) > MAX_LAYERS:
-        raise ValueError(
-            f"fused_node_rollout: {len(weights)} layers, the kernel takes "
-            f"at most {MAX_LAYERS}")
     return _launch(y0, u_half, weights, biases, dt, per_twin, T, du, sizes,
                    smem)
+
+
+def placed_f32(caller: str, tensors: Sequence[torch.Tensor],
+               num_layers: int):
+    """The one device all ``tensors`` lie on, and the tensors as
+    contiguous float32.  The CPU (plain versions) and CUDA (kernels) are
+    accepted; inputs on several devices, on any other device, or an MLP
+    deeper than the kernels' argument struct on CUDA raise."""
+    devices = {x.device for x in tensors}
+    if len(devices) != 1:
+        raise ValueError(
+            f"{caller}: inputs lie on several devices "
+            f"{sorted(str(d) for d in devices)}; put them on one")
+    device = devices.pop()
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(
+            f"{caller}: tensors on {device} — the kernel runs on CUDA and "
+            f"its plain version on the CPU")
+    if device.type == "cuda" and num_layers > MAX_LAYERS:
+        raise ValueError(
+            f"{caller}: {num_layers} layers, the kernel takes at most "
+            f"{MAX_LAYERS}")
+    return device, [x.to(torch.float32).contiguous() for x in tensors]

@@ -1,0 +1,215 @@
+"""Reverse-time fused neural-ODE solve — training on the serving substrate
+(port of ``repro/kernels/fused_ode_mlp_bwd.py``).
+
+:func:`fused_node_rollout_bwd` pulls the cotangent of a K1 trajectory
+back to ``(dL/dy0, dL/dW, dL/db)`` in one call of the hand-written Hopper
+kernel ``csrc/fused_ode_mlp_bwd.cu`` (K2): each block walks its twins'
+steps in reverse with the weights and its gradient accumulators resident
+in shared memory, reading every step's state straight from the forward
+trajectory, and a second small kernel sums the blocks' partial gradients
+in block order (no atomics, so a repeated call is bitwise identical).
+The kernel's design, and what bounds it, are in the source's header.
+
+:class:`FusedNodeRollout` is the differentiable rollout: its forward
+launches K1 and keeps the trajectory, its backward launches K2.  The
+drive is data and gets a zero cotangent; gradients come back in the
+primal dtypes.
+
+Device rule: the plain version :func:`repro_torch.kernels.ref.fused_node_rollout_bwd_ref`
+runs only for CPU tensors.  CUDA tensors launch the kernel or raise.
+Only the float32 policy is ported, as for K1.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from repro_torch.kernels import fused_ode_mlp as _k1
+from repro_torch.kernels import ref
+
+#: Twins per CUDA block (as K1).  The weight-gradient summation order
+#: depends on it, so results agree with the plain version to a tolerance.
+ROWS_PER_BLOCK = _k1.ROWS_PER_BLOCK
+
+#: K2 calls in this process: one per launch of the reverse-sweep kernel
+#: (each is followed by one launch of its fixed-order reduction).
+LAUNCHES = 0
+
+
+def smem_bytes_bwd(sizes: Sequence[int], rows: int = ROWS_PER_BLOCK) -> int:
+    """Dynamic shared memory of one K2 block for MLP layer widths
+    ``sizes``: the weights (rows padded to an odd stride) and biases, the
+    gradient accumulators, and per twin the adjoint, the state, the stage
+    output, four stage cotangents, four stage inputs, the step's
+    4 * (L-1) hidden activations and two hidden-width backward buffers.
+    Raises a ``ValueError`` when that exceeds the 227 KB a Hopper block
+    may use."""
+    pairs = list(zip(sizes[:-1], sizes[1:]))
+    wpad = sum(a * (b | 1) + b for a, b in pairs)
+    params = sum(a * b + b for a, b in pairs)
+    hidden = max(sizes[1:-1], default=0)
+    hstride = (hidden | 1) if hidden else 0
+    L, D = len(pairs), sizes[-1]
+    per_twin = 7 * D + 4 * (sizes[0] | 1) + 4 * (L - 1) * hstride + 2 * hstride
+    need = 4 * (wpad + params + rows * per_twin)
+    if need > _k1.SMEM_LIMIT_BYTES:
+        raise ValueError(
+            f"fused backward kernel: MLP {tuple(sizes)} needs {need:,} B of "
+            f"shared memory per block ({rows} twins), over the 227 KB "
+            f"({_k1.SMEM_LIMIT_BYTES:,} B) per-block limit of sm_90; the "
+            f"weights and their gradient accumulators must stay resident, "
+            f"so this width needs a cluster or a split across blocks")
+    return need
+
+
+def _launch(traj, u_half, g, weights, biases, dt, per_twin, T, du, sizes,
+            smem):
+    """Launch K2 on the current stream; returns (dy0, flat grads (P,))."""
+    global LAUNCHES
+    from repro_torch.kernels import _build
+    fn = _build.load("fused_ode_mlp_bwd").k2_fused_node_rollout_bwd_f32
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] + [ctypes.c_float] * 3
+                   + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    B, D = traj.shape[1], traj.shape[2]
+    L = len(weights)
+    P = sum(a * b + b for a, b in zip(sizes[:-1], sizes[1:]))
+    blocks = -(-B // ROWS_PER_BLOCK)
+    dev = traj.device
+    dy0 = torch.empty((B, D), dtype=torch.float32, device=dev)
+    partial = torch.empty((blocks, P), dtype=torch.float32, device=dev)
+    grads = torch.empty((P,), dtype=torch.float32, device=dev)
+    w_ptrs = (ctypes.c_void_p * L)(*[w.data_ptr() for w in weights])
+    b_ptrs = (ctypes.c_void_p * L)(*[b.data_ptr() for b in biases])
+    c_sizes = (ctypes.c_int * (L + 1))(*sizes)
+    u_ptr = u_half.data_ptr() if du > 0 else None
+    u_twin_stride = (2 * T + 1) * du if per_twin else 0
+    dt64 = float(dt)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(traj.data_ptr(), u_ptr, g.data_ptr(), dy0.data_ptr(),
+                 partial.data_ptr(), grads.data_ptr(),
+                 ctypes.addressof(w_ptrs), ctypes.addressof(b_ptrs),
+                 ctypes.addressof(c_sizes), L, B, T, D, du, u_twin_stride,
+                 dt64, dt64 / 2, dt64 / 6, ROWS_PER_BLOCK, smem, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"fused_node_rollout_bwd: CUDA kernel launch failed with "
+            f"cudaError_t {err} (B={B}, T={T}, sizes={tuple(sizes)}, "
+            f"smem={smem} B)")
+    LAUNCHES += 1
+    return dy0, grads
+
+
+def _split_grads(flat: torch.Tensor, sizes: Sequence[int]):
+    """(P,) in the kernel's order dW_0, db_0, dW_1, ... -> (dws, dbs)."""
+    dws, dbs, off = [], [], 0
+    for a, b in zip(sizes[:-1], sizes[1:]):
+        dws.append(flat[off:off + a * b].view(a, b))
+        off += a * b
+        dbs.append(flat[off:off + b])
+        off += b
+    return dws, dbs
+
+
+def fused_node_rollout_bwd(
+    traj: torch.Tensor,               # (T+1, B, D) forward trajectory
+    u_half: torch.Tensor,             # (2T+1, Du) shared or (B, 2T+1, Du)
+    weights: Sequence[torch.Tensor],
+    biases: Sequence[torch.Tensor],
+    g: torch.Tensor,                  # (T+1, B, D) cotangent of every row
+    dt: float,
+) -> tuple:
+    """The VJP of the fused rollout; returns ``(dy0, dweights, dbiases)``,
+    all float32.
+
+    ``traj`` must be the trajectory the forward produced from these
+    weights, drive and ``dt`` (its rows are the states each reverse step
+    starts from); ``g`` is the cotangent of all T+1 rows, row 0 included.
+    Any strides are taken (a trainer's cotangent arrives sliced and
+    transposed); floating inputs are cast to float32.  CPU tensors take
+    the plain version, CUDA tensors the kernel; any other placement
+    raises.
+    """
+    for name, x in [("traj", traj), ("u_half", u_half), ("g", g),
+                    *[(f"weights[{i}]", w) for i, w in enumerate(weights)],
+                    *[(f"biases[{i}]", b) for i, b in enumerate(biases)]]:
+        _k1._require_float(name, x)
+    if traj.ndim != 3 or tuple(g.shape) != tuple(traj.shape):
+        raise ValueError(
+            f"fused_node_rollout_bwd: traj {tuple(traj.shape)} and g "
+            f"{tuple(g.shape)} must both be (T+1, B, D)")
+    T, B, D = traj.shape[0] - 1, traj.shape[1], traj.shape[2]
+    per_twin = u_half.ndim == 3
+    if per_twin and u_half.shape[0] != B:
+        raise ValueError(
+            f"per-twin drive batch {u_half.shape[0]} != trajectory batch {B}")
+    if per_twin and u_half.shape[-1] == 0:
+        per_twin, u_half = False, u_half[0]
+    if u_half.shape[1 if per_twin else 0] != 2 * T + 1:
+        raise ValueError(
+            f"fused_node_rollout_bwd: drive has "
+            f"{u_half.shape[1 if per_twin else 0]} half-steps, the "
+            f"trajectory's T={T} steps need 2T+1 = {2 * T + 1}")
+    du = u_half.shape[-1]
+    sizes = [weights[0].shape[0]] + [w.shape[1] for w in weights]
+    if sizes[0] != du + D or sizes[-1] != D:
+        raise ValueError(
+            f"fused_node_rollout_bwd: MLP {tuple(sizes)} does not map "
+            f"[u (Du={du}), y (D={D})] to dy/dt (D={D})")
+    smem = smem_bytes_bwd(sizes)
+
+    L = len(weights)
+    device, (traj, u_half, g, *wb) = _k1.placed_f32(
+        "fused_node_rollout_bwd", [traj, u_half, g, *weights, *biases], L)
+    weights, biases = wb[:L], wb[L:]
+    if device.type == "cpu":
+        return ref.fused_node_rollout_bwd_ref(traj, u_half, weights, biases,
+                                              g, float(dt))
+    dy0, flat = _launch(traj, u_half, g, weights, biases, dt, per_twin, T,
+                        du, sizes, smem)
+    dws, dbs = _split_grads(flat, sizes)
+    return dy0, dws, dbs
+
+
+class FusedNodeRollout(torch.autograd.Function):
+    """The fused rollout with the fused VJP: forward K1, backward K2.
+
+    ``apply(y0, u_half, dt, batch_tile, *weights, *biases)`` returns the
+    (T+1, B, D) float32 trajectory.  The trajectory is the only residual:
+    every state the backward starts a step from is one of its rows."""
+
+    @staticmethod
+    def forward(ctx, y0, u_half, dt, batch_tile, *params):
+        L = len(params) // 2
+        traj = _k1.fused_node_rollout(y0, u_half, params[:L], params[L:],
+                                      dt, batch_tile=batch_tile)
+        ctx.save_for_backward(traj, u_half, *params)
+        ctx.dt = dt
+        ctx.y0_dtype = y0.dtype
+        return traj
+
+    @staticmethod
+    def backward(ctx, g):
+        traj, u_half, *params = ctx.saved_tensors
+        L = len(params) // 2
+        dy0, dws, dbs = fused_node_rollout_bwd(traj, u_half, params[:L],
+                                               params[L:], g, ctx.dt)
+        # the drive is data, not a parameter: zero cotangent
+        du = torch.zeros_like(u_half) if ctx.needs_input_grad[1] else None
+        grads = [d.to(p.dtype) for d, p in zip(dws + dbs, params)]
+        return (dy0.to(ctx.y0_dtype), du, None, None, *grads)
+
+
+def fused_node_rollout_vjp(y0: torch.Tensor, u_half: torch.Tensor,
+                           weights: Sequence[torch.Tensor],
+                           biases: Sequence[torch.Tensor], dt: float, *,
+                           batch_tile: int = 64) -> torch.Tensor:
+    """:func:`repro_torch.kernels.fused_ode_mlp.fused_node_rollout` with
+    gradients that never leave the fused substrate: K1 forward, K2
+    backward.  Differentiable in ``y0``, ``weights`` and ``biases``."""
+    return FusedNodeRollout.apply(y0, u_half, float(dt), batch_tile,
+                                  *weights, *biases)

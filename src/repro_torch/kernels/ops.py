@@ -1,8 +1,8 @@
 """Public wrappers around the port's kernels (port of ``repro/kernels/ops.py``).
 
-So far the fused neural-ODE rollout (K1) and the time-grid helpers it is
-fed by.  The fused backward kernel (K2), the crossbar, analogue and
-soft-DTW ops come with later slices (ROADMAP.md, queue 2).
+So far the fused neural-ODE rollout (K1), its fused VJP (K2) and the
+time-grid helpers they are fed by.  The crossbar, analogue and soft-DTW
+ops come with later slices (ROADMAP.md, queue 2).
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import fused_ode_mlp as _k1
+from repro_torch.kernels import fused_ode_mlp_bwd as _k2
 
 GRADIENT_MODES = ("fused_vjp", "stopgrad")
 
@@ -29,11 +30,11 @@ def fused_node_rollout(params: Sequence[dict], y0: torch.Tensor,
         (2T+1, Du) shared, (B, 2T+1, Du) per twin, or (2T+1, 0).
       dt: RK4 step size (uniform).
       batch_tile: B must divide by it (``FusedCudaBackend`` pads).
-      gradient: ``"stopgrad"`` detaches the solve (inference).  The
-        backward kernel is not ported yet, so ``"fused_vjp"`` raises
-        ``NotImplementedError`` whenever autograd would need a gradient
-        (grad mode on and an input that requires grad), and otherwise
-        runs the same forward.
+      gradient: ``"stopgrad"`` detaches the solve (inference);
+        ``"fused_vjp"`` makes it differentiable in ``y0`` and the params
+        through the reverse-time kernel K2
+        (:func:`repro_torch.kernels.fused_ode_mlp_bwd.fused_node_rollout_vjp`);
+        the drive gets a zero cotangent.
       precision: ``None`` or ``"f32"``.
 
     Returns:
@@ -49,18 +50,15 @@ def fused_node_rollout(params: Sequence[dict], y0: torch.Tensor,
     named += [(f"params[{i}]['b']", p["b"]) for i, p in enumerate(params)]
     for name, x in named:       # fail HERE with the dict-level input name
         _k1._require_float(name, x)
-    tensors = [x for _, x in named]
-    if gradient == "stopgrad":
-        tensors = [x.detach() for x in tensors]
-    elif torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
-        raise NotImplementedError(
-            "fused_cuda backward kernel (K2) lands with the training slice")
-    y0, u_half = tensors[0], tensors[1]
-    L = len(params)
-    weights, biases = tensors[2:2 + L], tensors[2 + L:]
-    out = _k1.fused_node_rollout(y0, u_half, weights, biases, float(dt),
-                                 batch_tile=batch_tile, precision=precision)
-    return out.detach()
+    weights = [p["w"] for p in params]
+    biases = [p["b"] for p in params]
+    if gradient == "fused_vjp":
+        return _k2.fused_node_rollout_vjp(y0, u_half, weights, biases,
+                                          float(dt), batch_tile=batch_tile)
+    with torch.no_grad():
+        return _k1.fused_node_rollout(y0, u_half, weights, biases, float(dt),
+                                      batch_tile=batch_tile,
+                                      precision=precision)
 
 
 def _vmap_drive(drive: Callable, th: torch.Tensor) -> torch.Tensor:

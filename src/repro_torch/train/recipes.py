@@ -1,16 +1,173 @@
-"""Experiment recipes (port of the Lorenz96 fleet part of ``repro/train/recipes.py``).
+"""Experiment recipes (port of ``repro/train/recipes.py``).
 
-The HP and Lorenz96 training recipes come with the training slice
-(ROADMAP.md, queue 1).
+The HP-memristor twin (paper Fig. 3) and the Lorenz96 twin (Fig. 4):
+ground truth, derivative-matching warm start, multiple-shooting
+trajectory training on a chosen substrate (``backend="fused_cuda"``
+trains through the hand-written kernels K1 and K2), and the paper's
+evaluation protocols; plus the Lorenz96 fleet-serving scenario.  Each
+recipe takes ``device=`` (default ``cuda``; ``"cpu"`` runs the kernels'
+plain versions) and draws from ``torch.Generator``s seeded from
+``seed``, so the port's weights are not the JAX package's for the same
+seed.
+
+Not ported yet (ROADMAP.md, queue 1): the recurrent-ResNet and
+recurrent-forecaster baselines, the analogue backend matrix and noise
+grid, and the Lyapunov analysis.
+
+CLI (``--device cpu`` runs the kernels' plain versions):
+
+  PYTHONPATH=src python -m repro_torch.train.recipes --twin hp --device cpu
 """
 from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
 
 import torch
 
 from repro_torch.configs.lorenz96_twin import FLEET
-from repro_torch.core.backends import FusedCudaBackend
-from repro_torch.core.twin import TwinFleet, make_autonomous_twin
+from repro_torch.core.backends import FusedCudaBackend, resolve_backend
+from repro_torch.core.losses import dtw, l1, mre
+from repro_torch.core.twin import (TwinFleet, make_autonomous_twin,
+                                   make_driven_twin)
+from repro_torch.data import hp_memristor as hp
+from repro_torch.data import lorenz96 as l96
 from repro_torch.device import resolve_device
+from repro_torch.train import trainer
+from repro_torch.train.optimizer import adam, warmup_cosine_schedule
+
+HP_AMP, HP_FREQ = 2.0, 2.0
+L96_DT = 0.0025
+
+
+# ---------------------------------------------------------------------------
+# HP memristor twin (paper Fig. 3)
+# ---------------------------------------------------------------------------
+
+def train_hp_twin(seed: int = 42, pretrain_steps: int = 400,
+                  train_steps: int = 600, hidden: int = 14,
+                  backend=None, device=None):
+    """Train the HP twin on the sine drive (paper Methods: 500 pts, 1e-3 s).
+
+    ``backend``: training substrate for the trajectory phase (Backend
+    instance or registry name); ``"fused_cuda"`` trains on the serving
+    substrate, K1 forward and K2 backward.  The derivative-matching warm
+    start evaluates the bare field and stays digital.  Returns
+    ``(twin, params, final loss)``."""
+    device = resolve_device(device)
+    ts, xs, _, _ = hp.generate("sine", num_points=500, dt=1e-3,
+                               amp=HP_AMP, freq=HP_FREQ, device=device)
+    ys = xs[:, None]
+    twin = make_driven_twin(1, hp.WAVEFORMS["sine"](amp=HP_AMP, freq=HP_FREQ),
+                            hidden=hidden)
+    params = twin.init(torch.Generator().manual_seed(seed), device=device)
+    params, _ = trainer.pretrain_derivatives(
+        twin.field, params, ts, ys, optimizer=adam(1e-2),
+        num_steps=pretrain_steps)
+    params, hist = trainer.train_twin(
+        twin, params, ts, ys,
+        optimizer=adam(warmup_cosine_schedule(3e-3, 50, train_steps)),
+        num_steps=train_steps, segment_len=50, loss="l1", noise_std=0.002,
+        generator=torch.Generator().manual_seed(seed + 1), backend=backend)
+    return twin, params, float(hist[-1])
+
+
+def hp_waveform_config(waveform: str) -> dict:
+    if waveform == "modulated_sine":
+        return dict(amp=HP_AMP, freq=2 * HP_FREQ)
+    return dict(amp=HP_AMP, freq=HP_FREQ)
+
+
+def eval_hp_twin(twin, params, waveform: str, num_points: int = 500,
+                 backend=None, device=None):
+    """MRE + DTW of the twin's state trajectory vs ground truth on a drive
+    it was NOT trained on (except sine).  ``backend``: optional execution
+    substrate for the same trained weights (default: the twin's own)."""
+    kw = hp_waveform_config(waveform)
+    ts, xw, _, _ = hp.generate(waveform, num_points=num_points, dt=1e-3,
+                               device=device, **kw)
+    drive = hp.WAVEFORMS[waveform](**kw)
+    field_w = dataclasses.replace(twin.field, drive=drive)
+    node_w = dataclasses.replace(twin.node, field=field_w)
+    if backend is not None:
+        node_w = dataclasses.replace(node_w, backend=resolve_backend(backend))
+    with torch.no_grad():
+        pred = node_w.trajectory(params, xw[:1], ts)[:, 0]
+        return {"mre": float(mre(pred, xw)),
+                "dtw": float(dtw(pred, xw) / num_points),
+                "pred": pred, "true": xw, "ts": ts}
+
+
+# ---------------------------------------------------------------------------
+# Lorenz96 twin (paper Fig. 4)
+# ---------------------------------------------------------------------------
+
+def l96_data(num_points: int = 2400, dt: float = L96_DT, device=None):
+    """Normalised Lorenz96 ground truth: (ts, ys, split)."""
+    ts, ys_raw, split = l96.generate(num_points=num_points, dt=dt,
+                                     device=device)
+    ys, _, _ = l96.normalize(ys_raw)
+    return ts, ys, split
+
+
+def train_l96_twin(seed: int = 7, pretrain_steps: int = 5000,
+                   train_steps: tuple = ((60, 600, 1e-3), (200, 600, 4e-4)),
+                   hidden: int = 64, tube_noise: float = 0.03,
+                   data=None, backend=None, device=None):
+    """Noisy-tube derivative pretraining + multiple-shooting curriculum.
+
+    ``train_steps``: ``(segment_len, steps, peak lr)`` per phase.
+    ``backend``: trajectory-phase training substrate (see
+    :func:`repro_torch.train.trainer.segment_loss_fn`).  Returns
+    ``(twin, params)``."""
+    device = resolve_device(device)
+    ts, ys, split = data if data is not None else l96_data(device=device)
+    ts_tr, ys_tr = ts[:split], ys[:split]
+    twin = make_autonomous_twin(6, hidden=hidden)
+    params = twin.init(torch.Generator().manual_seed(seed), device=device)
+
+    tsm, ysm, dys = trainer.finite_difference_derivatives(ts_tr, ys_tr)
+
+    def pre_loss(p, generator):
+        noise = tube_noise * trainer.normal_like(generator, ysm)
+        preds = twin.field(tsm, ysm + noise, p)
+        return torch.mean(torch.abs(preds - dys))
+
+    params, _ = trainer.fit(
+        pre_loss, params,
+        adam(warmup_cosine_schedule(5e-3, 100, pretrain_steps),
+             weight_decay=1e-4),
+        pretrain_steps, generator=torch.Generator().manual_seed(seed + 1))
+
+    for seg, steps, lr in train_steps:
+        params, _ = trainer.train_twin(
+            twin, params, ts_tr, ys_tr,
+            optimizer=adam(warmup_cosine_schedule(lr, 50, steps),
+                           weight_decay=1e-4),
+            num_steps=steps, segment_len=seg, loss="l1", noise_std=0.02,
+            generator=torch.Generator().manual_seed(seed + 2),
+            backend=backend)
+    return twin, params
+
+
+def eval_l96_twin(twin, params, data=None, device=None):
+    """Paper protocol: interpolation = closed loop from t=0 over the
+    training window; extrapolation = forecast from the observation-synced
+    state at the train/test split."""
+    ts, ys, split = data if data is not None else l96_data(device=device)
+    with torch.no_grad():
+        pred_i = twin.simulate(params, ys[0], ts[:split])
+        interp = float(l1(pred_i, ys[:split]))
+        pred_x = twin.simulate(params, ys[split - 1], ts[split - 1:])
+        extrap = float(l1(pred_x[1:], ys[split:]))
+    return {"interp_l1": interp, "extrap_l1": extrap,
+            "pred_extrap": pred_x[1:], "true_extrap": ys[split:]}
+
+
+# ---------------------------------------------------------------------------
+# Lorenz96 fleet serving (the multi-asset scale-up scenario)
+# ---------------------------------------------------------------------------
 
 
 def make_l96_fleet(cfg=None, backend=None) -> TwinFleet:
@@ -54,3 +211,51 @@ def l96_fleet_requests(cfg=None, fleet_size=None, num_batches=1, seed=0,
     for _ in range(num_batches):
         y = torch.randn((n, cfg.state_dim), generator=gen)
         yield (cfg.y0_spread * y).to(device)
+
+
+# ---------------------------------------------------------------------------
+# CLI: train and evaluate a twin on one device
+# ---------------------------------------------------------------------------
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="Train the HP or Lorenz96 twin and report its gate "
+                    "metrics")
+    ap.add_argument("--twin", choices=["hp", "l96"], default="hp")
+    ap.add_argument("--backend", default="fused_cuda",
+                    choices=["digital", "fused_cuda"],
+                    help="trajectory-phase training substrate")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (cpu runs the kernels' plain "
+                         "PyTorch versions)")
+    ap.add_argument("--pretrain-steps", type=int, default=None)
+    ap.add_argument("--train-steps", type=int, default=None)
+    ap.add_argument("--num-points", type=int, default=1200,
+                    help="Lorenz96 window (the paper's is 2400)")
+    args = ap.parse_args(argv)
+    device = resolve_device(args.device)
+    t0 = time.perf_counter()
+    if args.twin == "hp":
+        twin, params, loss = train_hp_twin(
+            pretrain_steps=args.pretrain_steps or 200,
+            train_steps=args.train_steps or 250, backend=args.backend,
+            device=device)
+        print(f"HP twin on {device} ({args.backend}): final loss "
+              f"{loss:.6f} in {time.perf_counter() - t0:.1f} s")
+        for wf in ("sine", "triangular", "rectangular", "modulated_sine"):
+            m = eval_hp_twin(twin, params, wf, device=device)
+            print(f"  {wf:15s} MRE {m['mre']:.4f}  DTW/pt {m['dtw']:.6f}")
+    else:
+        data = l96_data(num_points=args.num_points, device=device)
+        twin, params = train_l96_twin(
+            pretrain_steps=args.pretrain_steps or 1500,
+            train_steps=((60, args.train_steps or 300, 1e-3),), data=data,
+            backend=args.backend, device=device)
+        m = eval_l96_twin(twin, params, data=data)
+        print(f"Lorenz96 twin on {device} ({args.backend}) in "
+              f"{time.perf_counter() - t0:.1f} s: interpolation L1 "
+              f"{m['interp_l1']:.4f}, extrapolation L1 {m['extrap_l1']:.4f}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,287 @@
+"""Training loops for the continuous-time digital twins (port of
+``repro/train/trainer.py``).
+
+Faithful to the paper's Methods: Adam, RK4 ODESolve, adjoint-state
+gradients, an L1 objective, and random state noise as a regulariser
+during training (their ref. 46), plus the JAX package's two practical
+additions:
+
+* multiple-shooting segmentation — the trajectory is split into segments
+  solved from ground-truth initial states;
+* derivative-matching warm start — regress f_theta(x) onto finite-
+  difference derivatives before trajectory training.
+
+The trajectory loss is substrate-selectable (``segment_loss_fn``'s
+``backend=``): the digital path solves the shooting segments as the
+batch of one continuous-adjoint IVP (the JAX package vmaps one solve per
+segment), while
+``backend="fused_cuda"`` makes the segments the batch of one K1 launch
+and differentiates through the reverse-time kernel K2 — training on the
+substrate that serves.
+
+The engines are plain loops: PyTorch runs eagerly, so the JAX package's
+scan-compiled chunks have no counterpart.  Random state noise draws from
+a ``torch.Generator`` handed to ``fit`` (the JAX package splits a
+``jax.random`` key per step), on the CPU and then moved, so one seed
+gives the same noise on every device.
+
+Not ported yet (ROADMAP.md, queue 1): the soft-DTW objectives (kernels
+K5/K6), hardware-aware training (``hw_aware=``) and the baseline
+trainers (``train_forecaster``, ``train_recurrent_resnet``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch.core.backends import (FusedCudaBackend, resolve_backend,
+                                       uniform_dt)
+from repro_torch.core.losses import l1
+from repro_torch.train.optimizer import Optimizer, apply_updates
+from repro_torch.tree import tree_leaves, tree_unflatten
+
+Tree = Any
+
+
+def normal_like(generator: torch.Generator,
+                like: torch.Tensor) -> torch.Tensor:
+    """Standard normal noise of ``like``'s shape from a CPU generator,
+    placed on ``like``'s device."""
+    return torch.randn(like.shape, generator=generator,
+                       dtype=like.dtype).to(like.device)
+
+
+def _step_body(loss_fn: Callable, optimizer: Optimizer, params, opt_state,
+               generator):
+    """One descent step — the shared body of both engines: the loss and
+    its gradient at ``params``, then the optimizer update."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss = loss_fn(tree_unflatten(params, leaves), generator)
+        grads = torch.autograd.grad(loss, leaves)
+    grads = tree_unflatten(params, list(grads))
+    params = tree_unflatten(params, [p.detach() for p in leaves])
+    updates, opt_state = optimizer.update(grads, opt_state, params)
+    return apply_updates(params, updates), opt_state, loss.detach()
+
+
+def fit(loss_fn: Callable, params: Tree, optimizer: Optimizer,
+        num_steps: int, generator: Optional[torch.Generator] = None
+        ) -> tuple[Tree, torch.Tensor]:
+    """Full-batch descent; ``loss_fn(params, generator) -> scalar``.
+
+    The loss history stays on the device and comes back to the host once
+    at the end, as the JAX package's scan engine syncs only at chunk
+    boundaries.  Step semantics are those of :func:`fit_per_step`.
+    Returns ``(params, losses)`` with ``losses`` the (num_steps,) float32
+    history."""
+    opt_state = optimizer.init(params)
+    losses = []
+    for _ in range(num_steps):
+        params, opt_state, loss = _step_body(loss_fn, optimizer, params,
+                                             opt_state, generator)
+        losses.append(loss)
+    if not losses:
+        return params, torch.zeros((0,), dtype=torch.float32)
+    return params, torch.stack(losses)
+
+
+def fit_per_step(loss_fn: Callable, params: Tree, optimizer: Optimizer,
+                 num_steps: int, generator: Optional[torch.Generator] = None
+                 ) -> tuple[Tree, torch.Tensor]:
+    """Reference loop that reads every step's loss back to the host; the
+    equivalence oracle for :func:`fit`."""
+    opt_state = optimizer.init(params)
+    losses = []
+    for _ in range(num_steps):
+        params, opt_state, loss = _step_body(loss_fn, optimizer, params,
+                                             opt_state, generator)
+        losses.append(float(loss))
+    return params, torch.tensor(losses, dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Multiple-shooting segmentation
+# ---------------------------------------------------------------------------
+
+def make_segments(ts: torch.Tensor, ys: torch.Tensor, segment_len: int):
+    """Split (T,)/(T,D) into overlapping shooting segments.
+
+    Returns (ts_seg (S, L+1), ys_seg (S, L+1, D)) where consecutive
+    segments share their boundary point.
+    """
+    T = ts.shape[0]
+    L = segment_len
+    S = (T - 1) // L
+    idx = (torch.arange(S)[:, None] * L
+           + torch.arange(L + 1)[None, :]).to(ts.device)
+    return ts[idx], ys[idx]
+
+
+def _segment_objective(loss: str, preds, ys_seg):
+    """The loss over (S, L+1, D) predictions and targets (only the L1
+    objective is ported)."""
+    if loss != "l1":
+        raise ValueError(loss)
+    return l1(preds.to(torch.float32), ys_seg)
+
+
+def _check_ported(loss: str, hw_aware) -> None:
+    """Refuse what the port does not have yet, before any solve runs."""
+    if loss in ("softdtw", "l1+softdtw"):
+        raise NotImplementedError(
+            f"loss={loss!r}: soft-DTW and its kernels K5/K6 are not ported "
+            f"yet (ROADMAP.md, queue 1, 'Soft-DTW'); use loss='l1'")
+    if hw_aware is not None:
+        raise NotImplementedError(
+            "hw_aware=: hardware-aware training is not ported yet "
+            "(ROADMAP.md, queue 1, 'Hardware-aware training')")
+
+
+def _fused_segment_loss_fn(twin, backend, ts_seg, ys_seg, loss: str,
+                           noise_std: float):
+    """Multiple-shooting loss on the fused CUDA substrate.
+
+    The segments become the kernel's BATCH dimension: one K1 launch
+    integrates all S shooting segments at once (for a driven twin each
+    segment gets its own drive, sampled at its absolute half-step times —
+    the per-twin drive path), and K2 carries the gradients.  Differs from
+    the digital path only by the substrate; the objective, segmentation
+    and noise regularisation are identical."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_ode_mlp import pad_fleet_to_tile
+
+    # honour the twin's solver config: RK4 only (as the serving backend
+    # enforces), with steps_per_interval densifying each segment's grid
+    method = getattr(twin.node, "method", "rk4")
+    if method != "rk4":
+        raise ValueError(
+            f"fused-backend training integrates RK4 only, got {method!r}")
+    sub = int(getattr(twin.node, "steps_per_interval", 1))
+
+    # every segment on one shared-dt line from its own start
+    dt = uniform_dt(ts_seg, "fused-backend training") / sub
+    drive = getattr(twin.field, "drive", None)
+    dev = ts_seg.device
+    if drive is None:
+        uh = backend._u_half(None, backend._grid(ts_seg[0], sub, dev)[0])
+    else:
+        # the drive of each segment at its absolute (fine) half-step times
+        uh = torch.stack([backend._u_half(drive, backend._grid(
+            row, sub, dev)[0]) for row in ts_seg])
+    S = ts_seg.shape[0]
+
+    def loss_fn(params, generator):
+        y0s = ys_seg[:, 0]
+        if noise_std > 0 and generator is not None:
+            y0s = y0s + noise_std * normal_like(generator, y0s)
+        # pad segments up to a tile multiple, as rollout_batch_local does
+        y0p, uhp, bt, _ = pad_fleet_to_tile(y0s, uh, backend.batch_tile)
+        traj = ops.fused_node_rollout(params, y0p, uhp, dt, batch_tile=bt,
+                                      gradient="fused_vjp")
+        preds = traj[::sub, :S].transpose(0, 1)          # (S, L+1, D)
+        return _segment_objective(loss, preds, ys_seg)
+
+    return loss_fn
+
+
+def segment_loss_fn(twin, ts_seg, ys_seg, loss: str = "l1",
+                    noise_std: float = 0.0, backend=None, hw_aware=None):
+    """Loss over shooting segments.
+
+    ``backend``: optional execution substrate (Backend instance or
+    registry name); ``None`` uses the twin's own backend.  The digital
+    substrate batches the segments into one solve
+    (:func:`_batched_segments`); the fused CUDA substrate batches them
+    through one K1 launch with the K2 reverse-time VJP (train where you
+    serve)."""
+    _check_ported(loss, hw_aware)
+    be = resolve_backend(backend) if backend is not None else twin.backend
+    if isinstance(be, FusedCudaBackend):
+        return _fused_segment_loss_fn(twin, be, ts_seg, ys_seg, loss,
+                                      noise_std)
+    if backend is not None:
+        twin = twin.with_backend(be)
+    twin, ts_rel = _batched_segments(twin, ts_seg)
+
+    def loss_fn(params, generator):
+        y0s = ys_seg[:, 0]
+        if noise_std > 0 and generator is not None:
+            y0s = y0s + noise_std * normal_like(generator, y0s)
+        preds = twin.simulate(params, y0s, ts_rel).transpose(0, 1)
+        return _segment_objective(loss, preds, ys_seg)
+
+    return loss_fn
+
+
+def _batched_segments(twin, ts_seg):
+    """The S shooting segments as the batch of ONE solve (the JAX package
+    vmaps one solve per segment): on the segments' shared time grid
+    relative to their start, with a driven twin's drive shifted to each
+    segment's start time, u_s(t) = u(t0_s + t).  Returns the re-bound
+    twin and the (L+1,) relative grid.  The drive then sees t0_s + t
+    instead of the absolute grid point, which differs by float32
+    rounding only.  The grid must be uniform, as on the fused path."""
+    uniform_dt(ts_seg, "segment training")
+    t_start = ts_seg[:, 0]
+    ts_rel = ts_seg - t_start[:, None]
+    drive = getattr(twin.field, "drive", None)
+    if drive is not None:
+        S = ts_seg.shape[0]
+        field = dataclasses.replace(
+            twin.field, drive=lambda t: drive(t_start + t).reshape(S, -1))
+        twin = dataclasses.replace(
+            twin, field=field, node=dataclasses.replace(twin.node,
+                                                        field=field))
+    return twin, ts_rel[0]
+
+
+def train_twin(twin, params, ts: torch.Tensor, ys: torch.Tensor, *,
+               optimizer: Optimizer, num_steps: int,
+               segment_len: int = 50, loss: str = "l1",
+               noise_std: float = 0.0,
+               generator: Optional[torch.Generator] = None,
+               backend=None, hw_aware=None):
+    """Train a twin on one observed trajectory (paper's training setup).
+
+    ``backend`` selects the training substrate (see
+    :func:`segment_loss_fn`): ``backend="fused_cuda"`` (or a
+    ``FusedCudaBackend`` instance) runs every forward and backward solve
+    through the hand-written kernels K1 and K2.  ``generator`` draws the
+    state noise (default: a CPU generator seeded with 0)."""
+    ts_seg, ys_seg = make_segments(ts, ys, segment_len)
+    loss_fn = segment_loss_fn(twin, ts_seg, ys_seg, loss, noise_std,
+                              backend=backend, hw_aware=hw_aware)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    return fit(loss_fn, params, optimizer, num_steps, generator)
+
+
+# ---------------------------------------------------------------------------
+# Derivative-matching warm start (collocation pretraining)
+# ---------------------------------------------------------------------------
+
+def finite_difference_derivatives(ts: torch.Tensor, ys: torch.Tensor):
+    """Central differences on the interior points: (T-2,) ts, ys, dys."""
+    dt = ts[2:] - ts[:-2]
+    dys = (ys[2:] - ys[:-2]) / dt[:, None]
+    return ts[1:-1], ys[1:-1], dys
+
+
+def derivative_matching_loss(field, ts_mid, ys_mid, dys):
+    """Mean |f(t_i, y_i) - dy_i| over the collocation points, the field
+    evaluated on all of them at once (one time per row)."""
+    def loss_fn(params, generator):
+        del generator
+        preds = field(ts_mid, ys_mid, params)
+        return torch.mean(torch.abs(preds - dys))
+    return loss_fn
+
+
+def pretrain_derivatives(field, params, ts, ys, *, optimizer,
+                         num_steps: int):
+    ts_mid, ys_mid, dys = finite_difference_derivatives(ts, ys)
+    loss_fn = derivative_matching_loss(field, ts_mid, ys_mid, dys)
+    return fit(loss_fn, params, optimizer, num_steps)

@@ -185,6 +185,26 @@ def test_fused_backend_steps_per_interval_and_grid_checks():
         be.rollout_batch(state, y0s, ts, method="euler")
 
 
+@pytest.mark.parametrize("ts, want", [
+    (np.arange(500, dtype=np.float32) * np.float32(1e-3), 1e-3),
+    (np.linspace(3.0, 4.0, 11, dtype=np.float32), 0.1),
+    # shooting segments: one step, each row from its own start
+    (np.arange(51) * 0.0025 + np.arange(9)[:, None] * 0.125, 0.0025),
+    (np.array([0.0, 0.1, 0.3]), None),
+    (np.stack([np.linspace(0, 1, 5), np.linspace(0, 2, 5)]), None),
+    (np.array([0.5]), None),
+    (np.zeros(4), None),
+])
+def test_uniform_dt_accepts_only_uniform_grids(ts, want):
+    from repro_torch.core.backends import uniform_dt
+    if want is None:
+        with pytest.raises(ValueError, match="who needs a uniform time grid"):
+            uniform_dt(torch.as_tensor(ts), "who")
+    else:
+        assert uniform_dt(torch.as_tensor(ts), "who") == pytest.approx(
+            want, rel=1e-6)
+
+
 def test_gradients_raise_until_ported_and_direct_backprops():
     sizes = (4, 8, 4)
     twin = ttwin.make_autonomous_twin(4, hidden=8, n_hidden_layers=1)
@@ -193,17 +213,20 @@ def test_gradients_raise_until_ported_and_direct_backprops():
         layer["w"].requires_grad_()
     y0s = torch.full((3, 4), 0.1)
     ts = torch.linspace(0.0, 0.1, 6)
-    with pytest.raises(NotImplementedError, match="K2"):
-        twin.with_backend("fused_cuda").simulate_batch(tp, y0s, ts)
-    with pytest.raises(NotImplementedError, match="adjoint"):
-        twin.simulate_batch(tp, y0s, ts)       # digital, gradient="adjoint"
-    with torch.no_grad():
-        twin.with_backend("fused_cuda").simulate_batch(tp, y0s, ts)
-        twin.simulate_batch(tp, y0s, ts)
     direct = ttwin.make_autonomous_twin(4, hidden=8, n_hidden_layers=1,
                                         gradient="direct")
     direct.simulate_batch(tp, y0s, ts).sum().backward()
-    assert tp[0]["w"].grad is not None and tp[0]["w"].grad.abs().sum() > 0
+    want = tp[0]["w"].grad.clone()
+    assert want.abs().sum() > 0
+    # the fused VJP (K2's plain version here) and the digital continuous
+    # adjoint (the twin's default gradient) now give the gradient too
+    for t in (twin.with_backend("fused_cuda"), twin):
+        tp[0]["w"].grad = None
+        t.simulate_batch(tp, y0s, ts).sum().backward()
+        assert rel(tp[0]["w"].grad.numpy(), want.numpy()) <= 1e-4
+    with torch.no_grad():
+        twin.with_backend("fused_cuda").simulate_batch(tp, y0s, ts)
+        twin.simulate_batch(tp, y0s, ts)
     with pytest.raises(NotImplementedError, match="dopri5"):
         DigitalBackend().rollout(DigitalBackend().program(twin.field, tp),
                                  y0s, ts, method="dopri5")

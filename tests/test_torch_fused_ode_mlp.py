@@ -271,11 +271,12 @@ def test_gradient_modes():
     y0, u, ws, bs = _l96_inputs()
     params = [{"w": w.clone().requires_grad_(), "b": b}
               for w, b in zip(ws, bs)]
-    with pytest.raises(NotImplementedError, match="K2"):
-        tops.fused_node_rollout(params, y0, u, 0.01, batch_tile=4)
+    vjp = tops.fused_node_rollout(params, y0, u, 0.01, batch_tile=4)
+    assert vjp.requires_grad          # "fused_vjp" differentiates via K2
     out = tops.fused_node_rollout(params, y0, u, 0.01, batch_tile=4,
                                   gradient="stopgrad")
     assert not out.requires_grad
+    torch.testing.assert_close(vjp.detach(), out, rtol=0, atol=0)
     with torch.no_grad():      # no gradient needed: the forward runs
         same = tops.fused_node_rollout(params, y0, u, 0.01, batch_tile=4)
     torch.testing.assert_close(same, out, rtol=0, atol=0)
@@ -293,7 +294,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
-    assert _build.sources() == ["fused_ode_mlp"]
+    assert _build.sources() == ["fused_ode_mlp", "fused_ode_mlp_bwd"]
 
 
 def test_library_path_follows_the_source(monkeypatch, tmp_path):
