@@ -11,9 +11,10 @@ result line:
 
 1. environment: a CUDA card is required; prints its name and power
    limit; TF32 is switched off so the plain versions run in full float32;
-2. build: every kernel under ``src/repro_torch/kernels/csrc`` (K1, K2) is
-   compiled with ``nvcc`` (one process per source, in parallel), with
-   ptxas's registers and spills printed;
+2. build: every kernel source under ``src/repro_torch/kernels/csrc`` (K1,
+   K2, K4 with the K3 fill kernel, K7) is compiled with ``nvcc`` (one
+   process per source, in parallel), with ptxas's registers and spills
+   printed;
 3. K1 vs its plain version on the card, at the serving path's shapes,
    in two drive modes, and at a width whose weights need more than 48 KB
    of shared memory; error relative to each trajectory's peak <= 1e-4;
@@ -36,13 +37,42 @@ result line:
    each trajectory phase;
 8. K2 timing with CUDA events at the Lorenz96 training and fleet shapes:
    kernel, plain version (autograd through ``fused_node_rollout_ref``)
-   and the card's bound.
+   and the card's bound;
+9. K3 (the counter noise stream) on the card against its plain version
+   on a 513 x 512 block at two salts, one above 2^31: hash bits, uniforms
+   and stuck masks bitwise, normals within 1e-6;
+10. K4 (fused analogue rollout) against its plain version: the Lorenz96
+   fleet shape (1024 x 200, 6->64->64->6) with float storage and clean
+   reads, the same with uint8 storage, read noise 0.02, 1% stuck cells
+   and drift, the HP shape with per-twin drives and read noise, and the
+   HP shape at P1's settings (shared drive, programming and read noise)
+   for one twin and for 100 (<= 1e-4 of the peak); two calls bitwise
+   equal; float64 conductances bitwise the float32 ones; the noisy
+   rollout split at step 120 and resumed with ``step_offset=120``
+   bitwise equal to the unsplit one;
+11. K7 (crossbar VMM) against its plain version at M=1024, K=513, N=512:
+   float and uint8 storage, clean reads, read noise, stuck cells
+   (<= 1e-4 of the peak); float64 conductances bitwise the float32 ones;
+12. the analogue paths, each with the K1, K3, K4 and K7 counts zeroed just
+   before and read just after: P1, both analogue gates of
+   ``tests/test_twins.py`` for the HP twin of phase 7 on
+   ``analogue_fused_cuda`` (one K4 launch per rollout) and on
+   ``analogue``; P2, the Lorenz96 fleet served by ``serve_fleet`` on
+   ``analogue_fused_cuda``, 2 batches of 1024 x 200 (exactly 2 K4
+   launches; the clean unquantised spec within 1e-4 of ``fused_cuda``;
+   with the noisy faulty spec two serves bitwise equal); P3,
+   ``AnalogueBackend`` with uint8 storage at the scorecard width
+   6->512->512->6 rolling out 1024 twins x 50 steps (exactly 200 K7
+   launches, within 1e-4 of the same path on K7's plain version);
+13. K3, K4 and K7 timing with CUDA events: kernel, plain version, the
+   card's bound, and for K7 one ``torch.matmul`` on the pre-combined pair.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record, the
 last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -55,11 +85,19 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.core.backends import DigitalBackend, FusedCudaBackend  # noqa: E402
+from repro_torch.core.analogue import AnalogueSpec  # noqa: E402
+from repro_torch.core.backends import (AnalogueBackend, DigitalBackend,  # noqa: E402
+                                       FusedAnalogueCudaBackend,
+                                       FusedCudaBackend)
+from repro_torch.core.faults import FAULT_SALT_BASE, make_fault_model  # noqa: E402
+from repro_torch.core.losses import mre  # noqa: E402
 from repro_torch.core.node import mlp_init  # noqa: E402
-from repro_torch.core.twin import make_driven_twin  # noqa: E402
+from repro_torch.core.twin import (TwinFleet, make_autonomous_twin,  # noqa: E402
+                                   make_driven_twin)
 from repro_torch.data import hp_memristor as hp  # noqa: E402
-from repro_torch.kernels import _build, fused_ode_mlp, fused_ode_mlp_bwd, ref  # noqa: E402
+from repro_torch.kernels import (_build, crossbar_vmm, fused_analogue,  # noqa: E402
+                                 fused_ode_mlp, fused_ode_mlp_bwd, noise, ops,
+                                 ref)
 from repro_torch.launch.fleet_serving import serve_fleet  # noqa: E402
 from repro_torch.train import checkpoint, recipes, trainer  # noqa: E402
 from repro_torch.train.optimizer import adam  # noqa: E402
@@ -73,6 +111,17 @@ SEED = 0
 # the power limit printed beside it.
 FP32_PEAK = 67.0e12
 HBM_BW = 3.35e12
+#: Scalar operations of one counter normal (two splitmix32 hashes, two
+#: exponent bitcasts, log, sqrt, cos and three products, each counted as
+#: one operation at the FP32 rate): the bounds count the noise with it.
+OPS_PER_NORMAL = 31
+#: One noisy pair element: two normals, then g+ (1 + s e+) - g- (1 + s e-).
+OPS_PER_NOISY_PAIR = 2 * OPS_PER_NORMAL + 7
+NORMAL_ATOL = 1e-6  # K3 normals, kernel vs plain (precise logf/cosf)
+#: Spin of ``torch.cuda._sleep`` ahead of a short kernel's timed calls
+#: (~11 ms at the H100's 1.755 GHz boost clock; longer than the host
+#: takes to enqueue 50 wrapper calls).
+QUEUE_AHEAD_CYCLES = 20_000_000
 
 
 def check(cond: bool, msg: str) -> None:
@@ -133,11 +182,62 @@ def grads_rel_err(got, want):
     return max(abs_errs), max(rels), rels
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+def bound(flops: float, nbytes: float):
+    """(bound_ms, bound_by): the larger of the operations at the FP32 peak
+    and the bytes at the HBM rate."""
+    t_ops, t_bytes = flops / FP32_PEAK * 1e3, nbytes / HBM_BW * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def k4_work(staged, y0, u, T, noisy: bool):
+    """(FLOP, bytes) of one K4 call: the MLP's products for every twin and
+    evaluation, plus, with read noise, the noisy pairs generated once per
+    evaluation (however many blocks redo them); each input read once, the
+    trajectory written once."""
+    pairs = [tuple(g.shape) for g in staged["gps"]]
+    macs = sum((k - 1) * n for k, n in pairs)
+    B, D = y0.shape
+    flops = 2 * macs * 4 * T * B
+    if noisy:
+        flops += 4 * T * sum(k * n for k, n in pairs) * OPS_PER_NOISY_PAIR
+    moved = tensor_bytes(y0, u, staged["scales"], *staged["gps"],
+                         *staged["gms"])
+    return flops, moved + 4 * (T + 1) * B * D
+
+
+def fault_args(staged) -> dict:
+    return dict(fused_analogue.FAULT_DEFAULTS, **(staged.get("fault") or {}))
+
+
+def k4_plain(staged, y0, u, dt, read_noise, noise_seed, step_offset=0):
+    """K4's plain version on the staged arrays (any device)."""
+    return ref.fused_analogue_rollout_ref(
+        staged["gps"], staged["gms"], staged["scales"], y0, u, dt,
+        fault=fault_args(staged), g_step=staged["g_step"],
+        g_min=staged["g_min"], g_max=staged["g_max"],
+        v_clamp=staged["v_clamp"], read_noise=read_noise,
+        noise_seed=noise_seed, step_offset=step_offset)
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2, queue_ahead: bool = False
+            ) -> float:
+    """Mean ms per call between CUDA events around ``reps`` calls.  With
+    ``queue_ahead`` the card first runs a ~11 ms spin kernel, so the host
+    has enqueued the calls before the start event fires: the events then
+    time the launches back to back, without the Python wrapper's cost
+    (which bounds a kernel of tens of microseconds otherwise)."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queue_ahead:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -435,12 +535,386 @@ def main() -> int:
               f"launches per call 2 (sweep + reduction), library_ms n/a "
               f"(no single PyTorch call computes this VJP)")
 
+    # -- 9. K3 on the card ---------------------------------------------------------
+    shape = (513, 512)
+    xbits = torch.randint(0, 2 ** 32, shape, dtype=torch.int64,
+                          generator=torch.Generator().manual_seed(SEED)).to(dev)
+    check(torch.equal(noise.splitmix32(xbits), ref.splitmix32_ref(xbits)),
+          "K3 splitmix32: kernel bits differ from the plain version")
+    k3_err = 0.0
+    for salt in (FAULT_SALT_BASE + 5, 2 ** 31 + 12345):
+        idx = ref.global_cell_index(shape, 7, 3, 1000, device=dev)
+        u_k = noise.counter_uniform_at(SEED, salt, idx)
+        check(torch.equal(u_k, ref.counter_uniform_at_ref(SEED, salt, idx)),
+              f"K3 uniforms at salt {salt:#x} differ from the plain version")
+        masks = noise.stuck_cell_masks(SEED, salt, shape, 0.01, 0.5, row0=7,
+                                       col0=3, ncols=1000, device=dev)
+        want = ref.stuck_cell_masks_ref(SEED, salt, shape, 0.01, 0.5, row0=7,
+                                        col0=3, ncols=1000, device=dev)
+        check(all(torch.equal(a, b) for a, b in zip(masks, want)),
+              f"K3 stuck masks at salt {salt:#x} differ")
+        z = noise.counter_normal(SEED, salt, shape, device=dev)
+        z_ref = ref.counter_normal_ref(SEED, salt, shape, dev)
+        torch.cuda.synchronize()
+        err = float((z - z_ref).abs().max())
+        k3_err = max(k3_err, err)
+        print(f"K3 vs plain [513x512, salt {salt:#x}]: hash bits, uniforms, "
+              f"stuck masks ({int(masks[0].sum())} stuck) bitwise equal; "
+              f"normals max abs err {err:.3e} (limit {NORMAL_ATOL:g}), "
+              f"bitwise equal: {torch.equal(z, z_ref)}")
+        check(err <= NORMAL_ATOL, "K3 normals disagree with the plain version")
+
+    # -- 10. K4 vs plain version --------------------------------------------------
+    fleet_twin = make_autonomous_twin(6, hidden=64)
+    fleet_params = fleet_twin.init(torch.Generator().manual_seed(SEED),
+                                   device=dev)
+    hp_twin = make_driven_twin(1, None, hidden=14)
+    hp_params = hp_twin.init(torch.Generator().manual_seed(SEED), device=dev)
+    for p in hp_params:
+        p["b"] = (0.1 * torch.randn(p["b"].shape, generator=gen)).to(dev)
+    p1_noisy = AnalogueSpec(prog_noise=0.0436, read_noise=0.02)
+    noisy_faulty = dict(
+        spec=AnalogueSpec(prog_noise=0.0, read_noise=0.02), storage="uint8",
+        faults=make_fault_model(("stuck", dict(rate=0.01)), "drift",
+                                seed=SEED))
+    k4_cases = {
+        # name: (twin, params, backend kwargs, B, T, drive, dt)
+        "fleet_float_clean": (fleet_twin, fleet_params,
+                              dict(spec=AnalogueSpec()), 1024, 200, "none",
+                              0.0025),
+        "fleet_uint8_noise_stuck_drift": (fleet_twin, fleet_params,
+                                          noisy_faulty, 1024, 200, "none",
+                                          0.0025),
+        "hp_per_twin_noise": (hp_twin, hp_params, dict(spec=AnalogueSpec(
+            read_noise=0.02)), 64, 500, "per_twin", 1e-3),
+        # P1's settings: one twin (a partial 8-twin block), the shared
+        # drive (Du = 1, twin stride 0), float storage, programming and
+        # read noise; then a fleet that is not a multiple of 8
+        "hp_p1_B1_shared_noise": (hp_twin, hp_params, dict(spec=p1_noisy),
+                                  1, 500, "shared", 1e-3),
+        "hp_p1_B100_shared_noise": (hp_twin, hp_params, dict(spec=p1_noisy),
+                                    100, 500, "shared", 1e-3),
+    }
+    k4_errs, k4_inputs = {}, {}
+    for case, (tw, prm, kw, B, T, mode, dt) in k4_cases.items():
+        staged = FusedAnalogueCudaBackend(prog_seed=SEED, **kw).program(
+            tw.node.field, prm).extra
+        sigma = kw["spec"].read_noise
+        _, y0, u = make_case(gen, tw.field.sizes, B, T, mode, dev)
+        got = ops.fused_analogue_rollout(staged, y0, u, dt, batch_tile=B,
+                                         read_noise=sigma, noise_seed=SEED)
+        again = ops.fused_analogue_rollout(staged, y0, u, dt, batch_tile=B,
+                                           read_noise=sigma, noise_seed=SEED)
+        want = k4_plain(staged, y0, u, dt, sigma, SEED)
+        torch.cuda.synchronize()
+        check(got.shape == (T + 1, B, tw.field.sizes[-1]),
+              f"K4 {case}: shape {got.shape}")
+        check(bool(torch.isfinite(got).all()), f"K4 {case}: non-finite")
+        a, r = rel_err(got, want)
+        k4_errs[case] = (a, r)
+        k4_inputs[case] = (staged, y0, u, dt, sigma, T)
+        need = fused_analogue.smem_bytes_analogue(tw.field.sizes, sigma > 0)
+        print(f"K4 vs plain [{case}] B={B} T={T} sizes={tw.field.sizes} "
+              f"smem={need} B: max abs err {a:.3e}, of peak {r:.3e} (limit "
+              f"{TOL:g}); repeat bitwise identical: {torch.equal(got, again)}")
+        check(r <= TOL, f"K4 {case}: kernel disagrees with its plain version")
+        check(torch.equal(got, again), f"K4 {case}: two calls differ")
+    # float64 conductances are handed to the kernel as float32
+    staged, y0, u, dt, sigma, T = k4_inputs["hp_p1_B1_shared_noise"]
+    f64 = dict(staged, gps=[g.double() for g in staged["gps"]],
+               gms=[g.double() for g in staged["gms"]])
+    same = torch.equal(
+        ops.fused_analogue_rollout(f64, y0, u, dt, read_noise=sigma,
+                                   noise_seed=SEED),
+        ops.fused_analogue_rollout(staged, y0, u, dt, read_noise=sigma,
+                                   noise_seed=SEED))
+    print(f"K4 float64 conductances bitwise equal to float32: {same}")
+    check(same, "K4: float64 conductances read differently from float32")
+    staged, y0, u, dt, sigma, T = k4_inputs["fleet_uint8_noise_stuck_drift"]
+    full = ops.fused_analogue_rollout(staged, y0, u, dt, read_noise=sigma,
+                                      noise_seed=SEED)
+    k = 120
+    head = ops.fused_analogue_rollout(staged, y0, u[:2 * k + 1], dt,
+                                      read_noise=sigma, noise_seed=SEED)
+    tail = ops.fused_analogue_rollout(staged, head[-1], u[2 * k:], dt,
+                                      read_noise=sigma, noise_seed=SEED,
+                                      step_offset=k)
+    resumed = torch.cat([head, tail[1:]])
+    torch.cuda.synchronize()
+    print(f"K4 split at step {k} and resumed with step_offset={k}: bitwise "
+          f"equal to the unsplit rollout: {torch.equal(resumed, full)}")
+    check(torch.equal(resumed, full), "K4 split-and-resume differs")
+
+    # -- 11. K7 vs plain version ---------------------------------------------------
+    M, K, N = 1024, 513, 512
+    spec = AnalogueSpec()
+    g7 = torch.Generator().manual_seed(SEED + 7)
+    x7 = torch.randn((M, K), generator=g7).to(dev)
+    ip = torch.randint(0, 64, (K, N), generator=g7, dtype=torch.uint8).to(dev)
+    im = torch.randint(0, 64, (K, N), generator=g7, dtype=torch.uint8).to(dev)
+    fp = (spec.g_min + ip.float() * spec.g_step) * (
+        1 + 0.0436 * torch.randn((K, N), generator=g7).to(dev))
+    fm = spec.g_min + im.float() * spec.g_step
+    stuck7 = dict(stuck_rate=0.01, g_max=spec.g_max, g_min=spec.g_min,
+                  fault_seed=SEED, fault_salts=(FAULT_SALT_BASE + 2,
+                                                FAULT_SALT_BASE + 3))
+    noisy7 = dict(read_noise=0.02, noise_seed=SEED, g_min=spec.g_min)
+    k7_cases = {
+        "uint8_clean": ("uint8", {}),
+        "float_clean": ("float", {}),
+        "float_read_noise": ("float", noisy7),
+        "uint8_read_noise": ("uint8", noisy7),
+        "uint8_stuck_drift": ("uint8", dict(stuck7, drift=0.99)),
+        "float_noise_stuck": ("float", dict(noisy7, **stuck7)),
+    }
+    k7_errs = {}
+    for case, (storage, kw) in k7_cases.items():
+        a_, b_ = (ip, im) if storage == "uint8" else (fp, fm)
+        g_step = spec.g_step if storage == "uint8" else None
+        got = crossbar_vmm.crossbar_matmul(x7, a_, b_, inv_scale=1.0,
+                                           g_step=g_step, **kw)
+        want = ref.crossbar_matmul_ref(x7, a_, b_, inv_scale=1.0,
+                                       g_step=g_step, **kw)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"K7 {case}: non-finite")
+        k7_errs[case] = rel_err(got, want)
+        print(f"K7 vs plain [{case}] M={M} K={K} N={N}: max abs err "
+              f"{k7_errs[case][0]:.3e}, of peak {k7_errs[case][1]:.3e} "
+              f"(limit {TOL:g})")
+        check(k7_errs[case][1] <= TOL,
+              f"K7 {case}: kernel disagrees with its plain version")
+    same = torch.equal(
+        crossbar_vmm.crossbar_matmul(x7, fp.double(), fm.double(),
+                                     inv_scale=1.0, **noisy7),
+        crossbar_vmm.crossbar_matmul(x7, fp, fm, inv_scale=1.0, **noisy7))
+    print(f"K7 float64 conductances bitwise equal to float32: {same}")
+    check(same, "K7: float64 conductances read differently from float32")
+
+    # -- 12. the analogue paths ----------------------------------------------------
+    counters = {"K1": fused_ode_mlp, "K3": noise, "K4": fused_analogue,
+                "K7": crossbar_vmm}
+
+    def zero_counts():
+        for mod in counters.values():
+            mod.LAUNCHES = 0
+
+    def read_counts(path, want):
+        torch.cuda.synchronize()
+        got = {k: mod.LAUNCHES for k, mod in counters.items()}
+        print(f"{path}: launches {got}")
+        for k, n in want.items():
+            check(got[k] == n, f"{path}: expected {n} {k} launches, got "
+                               f"{got[k]}")
+        return got
+
+    # P1: the HP twin of phase 7, both analogue gates on both backends
+    path_counts = {}
+    m = recipes.eval_hp_twin(twin, params, "sine", device=dev)
+    y0_hp = m["true"][:1]
+    clean_spec = AnalogueSpec(prog_noise=0.0)
+    noisy_spec = AnalogueSpec(prog_noise=0.0436, read_noise=0.02)
+    for substrate in ("analogue_fused_cuda", "analogue"):
+        if substrate == "analogue":
+            backends = (AnalogueBackend(spec=clean_spec),
+                        AnalogueBackend(spec=noisy_spec, prog_seed=0,
+                                        read_seed=1))
+        else:
+            backends = (FusedAnalogueCudaBackend(spec=clean_spec),
+                        FusedAnalogueCudaBackend(spec=noisy_spec, prog_seed=0,
+                                                 read_seed=1))
+        zero_counts()
+        secs = []
+        with torch.no_grad():
+            for be in backends:
+                t_p = time.perf_counter()
+                out = twin.with_backend(be).simulate(params, y0_hp, m["ts"])
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t_p)
+                if be is backends[0]:
+                    quant = out[:, 0]
+                else:
+                    noisy = out[:, 0]
+        counts = read_counts(
+            f"P1 {substrate}",
+            {"K4": 2 if substrate == "analogue_fused_cuda" else 0, "K1": 0,
+             "K7": 0})
+        path_counts[f"P1_{substrate}"] = counts
+        q_mre = float(mre(quant, m["pred"]))
+        n_mre = float(mre(noisy, m["true"]))
+        print(f"P1 {substrate}: quantisation-only MRE vs digital "
+              f"{q_mre:.4f} (gate < 0.08); prog 0.0436 + read 0.02 MRE vs "
+              f"truth {n_mre:.4f} (gate < 0.3); rollouts of "
+              f"{m['ts'].shape[0] - 1} steps in {secs[0]:.3f} s "
+              f"(quantisation only) and {secs[1]:.3f} s (programming and "
+              f"read noise), deployment included in each")
+        check(q_mre < 0.08, f"P1 {substrate}: quantisation gate")
+        check(n_mre < 0.3, f"P1 {substrate}: noise gate")
+
+    # P2: the Lorenz96 fleet served on K4
+    cfg = recipes.FLEET
+    ts = recipes.l96_fleet_ts()
+
+    def serve(backend, ckpt):
+        fleet_b = recipes.make_l96_fleet(backend=backend)
+        reqs = recipes.l96_fleet_requests(num_batches=n_batches, seed=SEED,
+                                          device=dev)
+        outs, secs = [], []
+        stream = serve_fleet(ckpt, fleet_b, ts, reqs, device=dev)
+        while True:
+            t_b = time.perf_counter()
+            out = next(stream, None)
+            torch.cuda.synchronize()
+            if out is None:
+                return outs, secs
+            secs.append(time.perf_counter() - t_b)
+            outs.append(out)
+
+    p2 = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt:
+        fleet0 = recipes.make_l96_fleet()
+        checkpoint.save_twin(ckpt, fleet0.twin.init(
+            torch.Generator().manual_seed(SEED), device="cpu"))
+        clean_be = FusedAnalogueCudaBackend(
+            spec=AnalogueSpec(prog_noise=0.0, quantize=False),
+            batch_tile=cfg.batch_tile)
+        faulty_be = FusedAnalogueCudaBackend(batch_tile=cfg.batch_tile,
+                                             prog_seed=SEED, read_seed=SEED,
+                                             **noisy_faulty)
+        zero_counts()
+        outs, secs = serve(clean_be, ckpt)
+        path_counts["P2_serve_clean"] = read_counts(
+            "P2 serve_fleet analogue_fused_cuda (clean)",
+            {"K4": n_batches, "K1": 0, "K7": 0})
+        digital, _ = serve(FusedCudaBackend(batch_tile=cfg.batch_tile), ckpt)
+        for i, (o, d, sec) in enumerate(zip(outs, digital, secs)):
+            check(tuple(o.shape) == (cfg.fleet_size, cfg.horizon + 1,
+                                     cfg.state_dim), f"P2 batch {i} shape")
+            a, r = rel_err(o, d)
+            print(f"[{smi}] P2 clean batch {i}: {tuple(o.shape)} in "
+                  f"{sec * 1e3:.3f} ms ({cfg.fleet_size * cfg.horizon / sec:,.0f}"
+                  f" twin-steps/s); vs fused_cuda (K1) max abs err {a:.3e}, "
+                  f"of peak {r:.3e} (limit {TOL:g})")
+            check(r <= TOL, f"P2 batch {i}: analogue_fused_cuda (clean, "
+                            f"unquantised) disagrees with fused_cuda")
+        p2["clean"] = secs
+        zero_counts()
+        serves = [serve(faulty_be, ckpt) for _ in range(2)]
+        path_counts["P2_serve_noisy_faulty_x2"] = read_counts(
+            "P2 serve_fleet analogue_fused_cuda (uint8, read noise 0.02, 1% "
+            "stuck, drift), served twice", {"K4": 2 * n_batches, "K1": 0,
+                                            "K7": 0})
+        check(path_counts["P2_serve_noisy_faulty_x2"]["K3"] > 0,
+              "P2: programming the stuck cells launched no K3 fill")
+        for i, (a_, b_) in enumerate(zip(serves[0][0], serves[1][0])):
+            check(bool(torch.isfinite(a_).all()), f"P2 noisy batch {i}")
+            same = torch.equal(a_, b_)
+            sec = serves[0][1][i]
+            print(f"[{smi}] P2 noisy faulty batch {i}: {sec * 1e3:.3f} ms "
+                  f"({cfg.fleet_size * cfg.horizon / sec:,.0f} twin-steps/s, "
+                  f"programming included); two serves bitwise equal: {same}")
+            check(same, f"P2 noisy batch {i}: two serves differ")
+        p2["noisy"] = serves[0][1] + serves[1][1]
+
+    # P3: the scorecard width on the unfused simulator, K7 per evaluation
+    wide = make_autonomous_twin(6, hidden=512)
+    wide_params = wide.init(torch.Generator().manual_seed(SEED), device=dev)
+    wide_fleet = TwinFleet(wide.with_backend(AnalogueBackend(
+        spec=AnalogueSpec(prog_noise=0.0), storage="uint8", prog_seed=SEED)))
+    y0_wide = (0.5 * torch.randn((1024, 6), generator=gen)).to(dev)
+    ts_wide = torch.linspace(0.0, 50 * cfg.dt, 51)
+    zero_counts()
+    t_p = time.perf_counter()
+    with torch.no_grad():
+        p3 = wide_fleet.rollout_batch(wide_params, y0_wide, ts_wide)
+    path_counts["P3_analogue_scorecard_width"] = read_counts(
+        "P3 AnalogueBackend(uint8) 6->512->512->6, 1024 twins x 50 steps",
+        {"K7": 200, "K4": 0, "K1": 0})
+    p3_sec = time.perf_counter() - t_p
+    real_k7 = crossbar_vmm.crossbar_matmul
+    crossbar_vmm.crossbar_matmul = (
+        lambda x, gp, gm, **kw: ref.crossbar_matmul_ref(x, gp, gm, **kw))
+    try:
+        with torch.no_grad():
+            p3_plain = wide_fleet.rollout_batch(wide_params, y0_wide, ts_wide)
+        torch.cuda.synchronize()
+    finally:
+        crossbar_vmm.crossbar_matmul = real_k7
+    check(bool(torch.isfinite(p3).all()) and tuple(p3.shape) == (1024, 51, 6),
+          f"P3: {tuple(p3.shape)} non-finite or misshapen")
+    p3_err = rel_err(p3, p3_plain)
+    print(f"[{smi}] P3: {tuple(p3.shape)} in {p3_sec:.3f} s; vs the same path "
+          f"on K7's plain version max abs err {p3_err[0]:.3e}, of peak "
+          f"{p3_err[1]:.3e} (limit {TOL:g})")
+    check(p3_err[1] <= TOL, "P3 disagrees with its plain path")
+
+    # -- 13. K3, K4 and K7 timing -----------------------------------------------------
+    k4_times = {}
+    for case in ("fleet_float_clean", "fleet_uint8_noise_stuck_drift"):
+        staged, y0, u, dt, sigma, T = k4_inputs[case]
+        k_ms = cuda_ms(lambda: ops.fused_analogue_rollout(
+            staged, y0, u, dt, read_noise=sigma, noise_seed=SEED), reps=10)
+        p_ms = cuda_ms(lambda: k4_plain(staged, y0, u, dt, sigma, SEED),
+                       reps=2, warmup=1)
+        flops, moved = k4_work(staged, y0, u, T, sigma > 0)
+        b_ms, b_by = bound(flops, moved)
+        k4_times[case] = (k_ms, p_ms, b_ms, b_by)
+        print(f"[{smi}] K4 fused_analogue_rollout [{case}] B=1024 T={T} "
+              f"sizes=(6, 64, 64, 6): kernel_ms {k_ms:.4f}, plain_ms "
+              f"{p_ms:.4f}, bound_ms {b_ms:.4f} ({b_by}: {flops / 1e9:.3f} "
+              f"GFLOP, {moved / 1e6:.3f} MB), launches per request 1, "
+              f"library_ms n/a (no single PyTorch call computes the rollout)")
+    k7_args = dict(inv_scale=1.0, g_step=spec.g_step)
+    k7_call = functools.partial(crossbar_vmm.crossbar_matmul, x7, ip, im,
+                                **k7_args)
+    k7_ms = cuda_ms(k7_call, reps=50, queue_ahead=True)
+    k7_wall_ms = cuda_ms(k7_call, reps=50)
+    k7_plain_ms = cuda_ms(lambda: ref.crossbar_matmul_ref(x7, ip, im,
+                                                          **k7_args),
+                          reps=20, queue_ahead=True)
+    w7 = (ip.float() - im.float()) * spec.g_step
+    k7_lib_ms = cuda_ms(lambda: torch.matmul(x7, w7), reps=50,
+                        queue_ahead=True)
+    k7_flops = 2 * M * K * N
+    k7_bound, k7_by = bound(k7_flops, tensor_bytes(x7, ip, im) + 4 * M * N)
+    print(f"[{smi}] K7 crossbar_matmul [uint8_clean] M={M} K={K} N={N}: "
+          f"kernel_ms {k7_ms:.4f} (per call with the wrapper "
+          f"{k7_wall_ms:.4f}), plain_ms {k7_plain_ms:.4f}, bound_ms "
+          f"{k7_bound:.4f} ({k7_by}: {k7_flops / 1e9:.3f} GFLOP), library_ms "
+          f"{k7_lib_ms:.4f} (torch.matmul on the pre-combined f32 pair, "
+          f"TF32 off), launches per evaluation 1 (P3)")
+    k7n_args = dict(k7_args, **noisy7)
+    k7n_ms = cuda_ms(lambda: crossbar_vmm.crossbar_matmul(x7, ip, im,
+                                                          **k7n_args),
+                     reps=50, queue_ahead=True)
+    k7n_bound, k7n_by = bound(k7_flops + K * N * OPS_PER_NOISY_PAIR,
+                              tensor_bytes(x7, ip, im) + 4 * M * N)
+    print(f"[{smi}] K7 crossbar_matmul [uint8_read_noise] M={M} K={K} N={N}: "
+          f"kernel_ms {k7n_ms:.4f}, bound_ms {k7n_bound:.4f} ({k7n_by})")
+    n3 = shape[0] * shape[1]
+    k3_call = functools.partial(noise.counter_normal, SEED, 5, shape,
+                                device=dev)
+    k3_ms = cuda_ms(k3_call, reps=50, queue_ahead=True)
+    k3_wall_ms = cuda_ms(k3_call, reps=50)
+    k3_plain_ms = cuda_ms(lambda: ref.counter_normal_ref(SEED, 5, shape, dev),
+                          reps=10, queue_ahead=True)
+    k3_bound, k3_by = bound(n3 * OPS_PER_NORMAL, 4 * n3)
+    print(f"[{smi}] K3 counter_normal fill 513x512: kernel_ms {k3_ms:.4f} "
+          f"(per call with the wrapper {k3_wall_ms:.4f}), plain_ms "
+          f"{k3_plain_ms:.4f}, bound_ms {k3_bound:.5f} ({k3_by}), "
+          f"library_ms n/a")
+
     k1_paths = {"serve_fleet": launches, "train_hp_twin": hp_counts[0],
                 "train_l96_twin": l96_counts[0]}
     k2_paths = {"train_hp_twin": hp_counts[1],
                 "train_l96_twin": l96_counts[1]}
+
+    def by_path(key):
+        return {p: c[key] for p, c in path_counts.items() if c[key]}
+
     k_ms, p_ms, b_ms, b_by = k2_times["l96_train_autonomous"]
     fk_ms, fp_ms, fb_ms, fb_by = k2_times["fleet_l96"]
+    c4_ms, c4_plain, c4_bound, c4_by = k4_times["fleet_float_clean"]
+    n4_ms, n4_plain, n4_bound, n4_by = k4_times["fleet_uint8_noise_stuck_drift"]
     record = {"kernels": [{
         "name": "fused_node_rollout",
         "route": "cuda",
@@ -474,6 +948,60 @@ def main() -> int:
                         "plain_ms": fp_ms, "bound_ms": fb_ms,
                         "bound_by": fb_by,
                         "max_rel_err_of_peak": k2_errs["fleet_l96"][1]},
+    }, {
+        "name": "counter_noise",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/counter_noise.cuh",
+        "replaces": "src/repro/kernels/noise.py:46",
+        "launches": sum(by_path("K3").values()),
+        "launches_by_path": by_path("K3"),
+        "in_kernel_of": ["fused_analogue_rollout", "crossbar_matmul"],
+        "shape": "counter_normal fill 513x512",
+        "max_abs_err": k3_err,
+        "ms": k3_ms,
+        "call_ms": k3_wall_ms,
+        "plain_ms": k3_plain_ms,
+        "bound_ms": k3_bound,
+        "bound_by": k3_by,
+        "library_ms": None,
+    }, {
+        "name": "fused_analogue_rollout",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_analogue.cu",
+        "replaces": "src/repro/kernels/fused_analogue.py:208",
+        "launches": sum(by_path("K4").values()),
+        "launches_by_path": by_path("K4"),
+        "shape": "fleet_float_clean B=1024 T=200 6-64-64-6",
+        "max_abs_err": k4_errs["fleet_float_clean"][0],
+        "max_rel_err_of_peak": k4_errs["fleet_float_clean"][1],
+        "ms": c4_ms,
+        "plain_ms": c4_plain,
+        "bound_ms": c4_bound,
+        "bound_by": c4_by,
+        "library_ms": None,
+        "noisy_shape": {"case": "fleet_uint8_noise_stuck_drift",
+                        "ms": n4_ms, "plain_ms": n4_plain,
+                        "bound_ms": n4_bound, "bound_by": n4_by,
+                        "max_rel_err_of_peak":
+                            k4_errs["fleet_uint8_noise_stuck_drift"][1]},
+    }, {
+        "name": "crossbar_matmul",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/crossbar_vmm.cu",
+        "replaces": "src/repro/kernels/crossbar_vmm.py:147",
+        "launches": sum(by_path("K7").values()),
+        "launches_by_path": by_path("K7"),
+        "shape": "uint8_clean M=1024 K=513 N=512",
+        "max_abs_err": k7_errs["uint8_clean"][0],
+        "max_rel_err_of_peak": k7_errs["uint8_clean"][1],
+        "ms": k7_ms,
+        "call_ms": k7_wall_ms,
+        "plain_ms": k7_plain_ms,
+        "bound_ms": k7_bound,
+        "bound_by": k7_by,
+        "library_ms": k7_lib_ms,
+        "noisy_ms": k7n_ms,
+        "noisy_bound_ms": k7n_bound,
     }]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -11,11 +11,17 @@ One trained twin, several substrates, one abstraction:
 ``FusedCudaBackend`` (``"fused_cuda"``) runs the whole RK4 trajectory of
 the fleet in one launch of the hand-written CUDA kernel K1
 (:mod:`repro_torch.kernels.fused_ode_mlp`), the counterpart of the JAX
-package's ``FusedPallasBackend``.  The fleet axis is a batch dimension
-written out, where JAX vmaps.
+package's ``FusedPallasBackend``.  ``AnalogueBackend`` (``"analogue"``)
+deploys the weights on simulated memristor crossbars and integrates
+through them with plain tensor ops (large noise-free reads on the
+crossbar kernel K7); ``FusedAnalogueCudaBackend``
+(``"analogue_fused_cuda"``) runs the same deployment's whole trajectory
+in one launch of K4 (:mod:`repro_torch.kernels.fused_analogue`), the
+counterpart of ``FusedAnalogueBackend``.  The fleet axis is a batch
+dimension written out, where JAX vmaps.
 
 Not ported yet (ROADMAP.md, queue 1): ``rollout_batch_resumed``,
-``dopri5``, the analogue backends, and mesh sharding.
+``dopri5``, the analogue backend's training mode and mesh sharding.
 """
 from __future__ import annotations
 
@@ -26,6 +32,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.adjoint import odeint_adjoint
+from repro_torch.core.analogue import (AnalogueMLPVectorField, AnalogueSpec,
+                                       VerifyConfig, program_mlp,
+                                       program_mlp_with_verify, stage_uint8)
+from repro_torch.core.faults import FaultModel, apply_faults_to_mlp
 from repro_torch.core.ode import odeint
 
 Params = Any
@@ -237,12 +247,178 @@ class FusedCudaBackend(BaseBackend):
         return traj[::sub, :B].transpose(0, 1)
 
 
+def _program_arrays(backend, params):
+    """The deployment both analogue backends share: program the crossbars
+    from ``params`` with the backend's generator seed, through the
+    write-physics simulation (stuck cells, failed pulses, write-verify)
+    when ``faults`` or ``verify`` is set.  Returns (progs, reports)."""
+    if backend.storage not in ("float", "uint8"):
+        raise ValueError(
+            f"{type(backend).__name__} storage={backend.storage!r}; have "
+            f"'float', 'uint8'")
+    if params is None:
+        raise ValueError(
+            f"{type(backend).__name__} needs params to program the crossbars")
+    gen = torch.Generator().manual_seed(int(backend.prog_seed))
+    if backend.faults is not None or backend.verify is not None:
+        # one code path simulates the write physics: naive faulty
+        # programming is write-verify with zero retries
+        vc = (backend.verify if backend.verify is not None
+              else VerifyConfig(max_retries=0))
+        progs, reports = program_mlp_with_verify(
+            gen, params, backend.spec, faults=backend.faults, verify=vc)
+        return tuple(progs), reports
+    return tuple(program_mlp(gen, params, backend.spec)), None
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class AnalogueBackend(BaseBackend):
+    """Deploys the MLP onto simulated differential crossbar pairs.
+
+    ``program`` performs the paper's deployment (differential conductance
+    mapping, 6-bit quantisation, programming noise drawn from a
+    ``torch.Generator`` seeded with ``prog_seed``, frozen); ``apply`` and
+    ``rollout`` then read through the arrays, re-drawing read noise per
+    evaluation from ``read_seed`` and the time stamp (None = noise-free
+    reads).  The weights no longer exist as parameters afterwards
+    (``ExecState.params is None``).  ``progs`` short-circuits programming
+    with already-written crossbars (``deploy_analogue`` uses it).
+
+    ``storage="uint8"`` also stages each array's 6-bit level indices
+    (needs ``prog_noise=0``): large noise-free reads then run on K7 with
+    the dequantisation in the kernel.  The port's fleet reads are one 2-D
+    product over the fleet, so fleets of arrays at or above
+    ``KERNEL_DISPATCH_MIN_CELLS`` reach K7 (the JAX package's vmapped
+    reads are 1-D and stay on jnp; the results are the same).
+
+    ``faults`` degrades the array with the composed fault model (stuck
+    cells, failed pulses, a drift snapshot after ``n_reads`` reads);
+    ``verify`` programs through closed-loop write–verify.  Either one
+    surfaces the per-layer ``RepairReport`` list through
+    ``ExecState.extra["repair_reports"]``.
+    """
+
+    name = "analogue"
+    spec: AnalogueSpec = AnalogueSpec()
+    prog_seed: int = 0
+    read_seed: Optional[int] = None
+    progs: Optional[tuple] = None
+    storage: str = "float"          # "float" | "uint8" level indices
+    faults: Optional[FaultModel] = None
+    verify: Optional[VerifyConfig] = None
+    n_reads: int = 0                # drift snapshot: reads already served
+
+    def program(self, field: Callable, params: Params) -> ExecState:
+        if (self.storage == "uint8" and self.faults is not None
+                and self.faults.drift is not None):
+            raise ValueError(
+                "AnalogueBackend: conductance drift moves cells off the "
+                "6-bit level grid, so storage='uint8' cannot carry a "
+                "drift snapshot — use float storage, or "
+                "FusedAnalogueCudaBackend whose kernel drifts in-kernel")
+        progs, reports = self.progs, None
+        if progs is None:
+            progs, reports = _program_arrays(self, params)
+            if self.faults is not None and self.faults.drift is not None:
+                drift_only = dataclasses.replace(
+                    self.faults, stuck=None, write_fail=None)
+                progs = tuple(apply_faults_to_mlp(
+                    progs, drift_only, self.spec, n_reads=self.n_reads))
+        elif self.storage not in ("float", "uint8"):
+            raise ValueError(
+                f"AnalogueBackend storage={self.storage!r}; have "
+                f"'float', 'uint8'")
+        if self.storage == "uint8":
+            progs = tuple(stage_uint8(p, self.spec) for p in progs)
+        a_field = AnalogueMLPVectorField(
+            progs=tuple(progs), spec=self.spec,
+            drive=getattr(field, "drive", None), read_seed=self.read_seed)
+        extra = None if reports is None else {"repair_reports": reports}
+        return ExecState(field=a_field, params=None, extra=extra)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class FusedAnalogueCudaBackend(FusedCudaBackend):
+    """The analogue substrate on one kernel: K4 runs the whole RK4
+    trajectory of the fleet with the crossbar read semantics inside
+    (counterpart of the JAX package's ``FusedAnalogueBackend``), while
+    ``program`` stays the paper's deployment exactly: the same programming
+    as :class:`AnalogueBackend`, so the two hold the same conductances for
+    the same ``prog_seed``.
+
+    ``storage="uint8"`` deploys the 6-bit level indices instead of float
+    conductances (needs ``prog_noise=0``).  Read noise (``spec.read_noise``)
+    is re-drawn per crossbar evaluation from the counter stream keyed on
+    ``read_seed``: deterministic and replayable, equal in distribution to
+    :class:`AnalogueBackend`'s reads, not the same numbers.  ``faults``
+    are baked into the programmed arrays (the physical array) and
+    re-derived in the kernel (stuck cells, idempotent) with live drift
+    that advances with the step count from ``n_reads``.
+
+    Serving only: the rollout is detached and float32 whatever
+    ``gradient`` says.  ``trainable=True`` (the JAX package's
+    hardware-aware training mode) raises ``NotImplementedError``.
+    ``apply`` keeps the plain crossbar read of the programmed field.
+    """
+
+    name = "analogue_fused_cuda"
+    spec: AnalogueSpec = AnalogueSpec()
+    prog_seed: int = 0
+    read_seed: int = 0
+    storage: str = "float"          # "float" | "uint8" level indices
+    faults: Optional[FaultModel] = None
+    verify: Optional[VerifyConfig] = None
+    n_reads: int = 0                # reads already served before t0 (drift)
+    trainable: bool = False
+
+    def program(self, field: Callable, params: Params) -> ExecState:
+        if self.trainable:
+            raise NotImplementedError(
+                "FusedAnalogueCudaBackend(trainable=True): hardware-aware "
+                "training is not ported yet (ROADMAP.md, queue 1 item 4, "
+                "'Hardware-aware training'); train on 'fused_cuda' and "
+                "deploy here")
+        progs, reports = _program_arrays(self, params)
+        staged = {
+            "scales": torch.stack([p["scale"] for p in progs]),
+            "g_step": None,
+            "g_min": self.spec.g_min,
+            "g_max": self.spec.g_max,
+            "v_clamp": self.spec.v_clamp,
+        }
+        if self.faults is not None:
+            staged["fault"] = self.faults.kernel_args(self.n_reads)
+        if reports is not None:
+            staged["repair_reports"] = reports
+        if self.storage == "uint8":
+            progs = tuple(stage_uint8(p, self.spec) for p in progs)
+            staged["gps"] = [p["gp_idx"] for p in progs]
+            staged["gms"] = [p["gm_idx"] for p in progs]
+            staged["g_step"] = self.spec.g_step
+        else:
+            staged["gps"] = [p["gp"].to(torch.float32) for p in progs]
+            staged["gms"] = [p["gm"].to(torch.float32) for p in progs]
+        a_field = AnalogueMLPVectorField(
+            progs=progs, spec=self.spec, drive=getattr(field, "drive", None))
+        return ExecState(field=a_field, params=None, extra=staged)
+
+    def _solve(self, state: ExecState, y0s, uh, dt, bt, gradient):
+        """The fused analogue solve on K4, detached for every ``gradient``."""
+        del gradient
+        from repro_torch.kernels import ops
+        return ops.fused_analogue_rollout(
+            state.extra, y0s, uh, dt, batch_tile=bt,
+            read_noise=self.spec.read_noise, noise_seed=self.read_seed)
+
+
 DEFAULT_BACKEND = DigitalBackend()
 
 #: Registry of substrate names accepted anywhere a Backend is expected.
 BACKENDS = {
     "digital": DigitalBackend,
     "fused_cuda": FusedCudaBackend,
+    "analogue": AnalogueBackend,
+    "analogue_fused_cuda": FusedAnalogueCudaBackend,
 }
 
 

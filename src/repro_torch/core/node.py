@@ -18,7 +18,6 @@ from typing import Any, Callable, Optional, Sequence
 
 import torch
 
-from repro_torch.core.backends import resolve_backend
 from repro_torch.device import resolve_device
 
 Params = list
@@ -67,17 +66,20 @@ class MLPVectorField:
         return mlp_init(generator, self.sizes, device=device)
 
     def __call__(self, t, y: torch.Tensor, params: Params) -> torch.Tensor:
-        if self.drive is not None:
-            u = torch.as_tensor(self.drive(t), dtype=y.dtype,
-                                device=y.device)
-            t_shape = torch.as_tensor(t).shape
-            u = u.reshape(*t_shape, -1) if t_shape else torch.atleast_1d(u)
-            if u.ndim < y.ndim:
-                u = u.expand(*y.shape[:-1], u.shape[-1])
-            inp = torch.cat([u, y], dim=-1)
-        else:
-            inp = y
-        return mlp_apply(params, inp)
+        return mlp_apply(params, field_input(self.drive, t, y))
+
+
+def field_input(drive: Optional[Callable], t, y: torch.Tensor) -> torch.Tensor:
+    """The MLP input of a vector field: ``[u(t), y]`` (u broadcast over the
+    rows of ``y`` when shared), or ``y`` when ``drive`` is None."""
+    if drive is None:
+        return y
+    u = torch.as_tensor(drive(t), dtype=y.dtype, device=y.device)
+    t_shape = torch.as_tensor(t).shape
+    u = u.reshape(*t_shape, -1) if t_shape else torch.atleast_1d(u)
+    if u.ndim < y.ndim:
+        u = u.expand(*y.shape[:-1], u.shape[-1])
+    return torch.cat([u, y], dim=-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +111,7 @@ class NeuralODE:
     def trajectory(self, params: Params, y0: torch.Tensor,
                    ts: torch.Tensor) -> torch.Tensor:
         """Solve the IVP, returning y at every ts (leading axis len(ts))."""
+        from repro_torch.core.backends import resolve_backend
         backend = resolve_backend(self.backend)
         state = backend.program(self.field, params)
         return backend.rollout(state, y0, ts, **self._solver_kw())
@@ -118,6 +121,7 @@ class NeuralODE:
                          drive_params=None) -> torch.Tensor:
         """Fleet solve: N initial conditions (and optionally per-twin
         drive parameters) in one program, (N, len(ts), D)."""
+        from repro_torch.core.backends import resolve_backend
         backend = resolve_backend(self.backend)
         state = backend.program(self.field, params)
         return backend.rollout_batch(state, y0s, ts,

@@ -1,21 +1,22 @@
 """Digital-twin façade (port of ``repro/core/twin.py``).
 
 A twin = (vector field, integrator, gradient mode) + a pluggable
-execution backend (digital tensor ops or the fused CUDA kernel — see
-:mod:`repro_torch.core.backends`).  ``TwinFleet`` scales it to N
-independent twins in one program.
+execution backend (digital tensor ops, the fused CUDA kernel, or the
+analogue crossbars — see :mod:`repro_torch.core.backends`).
+``TwinFleet`` scales it to N independent twins in one program.
 
-Not ported yet: ``deploy_analogue`` and ``rollout_batch_resumed``
-(ROADMAP.md, queue 1).
+Not ported yet: ``rollout_batch_resumed`` (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Callable, Optional
 
 import torch
 
-from repro_torch.core.backends import resolve_backend
+from repro_torch.core.analogue import AnalogueSpec, program_mlp
+from repro_torch.core.backends import AnalogueBackend, resolve_backend
 from repro_torch.core.node import MLPVectorField, NeuralODE
 from repro_torch.core.ode import odeint
 
@@ -38,7 +39,8 @@ class DigitalTwin:
 
     def with_backend(self, backend) -> "DigitalTwin":
         """The same twin executing on another substrate (a Backend
-        instance or a registry name: 'digital', 'fused_cuda')."""
+        instance or a registry name: 'digital', 'fused_cuda', 'analogue',
+        'analogue_fused_cuda')."""
         backend = resolve_backend(backend)
         return dataclasses.replace(
             self, node=dataclasses.replace(self.node, backend=backend))
@@ -56,6 +58,24 @@ class DigitalTwin:
         return self.node.trajectory_batch(params, y0s, ts,
                                           drive_family=drive_family,
                                           drive_params=drive_params)
+
+    def deploy_analogue(self, prog_seed: int, params: Params,
+                        spec: AnalogueSpec,
+                        read_seed: Optional[int] = None) -> "DigitalTwin":
+        """Deprecated: use ``twin.with_backend(AnalogueBackend(spec=spec,
+        prog_seed=..., read_seed=...))`` and keep passing ``params``.
+
+        Kept as a thin shim: programs the crossbars now (programming noise
+        from a generator seeded with ``prog_seed``) so the legacy
+        ``simulate(None, y0, ts)`` call pattern still works."""
+        warnings.warn(
+            "DigitalTwin.deploy_analogue is deprecated; use "
+            "twin.with_backend(AnalogueBackend(...)) instead",
+            DeprecationWarning, stacklevel=2)
+        progs = tuple(program_mlp(torch.Generator().manual_seed(
+            int(prog_seed)), params, spec))
+        return self.with_backend(
+            AnalogueBackend(spec=spec, read_seed=read_seed, progs=progs))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,9 @@
 """Public wrappers around the port's kernels (port of ``repro/kernels/ops.py``).
 
-So far the fused neural-ODE rollout (K1), its fused VJP (K2) and the
-time-grid helpers they are fed by.  The crossbar, analogue and soft-DTW
-ops come with later slices (ROADMAP.md, queue 2).
+The fused neural-ODE rollout (K1), its fused VJP (K2), the time-grid
+helpers they are fed by, the crossbar reads (K7) and the fused analogue
+rollout (K4).  The soft-DTW ops come with a later slice (ROADMAP.md,
+queue 2).
 """
 from __future__ import annotations
 
@@ -11,6 +12,10 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.analogue import (AnalogueSpec, conductance_pair,
+                                       level_indices)
+from repro_torch.kernels import crossbar_vmm as _k7
+from repro_torch.kernels import fused_analogue as _k4
 from repro_torch.kernels import fused_ode_mlp as _k1
 from repro_torch.kernels import fused_ode_mlp_bwd as _k2
 
@@ -120,3 +125,135 @@ def sample_drive_window(drive: Callable, t0: float, dt: float,
     th = half_step_times(t0, dt, num_steps, start_step, device=device)
     u = _vmap_drive(drive, th)
     return u[..., None] if u.ndim == th.ndim else u
+
+
+# ---------------------------------------------------------------------------
+# Crossbar VMM (K7)
+# ---------------------------------------------------------------------------
+
+def _require_2d_float(op: str, name: str, x: torch.Tensor) -> None:
+    if x.ndim != 2:
+        raise ValueError(f"{op}: {name} must be 2-D, got shape "
+                         f"{tuple(x.shape)}")
+    if not torch.is_floating_point(x):
+        raise ValueError(
+            f"{op}: {name} has non-floating dtype {x.dtype}; cast it to "
+            f"a floating dtype first")
+
+
+def _fault_kernel_kwargs(fault: dict | None, spec: AnalogueSpec,
+                         layer: int) -> dict:
+    """A ``FaultModel.kernel_args()`` dict as K7's arguments: the
+    (layer, pair) stuck salts of the core convention, plus the drift
+    snapshot factor (one VMM has a fixed read count, so the power law
+    collapses to one multiplier; only the fused rollout advances it
+    live)."""
+    if not fault:
+        return {}
+    drift = 1.0
+    if fault.get("drift_nu", 0.0) > 0.0:
+        drift = (1.0 + fault.get("drift_n0", 0)
+                 / fault["drift_tau"]) ** (-fault["drift_nu"])
+    base = fault.get("salt_base", 0)
+    return {
+        "stuck_rate": fault.get("stuck_rate", 0.0),
+        "stuck_on_frac": fault.get("stuck_on_frac", 0.5),
+        "fault_seed": fault.get("fault_seed", 0),
+        "fault_salts": (base + 2 * layer, base + 2 * layer + 1),
+        "drift": drift,
+        "g_max": spec.g_max,
+    }
+
+
+def crossbar_vmm(prog: dict, x: torch.Tensor, spec: AnalogueSpec, *,
+                 read_noise: float | None = None, noise_seed: int = 0,
+                 fault: dict | None = None, layer: int = 0) -> torch.Tensor:
+    """Analogue crossbar read of float conductances through K7.
+
+    ``read_noise`` overrides ``spec.read_noise`` (None = the spec's) with
+    the deterministic counter stream keyed on ``noise_seed``; ``fault`` (a
+    ``FaultModel.kernel_args()`` dict) injects stuck cells and a drift
+    snapshot at the device array addressed by ``layer``.  The rescale by
+    ``prog["scale"]`` (a tensor) and the clamp, which acts in post-scale
+    units, happen outside the kernel, as in the JAX package."""
+    _require_2d_float("crossbar_vmm", "x", x)
+    _require_2d_float("crossbar_vmm", "prog['gp']", prog["gp"])
+    _require_2d_float("crossbar_vmm", "prog['gm']", prog["gm"])
+    sigma = spec.read_noise if read_noise is None else read_noise
+    y = _k7.crossbar_matmul(
+        x, prog["gp"], prog["gm"], inv_scale=1.0, g_step=None, clamp=None,
+        read_noise=float(sigma), noise_seed=noise_seed, g_min=spec.g_min,
+        **_fault_kernel_kwargs(fault, spec, layer)) / prog["scale"]
+    if spec.v_clamp is not None:
+        y = torch.clamp(y, -spec.v_clamp, spec.v_clamp)
+    return y
+
+
+def crossbar_vmm_quantized(x: torch.Tensor, gp_idx: torch.Tensor,
+                           gm_idx: torch.Tensor, spec: AnalogueSpec, scale,
+                           *, read_noise: float | None = None,
+                           noise_seed: int = 0, fault: dict | None = None,
+                           layer: int = 0) -> torch.Tensor:
+    """Quantised-storage read through K7: uint8 level indices, dequantised
+    in the kernel; noisy or faulty reads rebuild the absolute conductances
+    from ``spec.g_min`` there.  Same noise and fault contract as
+    :func:`crossbar_vmm`."""
+    _require_2d_float("crossbar_vmm_quantized", "x", x)
+    for name, idx in (("gp_idx", gp_idx), ("gm_idx", gm_idx)):
+        if idx.ndim != 2 or idx.dtype != torch.uint8:
+            raise ValueError(
+                f"crossbar_vmm_quantized: {name} must be 2-D uint8 level "
+                f"indices, got shape {tuple(idx.shape)} dtype {idx.dtype}")
+    sigma = spec.read_noise if read_noise is None else read_noise
+    y = _k7.crossbar_matmul(
+        x, gp_idx, gm_idx, inv_scale=1.0, g_step=float(spec.g_step),
+        clamp=None, read_noise=float(sigma), noise_seed=noise_seed,
+        g_min=spec.g_min, **_fault_kernel_kwargs(fault, spec, layer)) / scale
+    if spec.v_clamp is not None:
+        y = torch.clamp(y, -spec.v_clamp, spec.v_clamp)
+    return y
+
+
+def quantize_to_levels(w: torch.Tensor, spec: AnalogueSpec):
+    """Map weights to (gp_idx, gm_idx, scale) uint8 level tensors."""
+    gp, gm, scale = conductance_pair(w, spec)
+    return level_indices(gp, spec), level_indices(gm, spec), scale
+
+
+# ---------------------------------------------------------------------------
+# Fused analogue rollout (K4)
+# ---------------------------------------------------------------------------
+
+def fused_analogue_rollout(staged: dict, y0: torch.Tensor,
+                           u_half: torch.Tensor, dt: float, *,
+                           batch_tile: int = 64, read_noise: float = 0.0,
+                           noise_seed: int = 0,
+                           step_offset: int = 0) -> torch.Tensor:
+    """Whole-trajectory analogue RK4 solve on K4.
+
+    ``staged`` is the deployment dict that ``FusedAnalogueCudaBackend.program``
+    builds (or one assembled by hand): ``gps``/``gms`` per-layer (K_l+1,
+    N_l) pairs, float32 or uint8 level indices (bias row last); ``scales``
+    (L,); ``g_step`` (None = float storage); ``g_min``, ``g_max``,
+    ``v_clamp``; optional ``fault`` (``FaultModel.kernel_args()``).
+
+    Inference only: every input is detached and the trajectory carries no
+    gradient (train digitally, deploy analogue).  ``step_offset`` (the
+    global step of ``y0``) makes a resumed noisy or drifting rollout
+    replay the uninterrupted one."""
+    _require_2d_float("fused_analogue_rollout", "y0", y0)
+    if not torch.is_floating_point(u_half):
+        raise ValueError(
+            f"fused_analogue_rollout: u_half has non-floating dtype "
+            f"{u_half.dtype}; cast it to a floating dtype")
+    with torch.no_grad():
+        out = _k4.fused_analogue_rollout(
+            [g.detach() for g in staged["gps"]],
+            [g.detach() for g in staged["gms"]],
+            torch.as_tensor(staged["scales"]).detach(), y0.detach(),
+            u_half.detach(), float(dt), g_step=staged.get("g_step"),
+            g_min=staged.get("g_min", 0.0), g_max=staged.get("g_max", 0.0),
+            fault=staged.get("fault"), v_clamp=staged.get("v_clamp"),
+            read_noise=float(read_noise), noise_seed=int(noise_seed),
+            step_offset=int(step_offset), batch_tile=batch_tile)
+    return out.detach()

@@ -1,15 +1,20 @@
 """Plain PyTorch versions of the port's kernels (port of ``repro/kernels/ref.py``).
 
 Each function here computes what a hand-written kernel computes, with
-stock tensor ops.  The kernel wrappers use them for CPU tensors, the CPU
-tests hold them against the JAX package, and ``chip_smoke.py`` holds
-each kernel against them on the card.
+stock tensor ops on whatever device its tensors lie on.  The kernel
+wrappers use them for CPU tensors, the CPU tests hold them against the
+JAX package, and ``chip_smoke.py`` holds each kernel against them on the
+card.  Sections: the fused RK4 rollout and its VJP (K1, K2), the counter
+noise stream (K3), the crossbar VMM (K7) and the fused analogue rollout
+(K4).
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
+
+F32 = torch.float32
 
 
 def mlp_fwd(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
@@ -99,3 +104,300 @@ def fused_node_rollout_bwd_ref(traj: torch.Tensor, u_half: torch.Tensor,
         dws = [acc + d for acc, d in zip(dws, dws_t)]
         dbs = [acc + d for acc, d in zip(dbs, dbs_t)]
     return a + g[0], dws, dbs
+
+
+# ---------------------------------------------------------------------------
+# counter noise (K3): uint32 streams held in int64
+# ---------------------------------------------------------------------------
+#
+# PyTorch has no full uint32 arithmetic, so a uint32 value lives in an int64
+# tensor masked to 32 bits; each product by a 32-bit constant is split in
+# 16-bit halves so that no intermediate passes 2^63.  The results are the
+# JAX package's bit for bit (``repro/kernels/noise.py``).
+
+U32_MASK = 0xFFFF_FFFF
+#: Offset separating a stuck-cell decision draw from its polarity draw.
+POLARITY_SALT_OFFSET = 0x0080_0000
+_GOLDEN = 0x9E37_79B9
+_MIX1, _MIX2 = 0x7FEB_352D, 0x846C_A68B
+_H2_SALT = 0x85EB_CA6B
+#: Box-Muller's 2*pi as JAX forms it (rounded to float32 where used).
+TWO_PI = 2.0 * 3.14159265358979
+#: Tile of the reference crossbar kernel: its read-noise salt is per
+#: 128 x 128 tile of G, with element ids local to the tile.
+CROSSBAR_TILE = 128
+
+
+def _mul32(x, c: int):
+    """(x * c) mod 2^32 for x in [0, 2^32): a Python int or an int64 tensor."""
+    if isinstance(x, int):
+        return (x * c) & U32_MASK
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & U32_MASK
+
+
+def splitmix32_ref(x):
+    """Splitmix32 finaliser on uint32 values (a Python int or an int64
+    tensor; bits above 32 are dropped first)."""
+    x = x & U32_MASK
+    x = _mul32(x ^ (x >> 16), _MIX1)
+    x = _mul32(x ^ (x >> 15), _MIX2)
+    return x ^ (x >> 16)
+
+
+def stream_base(seed: int, salt):
+    """The stream's key ``splitmix32(seed * 0x9E3779B9 + splitmix32(salt))``;
+    ``salt`` a Python int or an int64 tensor of per-element salts."""
+    mixed = _mul32(int(seed) & U32_MASK, _GOLDEN) + splitmix32_ref(salt)
+    return splitmix32_ref(mixed & U32_MASK)
+
+
+def bits_to_unit_ref(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 (in int64) -> float32 uniform in (0, 1]: the exponent bitcast
+    ``2 - float((bits >> 9) | 0x3F800000)``, exact."""
+    f = ((bits >> 9) | 0x3F80_0000).to(torch.int32).view(F32)
+    return 2.0 - f
+
+
+def counter_uniform_at_ref(seed: int, salt, idx: torch.Tensor) -> torch.Tensor:
+    """Uniform (0, 1] float32 samples at explicit element ids ``idx``."""
+    idx = idx.to(torch.int64) & U32_MASK
+    return bits_to_unit_ref(splitmix32_ref(stream_base(seed, salt) ^ idx))
+
+
+def counter_normal_at_ref(seed: int, salt, idx: torch.Tensor) -> torch.Tensor:
+    """Standard normal float32 samples at element ids ``idx``: Box-Muller
+    over two chained hashes, ``sqrt(-2 log u1) * cos(2 pi u2)``."""
+    idx = idx.to(torch.int64) & U32_MASK
+    h1 = splitmix32_ref(stream_base(seed, salt) ^ idx)
+    h2 = splitmix32_ref(h1 ^ _H2_SALT)
+    u1, u2 = bits_to_unit_ref(h1), bits_to_unit_ref(h2)
+    two_pi = torch.tensor(TWO_PI, dtype=F32, device=u2.device)
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(two_pi * u2)
+
+
+def counter_normal_ref(seed: int, salt: int, shape, device) -> torch.Tensor:
+    """``counter_normal_at_ref`` at the row-major flat ids of ``shape``."""
+    n = 1
+    for s in shape:
+        n *= int(s)
+    idx = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+    return counter_normal_at_ref(seed, salt, idx)
+
+
+def global_cell_index(shape, row0=0, col0=0, ncols=None,
+                      device=None) -> torch.Tensor:
+    """Global flat ids (uint32 in int64) of a 2-D block at (row0, col0) of
+    a logically (?, ncols) array: ``(row0 + r) * ncols + (col0 + c)``."""
+    ncols = int(shape[1] if ncols is None else ncols) & U32_MASK
+    rr = (torch.arange(shape[0], dtype=torch.int64, device=device)
+          + int(row0)) & U32_MASK
+    cc = (torch.arange(shape[1], dtype=torch.int64, device=device)
+          + int(col0)) & U32_MASK
+    return (_mul32(rr, ncols)[:, None] + cc[None, :]) & U32_MASK
+
+
+def stuck_cell_masks_ref(seed: int, salt: int, shape, rate: float,
+                         on_frac: float = 0.5, *, row0=0, col0=0, ncols=None,
+                         device=None):
+    """(is_stuck, stuck_on) boolean fields of one device array, keyed by
+    the global cell ids: a cell is stuck where its uniform is below
+    ``rate`` (both rounded to float32), and stuck at G_on where its
+    polarity draw is below ``on_frac``."""
+    idx = global_cell_index(shape, row0, col0, ncols, device)
+    r = torch.tensor(rate, dtype=F32, device=device)
+    f = torch.tensor(on_frac, dtype=F32, device=device)
+    is_stuck = counter_uniform_at_ref(seed, salt, idx) < r
+    stuck_on = counter_uniform_at_ref(
+        seed, int(salt) + POLARITY_SALT_OFFSET, idx) < f
+    return is_stuck, stuck_on
+
+
+def pin_stuck_ref(g: torch.Tensor, seed: int, salt: int, rate: float,
+                  on_frac: float, g_on: float, g_off: float) -> torch.Tensor:
+    """``g`` (a whole 2-D array) with its stuck cells pinned at ``g_on`` or
+    ``g_off``."""
+    is_stuck, stuck_on = stuck_cell_masks_ref(seed, salt, tuple(g.shape),
+                                              rate, on_frac, device=g.device)
+    val = torch.where(stuck_on, torch.tensor(g_on, dtype=F32, device=g.device),
+                      torch.tensor(g_off, dtype=F32, device=g.device))
+    return torch.where(is_stuck, val.to(g.dtype), g)
+
+
+# ---------------------------------------------------------------------------
+# crossbar differential-pair VMM (K7)
+# ---------------------------------------------------------------------------
+
+def crossbar_effective_g(gp: torch.Tensor, gm: torch.Tensor, *,
+                         g_step: Optional[float] = None, g_min: float = 0.0,
+                         g_max: float = 0.0, read_noise: float = 0.0,
+                         noise_seed: int = 0, stuck_rate: float = 0.0,
+                         stuck_on_frac: float = 0.5, fault_seed: int = 0,
+                         fault_salts=(0, 1), drift: float = 1.0
+                         ) -> torch.Tensor:
+    """The (K, N) differential conductance one K7 read multiplies by, in
+    the reference kernel's order: uint8 level indices rebuilt to absolute
+    conductances where noise or stuck cells need them, stuck cells pinned
+    at their global ids, read noise drawn per 128 x 128 tile (salt
+    ``k_tile * 2 * 65536 + n_tile * 2``, +1 for G-; element ids local to
+    the tile), the pair subtracted (dequantised through ``g_step`` on the
+    clean path), then the drift factor."""
+    K, N = gp.shape
+    gp, gm = gp.to(F32), gm.to(F32)
+    stuck, noisy = stuck_rate > 0.0, read_noise > 0.0
+    if g_step is not None and (noisy or stuck):
+        gp = g_min + gp * g_step
+        gm = g_min + gm * g_step
+    if stuck:
+        gp = pin_stuck_ref(gp, fault_seed, fault_salts[0], stuck_rate,
+                           stuck_on_frac, g_max, g_min)
+        gm = pin_stuck_ref(gm, fault_seed, fault_salts[1], stuck_rate,
+                           stuck_on_frac, g_max, g_min)
+    if noisy:
+        tile = CROSSBAR_TILE
+        k = torch.arange(K, dtype=torch.int64, device=gp.device)[:, None]
+        n = torch.arange(N, dtype=torch.int64, device=gp.device)[None, :]
+        salt = (k // tile) * (2 * 65536) + (n // tile) * 2
+        local = (k % tile) * tile + (n % tile)
+        gp = gp * (1.0 + read_noise * counter_normal_at_ref(
+            noise_seed, salt, local))
+        gm = gm * (1.0 + read_noise * counter_normal_at_ref(
+            noise_seed, salt + 1, local))
+    g = gp - gm
+    if g_step is not None and not (noisy or stuck):
+        g = g * g_step
+    if drift != 1.0:
+        g = g * drift
+    return g
+
+
+def crossbar_matmul_ref(x: torch.Tensor, gp: torch.Tensor, gm: torch.Tensor,
+                        *, inv_scale: float, clamp: Optional[float] = None,
+                        **read) -> torch.Tensor:
+    """y = clip((x @ G) * inv_scale, -clamp, clamp) with G the read's
+    differential conductance (:func:`crossbar_effective_g`, which takes
+    ``read``): the plain version of K7 (``kernels/csrc/crossbar_vmm.cu``)."""
+    y = (x.to(F32) @ crossbar_effective_g(gp, gm, **read)) * inv_scale
+    if clamp is not None:
+        y = torch.clamp(y, -clamp, clamp)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# fused analogue RK4 rollout (K4)
+# ---------------------------------------------------------------------------
+
+def fused_analogue_rollout_ref(gps: Sequence[torch.Tensor],
+                               gms: Sequence[torch.Tensor],
+                               scales: torch.Tensor, y0: torch.Tensor,
+                               u_half: torch.Tensor, dt: float, *,
+                               fault: dict, g_step: Optional[float] = None,
+                               g_min: float = 0.0, g_max: float = 0.0,
+                               v_clamp: Optional[float] = None,
+                               read_noise: float = 0.0, noise_seed: int = 0,
+                               step_offset: int = 0) -> torch.Tensor:
+    """Analogue RK4 rollout through per-layer crossbar pairs: the plain
+    version of K4 (``kernels/csrc/fused_analogue.cu``), in the order of
+    the JAX kernel (``repro/kernels/fused_analogue.py:_make_kernel``).
+
+    gps/gms: per layer (K_l + 1, N_l), float32 conductances or uint8 level
+    indices, bias as the last row; scales (L,); y0 (B, D); u_half as for
+    K1; ``fault`` the full ``FaultModel.kernel_args()`` dict.  Returns
+    (T+1, B, D).
+
+    Noise-free, each pair is combined once into ``W = (G+ - G-)[*g_step]
+    * (1/scale)`` and a layer is ``x @ W[:-1] + W[-1]``; with read noise
+    every evaluation re-draws ``G+ (1 + s e+) - G- (1 + s e-)`` over the
+    whole absolute array, salted ``(step_offset + t) * 8L + stage * 2L +
+    2 * layer (+1 for G-)``, and a layer is ``(x @ g[:-1] + g[-1]) /
+    scale``.  Then the drift factor ``exp(-nu * log1p(n / tau))`` with
+    ``n = drift_n0 + 4 * (step_offset + t)``, then the clamp, then ReLU
+    between layers.
+    """
+    L = len(gps)
+    device = y0.device
+    inv = [1.0 / scales[li] for li in range(L)]
+    stuck = fault["stuck_rate"] > 0.0
+    noisy = read_noise > 0.0
+
+    def absolute(g):
+        g = g.to(F32)
+        return g_min + g * g_step if g_step is not None else g
+
+    def pin(g, li, pair):
+        return pin_stuck_ref(g, fault["fault_seed"],
+                             fault["salt_base"] + 2 * li + pair,
+                             fault["stuck_rate"], fault["stuck_on_frac"],
+                             g_max, g_min)
+
+    if noisy:
+        gps_a = [absolute(g) for g in gps]
+        gms_a = [absolute(g) for g in gms]
+        if stuck:
+            gps_a = [pin(g, li, 0) for li, g in enumerate(gps_a)]
+            gms_a = [pin(g, li, 1) for li, g in enumerate(gms_a)]
+    else:
+        ws, bs = [], []
+        for li in range(L):
+            if stuck:
+                g = pin(absolute(gps[li]), li, 0) - pin(absolute(gms[li]), li, 1)
+            else:
+                g = gps[li].to(F32) - gms[li].to(F32)
+                if g_step is not None:
+                    g = g * g_step
+            g = g * inv[li]
+            ws.append(g[:-1])
+            bs.append(g[-1])
+
+    def layer_out(x, li, salt, dfac):
+        if noisy:
+            shape = tuple(gps_a[li].shape)
+            ep = counter_normal_ref(noise_seed, salt, shape, device)
+            em = counter_normal_ref(noise_seed, salt + 1, shape, device)
+            g = (gps_a[li] * (1.0 + read_noise * ep)
+                 - gms_a[li] * (1.0 + read_noise * em))
+            y = (x @ g[:-1] + g[-1]) * inv[li]
+        else:
+            y = x @ ws[li] + bs[li]
+        if dfac is not None:
+            y = y * dfac
+        if v_clamp is not None:
+            y = torch.clamp(y, -v_clamp, v_clamp)
+        return y
+
+    B = y0.shape[0]
+
+    def f(u, y, salt, dfac):
+        if u.shape[-1] > 0:
+            if u.ndim == 1:
+                u = u[None, :].expand(B, u.shape[0])
+            x = torch.cat([u.to(F32), y], dim=-1)
+        else:
+            x = y
+        for li in range(L):
+            x = layer_out(x, li, salt + 2 * li, dfac)
+            if li < L - 1:
+                x = torch.relu(x)
+        return x
+
+    u_tm = _time_major(u_half)
+    nu, tau = fault["drift_nu"], fault["drift_tau"]
+    ys, y = [y0], y0
+    for t in range(u_tm.shape[0] // 2):
+        step = step_offset + t
+        salt = step * 8 * L if noisy else 0
+        dfac = None
+        if nu > 0.0:
+            n = torch.tensor(float(fault["drift_n0"] + 4 * step), dtype=F32,
+                             device=device)
+            dfac = torch.exp(torch.tensor(-nu, dtype=F32, device=device)
+                             * torch.log1p(n / torch.tensor(
+                                 tau, dtype=F32, device=device)))
+        u0, um, u1 = u_tm[2 * t], u_tm[2 * t + 1], u_tm[2 * t + 2]
+        k1 = f(u0, y, salt, dfac)
+        k2 = f(um, y + dt / 2 * k1, salt + 2 * L, dfac)
+        k3 = f(um, y + dt / 2 * k2, salt + 4 * L, dfac)
+        k4 = f(u1, y + dt * k3, salt + 6 * L, dfac)
+        y = y + dt / 6 * (k1 + 2 * k2 + 2 * k3 + k4)
+        ys.append(y)
+    return torch.stack(ys)

@@ -8,7 +8,9 @@ Layers (bottom-up):
                     request batches -> results, in order
 
 On the ``fused_cuda`` backend each request batch is one launch of the
-hand-written CUDA kernel K1 (:mod:`repro_torch.kernels.fused_ode_mlp`).
+hand-written CUDA kernel K1 (:mod:`repro_torch.kernels.fused_ode_mlp`); on
+``analogue_fused_cuda`` the twin is deployed on memristor crossbars and
+each batch is one launch of K4 (:mod:`repro_torch.kernels.fused_analogue`).
 
 Not ported yet (ROADMAP.md, queue 1): the multi-device mesh
 (``shard_rollout_batch``), ``ServingSLO`` with its ``fallback_chain``
@@ -194,7 +196,10 @@ def main(argv=None):
     ap.add_argument("--batches", type=int, default=2,
                     help="request batches to stream")
     ap.add_argument("--backend", default="fused_cuda",
-                    choices=["digital", "fused_cuda"])
+                    choices=["digital", "fused_cuda", "analogue_fused_cuda"],
+                    help="analogue_fused_cuda serves on K4 with the "
+                         "paper's device statistics (6-bit levels, 4.36%% "
+                         "programming noise)")
     ap.add_argument("--ckpt-dir", default="",
                     help="trained-twin checkpoint (default: untrained "
                          "weights saved to a temp dir — substrate smoke)")

@@ -4,15 +4,15 @@ The HP-memristor twin (paper Fig. 3) and the Lorenz96 twin (Fig. 4):
 ground truth, derivative-matching warm start, multiple-shooting
 trajectory training on a chosen substrate (``backend="fused_cuda"``
 trains through the hand-written kernels K1 and K2), and the paper's
-evaluation protocols; plus the Lorenz96 fleet-serving scenario.  Each
-recipe takes ``device=`` (default ``cuda``; ``"cpu"`` runs the kernels'
-plain versions) and draws from ``torch.Generator``s seeded from
-``seed``, so the port's weights are not the JAX package's for the same
-seed.
+evaluation protocols; the analogue noise-robustness grid (Fig. 4j); plus
+the Lorenz96 fleet-serving scenario.  Each recipe takes ``device=``
+(default ``cuda``; ``"cpu"`` runs the kernels' plain versions) and draws
+from ``torch.Generator``s seeded from ``seed``, so the port's weights
+are not the JAX package's for the same seed.
 
 Not ported yet (ROADMAP.md, queue 1): the recurrent-ResNet and
-recurrent-forecaster baselines, the analogue backend matrix and noise
-grid, and the Lyapunov analysis.
+recurrent-forecaster baselines, hardware-aware training and the Lyapunov
+analysis.
 
 CLI (``--device cpu`` runs the kernels' plain versions):
 
@@ -27,7 +27,10 @@ import time
 import torch
 
 from repro_torch.configs.lorenz96_twin import FLEET
-from repro_torch.core.backends import FusedCudaBackend, resolve_backend
+from repro_torch.core.analogue import AnalogueSpec
+from repro_torch.core.backends import (AnalogueBackend,
+                                       FusedAnalogueCudaBackend,
+                                       FusedCudaBackend, resolve_backend)
 from repro_torch.core.losses import dtw, l1, mre
 from repro_torch.core.twin import (TwinFleet, make_autonomous_twin,
                                    make_driven_twin)
@@ -166,8 +169,41 @@ def eval_l96_twin(twin, params, data=None, device=None):
 
 
 # ---------------------------------------------------------------------------
+# Analogue deployment + noise robustness (paper Fig. 4j)
+# ---------------------------------------------------------------------------
+
+def noise_robustness_grid(twin, params, read_noises, prog_noises,
+                          data=None, repeats: int = 3, seed: int = 0,
+                          device=None):
+    """L1 extrapolation error of the twin deployed on ``AnalogueBackend``
+    under each (read, programming) noise combination, averaged over
+    ``repeats`` programmings (generator seeds ``seed + 101 r`` and read
+    seeds ``seed + 13 r + 1``, as the JAX package folds its keys)."""
+    ts, ys, split = data if data is not None else l96_data(device=device)
+    rows = []
+    for pn in prog_noises:
+        for rn in read_noises:
+            errs = []
+            for r in range(repeats):
+                backend = AnalogueBackend(
+                    spec=AnalogueSpec(prog_noise=pn, read_noise=rn),
+                    prog_seed=seed + 101 * r, read_seed=seed + 13 * r + 1)
+                with torch.no_grad():
+                    pred = twin.with_backend(backend).simulate(
+                        params, ys[split - 1], ts[split - 1:])
+                errs.append(float(l1(pred[1:], ys[split:])))
+            rows.append({"prog_noise": pn, "read_noise": rn,
+                         "extrap_l1": sum(errs) / len(errs)})
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Lorenz96 fleet serving (the multi-asset scale-up scenario)
 # ---------------------------------------------------------------------------
+
+#: The fused substrates, which take the config's ``batch_tile``.
+_TILED = {"fused_cuda": FusedCudaBackend,
+          "analogue_fused_cuda": FusedAnalogueCudaBackend}
 
 
 def make_l96_fleet(cfg=None, backend=None) -> TwinFleet:
@@ -176,14 +212,17 @@ def make_l96_fleet(cfg=None, backend=None) -> TwinFleet:
     roll out as one program.
 
     ``cfg``: a ``Lorenz96FleetConfig`` (default: ``FLEET``).  ``backend``:
-    Backend instance or registry name; ``None`` uses the config's choice
-    (``fused_cuda`` with its ``batch_tile``)."""
+    Backend instance or registry name (``"analogue_fused_cuda"`` deploys
+    the twin on K4's crossbars with the default ``AnalogueSpec``); a name
+    of a fused substrate gets the config's ``batch_tile``; ``None`` uses
+    the config's choice."""
     cfg = cfg or FLEET
     twin = make_autonomous_twin(cfg.state_dim, hidden=cfg.hidden,
                                 n_hidden_layers=cfg.n_hidden_layers)
     if backend is None:
-        backend = (FusedCudaBackend(batch_tile=cfg.batch_tile)
-                   if cfg.backend == "fused_cuda" else cfg.backend)
+        backend = cfg.backend
+    if isinstance(backend, str) and backend in _TILED:
+        backend = _TILED[backend](batch_tile=cfg.batch_tile)
     if backend != "digital":
         twin = twin.with_backend(backend)
     return TwinFleet(twin)

@@ -97,7 +97,8 @@ def test_params_numpy_round_trip():
 
 
 def test_backend_registry():
-    assert set(BACKENDS) == {"digital", "fused_cuda"}
+    assert set(BACKENDS) == {"digital", "fused_cuda", "analogue",
+                             "analogue_fused_cuda"}
     assert resolve_backend(None).name == "digital"
     assert resolve_backend("fused_cuda").name == "fused_cuda"
     be = FusedCudaBackend(batch_tile=8)

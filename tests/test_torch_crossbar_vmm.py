@@ -1,0 +1,213 @@
+"""The port's crossbar VMM (K7, ``repro_torch.kernels.crossbar_vmm``) against JAX.
+
+On the CPU the wrapper runs K7's plain version; these tests hold it
+against the JAX package's Pallas kernel (interpret mode) on the same
+numpy-made inputs, within 1e-5 relative plus 1e-6 absolute of the
+output's peak (measured ~5e-7: float32 matmul order).  The cases cover
+both storage modes, clean reads, read noise (the reference's per-128x128
+tile salts with tile-local ids, hence the 150 x 130 arrays that span
+several tiles), stuck cells at global ids, drift, a clamp, and the
+dispatch rule of ``analogue_matmul``.  The CUDA kernel is held against
+the plain version on the card by ``chip_smoke.py``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import analogue as jan  # noqa: E402
+from repro.core.faults import FAULT_SALT_BASE  # noqa: E402
+from repro.kernels import crossbar_vmm as jk7  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.core import analogue as tan  # noqa: E402
+from repro_torch.kernels import crossbar_vmm as tk7  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.interop import progs_from_numpy  # noqa: E402
+
+RTOL, ATOL = 1e-5, 1e-6        # of the output's peak
+G_MIN, G_MAX = 20e-6, 100e-6
+G_STEP = (G_MAX - G_MIN) / 63
+
+
+def t(x):
+    return torch.from_numpy(np.array(x, copy=True))
+
+
+def close_to_peak(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    peak = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    assert err <= RTOL * peak + ATOL * peak, (err, peak)
+
+
+def make_arrays(seed, M, K, N):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    ip = rng.integers(0, 64, (K, N)).astype(np.uint8)
+    im = rng.integers(0, 64, (K, N)).astype(np.uint8)
+    # float conductances off the level grid (programming noise)
+    fp = (G_MIN + ip * G_STEP * (1 + 0.04 * rng.standard_normal((K, N))))
+    fm = (G_MIN + im * G_STEP * (1 + 0.04 * rng.standard_normal((K, N))))
+    return x, ip, im, fp.astype(np.float32), fm.astype(np.float32)
+
+
+READS = {
+    "clean": {},
+    "read_noise": dict(read_noise=0.02, noise_seed=7, g_min=G_MIN),
+    "stuck_5pct": dict(stuck_rate=0.05, stuck_on_frac=0.4, g_max=G_MAX,
+                       g_min=G_MIN, fault_seed=3,
+                       fault_salts=(FAULT_SALT_BASE + 2, FAULT_SALT_BASE + 3)),
+    "drift": dict(drift=0.97),
+    "noise_stuck_drift": dict(read_noise=0.02, noise_seed=11, g_min=G_MIN,
+                              stuck_rate=0.05, g_max=G_MAX, fault_seed=5,
+                              drift=0.95),
+    "clamp": dict(clamp=3e-4),
+}
+
+
+@pytest.mark.parametrize("storage", ["float", "uint8"])
+@pytest.mark.parametrize("read", sorted(READS))
+def test_plain_k7_matches_jax_kernel(read, storage):
+    x, ip, im, fp, fm = make_arrays(0, 24, 150, 130)
+    a, b = (ip, im) if storage == "uint8" else (fp, fm)
+    g_step = G_STEP if storage == "uint8" else None
+    kw = READS[read]
+    want = jk7.crossbar_matmul(jnp.asarray(x), jnp.asarray(a), jnp.asarray(b),
+                               inv_scale=0.5, g_step=g_step, interpret=True,
+                               **kw)
+    got = tk7.crossbar_matmul(t(x), t(a), t(b), inv_scale=0.5, g_step=g_step,
+                              **kw)
+    assert got.dtype == torch.float32 and got.shape == (24, 130)
+    close_to_peak(got.numpy(), want)
+
+
+@pytest.mark.parametrize("M,K,N", [(130, 150, 7), (1, 513, 512), (9, 1, 3)])
+def test_plain_k7_odd_shapes(M, K, N):
+    x, ip, im, fp, fm = make_arrays(1, M, K, N)
+    kw = READS["noise_stuck_drift"]
+    want = jk7.crossbar_matmul(jnp.asarray(x), jnp.asarray(ip),
+                               jnp.asarray(im), inv_scale=1.0, g_step=G_STEP,
+                               interpret=True, **kw)
+    got = tk7.crossbar_matmul(t(x), t(ip), t(im), inv_scale=1.0,
+                              g_step=G_STEP, **kw)
+    close_to_peak(got.numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
+def test_float_conductances_reach_the_read_as_float32(monkeypatch, dtype):
+    """The kernel reads a float array's bytes as float32, so the wrapper
+    hands any float G on as float32, to the kernel and the plain version
+    alike: a float64 program reads as its float32 copy."""
+    x, ip, _, fp, fm = make_arrays(4, 8, 140, 20)
+    a, b = t(fp).to(dtype), t(fm).to(dtype)
+    kw = dict(inv_scale=1.0, **READS["noise_stuck_drift"])
+    want = tk7.crossbar_matmul(t(x), a.float(), b.float(), **kw)
+    seen = []
+    plain = tk7.ref.crossbar_matmul_ref
+
+    def spy(x_, gp, gm, **kw_):
+        seen.extend([gp, gm])
+        return plain(x_, gp, gm, **kw_)
+
+    monkeypatch.setattr(tk7.ref, "crossbar_matmul_ref", spy)
+    assert torch.equal(tk7.crossbar_matmul(t(x), a, b, **kw), want)
+    assert [g.dtype for g in seen] == [torch.float32] * 2
+    assert all(g.is_contiguous() for g in seen)
+    assert tk7.stored_operand(t(ip)).dtype == torch.uint8
+
+
+def test_noise_is_deterministic_and_seeded():
+    x, ip, im, _, _ = make_arrays(2, 8, 140, 20)
+    kw = dict(inv_scale=1.0, g_step=G_STEP, read_noise=0.02, g_min=G_MIN)
+    a = tk7.crossbar_matmul(t(x), t(ip), t(im), noise_seed=1, **kw)
+    b = tk7.crossbar_matmul(t(x), t(ip), t(im), noise_seed=1, **kw)
+    c = tk7.crossbar_matmul(t(x), t(ip), t(im), noise_seed=2, **kw)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+
+
+def test_ops_crossbar_vmm_matches_jax_ops():
+    rng = np.random.default_rng(3)
+    w = rng.standard_normal((140, 130)).astype(np.float32)
+    x = rng.standard_normal((16, 140)).astype(np.float32)
+    spec = jan.AnalogueSpec(prog_noise=0.0, v_clamp=2.0)
+    jprog = jan.stage_uint8(jan.program_tensor(jax.random.PRNGKey(0),
+                                               jnp.asarray(w), spec), spec)
+    tprog = progs_from_numpy([jprog], "cpu")[0]
+    tspec = tan.AnalogueSpec(prog_noise=0.0, v_clamp=2.0)
+    fault = {"stuck_rate": 0.05, "stuck_on_frac": 0.5, "fault_seed": 2,
+             "salt_base": FAULT_SALT_BASE, "drift_nu": 0.02,
+             "drift_tau": 100.0, "drift_n0": 40}
+    for kw in ({}, dict(read_noise=0.02, noise_seed=4),
+               dict(fault=fault, layer=1)):
+        want = jops.crossbar_vmm(jprog, jnp.asarray(x), spec,
+                                 interpret=True, **kw)
+        got = tops.crossbar_vmm(tprog, t(x), tspec, **kw)
+        close_to_peak(got.numpy(), want)
+        want = jops.crossbar_vmm_quantized(
+            jnp.asarray(x), jprog["gp_idx"], jprog["gm_idx"], spec,
+            jprog["scale"], interpret=True, **kw)
+        got = tops.crossbar_vmm_quantized(t(x), tprog["gp_idx"],
+                                          tprog["gm_idx"], tspec,
+                                          tprog["scale"], **kw)
+        close_to_peak(got.numpy(), want)
+    jq = jops.quantize_to_levels(jnp.asarray(w), spec)
+    tq = tops.quantize_to_levels(t(w), tspec)
+    for a, b in zip(tq, jq):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("K,N,dispatch", [(129, 128, True), (127, 128, False),
+                                          (15, 14, False)])
+def test_analogue_matmul_dispatch_rule(monkeypatch, K, N, dispatch):
+    """2-D noise-free reads of arrays with at least 16384 cells go through
+    K7's wrapper, others through two plain matmuls; both agree with the
+    JAX package's ``analogue_matmul``."""
+    rng = np.random.default_rng(4)
+    w = rng.standard_normal((K, N)).astype(np.float32)
+    x = rng.standard_normal((5, K)).astype(np.float32)
+    spec = jan.AnalogueSpec(prog_noise=0.0)
+    jprog = jan.stage_uint8(jan.program_tensor(jax.random.PRNGKey(1),
+                                               jnp.asarray(w), spec), spec)
+    tprog = progs_from_numpy([jprog], "cpu")[0]
+    calls = []
+    real = tk7.crossbar_matmul
+    monkeypatch.setattr(tk7, "crossbar_matmul",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    got = tan.analogue_matmul(tprog, t(x), tan.AnalogueSpec(prog_noise=0.0))
+    want = jan.analogue_matmul(jprog, jnp.asarray(x), spec)
+    assert bool(calls) == dispatch == (K * N >= tan.KERNEL_DISPATCH_MIN_CELLS)
+    close_to_peak(got.numpy(), want)
+    # a noisy read with a generator, or a 1-D read, stays plain
+    calls.clear()
+    tan.analogue_matmul(tprog, t(x[0]), tan.AnalogueSpec(prog_noise=0.0))
+    tan.analogue_matmul(tprog, t(x), tan.AnalogueSpec(prog_noise=0.0,
+                                                      read_noise=0.02),
+                        torch.Generator().manual_seed(0))
+    assert not calls
+
+
+def test_pad_accumulator_neutral():
+    x = torch.arange(6, dtype=torch.uint8).reshape(2, 3)
+    p = tk7.pad_accumulator_neutral(x, 4, 1)
+    assert p.shape == (2, 4) and p.dtype == torch.uint8
+    assert torch.equal(p[:, :3], x) and int(p[:, 3].abs().sum()) == 0
+    assert tk7.pad_accumulator_neutral(x, 2, 0) is x
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(read_noise=0.02, g_step=G_STEP), "g_min > 0"),
+    (dict(stuck_rate=0.1, g_max=0.0, g_min=0.0), "g_max > g_min"),
+    (dict(g_step=None, uint8=True), "uint8"),
+])
+def test_argument_errors(kw, match):
+    x, ip, im, fp, fm = make_arrays(5, 4, 8, 6)
+    uint8 = kw.pop("uint8", "g_step" in kw)
+    a, b = (ip, im) if uint8 else (fp, fm)
+    with pytest.raises(ValueError, match=match):
+        tk7.crossbar_matmul(t(x), t(a), t(b), inv_scale=1.0, **kw)
+    with pytest.raises(ValueError, match="meta"):
+        tk7.crossbar_matmul(t(x).to("meta"), t(fp).to("meta"),
+                            t(fm).to("meta"), inv_scale=1.0)
