@@ -65,7 +65,28 @@ result line:
    6->512->512->6 rolling out 1024 twins x 50 steps (exactly 200 K7
    launches, within 1e-4 of the same path on K7's plain version);
 13. K3, K4 and K7 timing with CUDA events: kernel, plain version, the
-   card's bound, and for K7 one ``torch.matmul`` on the pre-combined pair.
+   card's bound, and for K7 one ``torch.matmul`` on the pre-combined pair;
+14. K5 (soft-DTW forward with R, and hard DTW) and K6 (the E-matrix
+   backward) against their plain versions at seven (B, n, m) shapes, the
+   two Lorenz96 training shapes (29, 61, 61) and (8, 201, 201) among
+   them, at gamma 0.1 and 0.7 (<= 1e-4 of the peak; repeats bitwise);
+   ``ops.soft_dtw``'s value and gradient against autograd through the
+   reference DP ``losses.soft_dtw_batch`` at (2, 40, 60, d=2), gamma 0.5
+   (<= 1e-4 of the peak);
+15. the soft-DTW training path P4: from phase 7's Lorenz96 weights on the
+   paper's 1800-point training window, ``train_twin(loss=CONFIG.loss,
+   gamma=0.1, backend="fused_cuda")`` for 40 steps at segment length 60
+   (29 segments) and 40 at 200 (8), the K1, K2, K5 and K6 counts zeroed
+   before and checked after each (exactly one of each per step); the
+   loss history's ends, interpolation and short extrapolation L1; the
+   same 10 steps at length 60 on fused_cuda and on digital (loss
+   histories <= 1e-3 rel, no K5/K6 on digital); ``l96_lyapunov_info()``
+   with its wall time;
+16. K5 and K6 timing with CUDA events at the two training shapes: kernel,
+   plain version, the card's bound, the chain length n+m-1, the kernels'
+   share of a P4 step, the wall time of the whole soft-DTW term (forward
+   and backward) per call, and a ``torch.profiler`` trace of 5 P4 steps
+   (device busy share, the kernels by device time).
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record, the
 last line ``{"ok": true, "device": {...}}``.
@@ -85,19 +106,20 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.configs.lorenz96_twin import CONFIG as L96_CONFIG  # noqa: E402
 from repro_torch.core.analogue import AnalogueSpec  # noqa: E402
 from repro_torch.core.backends import (AnalogueBackend, DigitalBackend,  # noqa: E402
                                        FusedAnalogueCudaBackend,
                                        FusedCudaBackend)
 from repro_torch.core.faults import FAULT_SALT_BASE, make_fault_model  # noqa: E402
-from repro_torch.core.losses import mre  # noqa: E402
+from repro_torch.core.losses import _pairwise_dist, mre, soft_dtw_batch  # noqa: E402
 from repro_torch.core.node import mlp_init  # noqa: E402
 from repro_torch.core.twin import (TwinFleet, make_autonomous_twin,  # noqa: E402
                                    make_driven_twin)
 from repro_torch.data import hp_memristor as hp  # noqa: E402
 from repro_torch.kernels import (_build, crossbar_vmm, fused_analogue,  # noqa: E402
                                  fused_ode_mlp, fused_ode_mlp_bwd, noise, ops,
-                                 ref)
+                                 ref, softdtw)
 from repro_torch.launch.fleet_serving import serve_fleet  # noqa: E402
 from repro_torch.train import checkpoint, recipes, trainer  # noqa: E402
 from repro_torch.train.optimizer import adam  # noqa: E402
@@ -224,6 +246,41 @@ def k4_plain(staged, y0, u, dt, read_noise, noise_seed, step_offset=0):
         noise_seed=noise_seed, step_offset=step_offset)
 
 
+#: Scalar operations of one soft-DTW cell, expf and logf counted as one
+#: operation each at the FP32 rate: K5, two minima, three differences,
+#: three scalings, three expf, two sums, logf, a product and two
+#: differences; K6, per child two differences, a scaling, expf and a
+#: product, and two sums.
+K5_OPS_PER_CELL = 17
+K6_OPS_PER_CELL = 17
+#: Soft-DTW shapes of phase 14: (B, n, m); the last two are the Lorenz96
+#: training shapes (29 segments of 60 steps, 8 of 200: L+1 points each).
+SDTW_SHAPES = [(2, 1, 1), (2, 5, 5), (2, 50, 70), (2, 300, 200),
+               (2, 257, 513), (29, 61, 61), (8, 201, 201)]
+
+
+def sdtw_work(B, n, m, bwd: bool):
+    """(FLOP, bytes) of one K5 (with R) or K6 call over the n*m real
+    cells of each pair: K5 reads the costs and writes R (and the answer),
+    K6 reads the costs and R and writes E, each once, float32."""
+    cells = B * n * m
+    if bwd:
+        return cells * K6_OPS_PER_CELL, 12 * cells
+    return cells * K5_OPS_PER_CELL, 8 * cells + 4 * B
+
+
+def sdtw_case(gen, B, n, m, dev):
+    """Seeded series pair -> the diagonal-layout cost slab on ``dev``."""
+    x = torch.randn((B, n, 2), generator=gen).to(dev)
+    y = torch.randn((B, m, 2), generator=gen).to(dev)
+    return ops._diag_layout_batch(_pairwise_dist(x, y))
+
+
+def real_cells(r):
+    """R with its BIG sentinel cells zeroed, for an error of the peak."""
+    return torch.where(r < ref.BIG_CUT, r, torch.zeros_like(r))
+
+
 def cuda_ms(fn, reps: int, warmup: int = 2, queue_ahead: bool = False
             ) -> float:
     """Mean ms per call between CUDA events around ``reps`` calls.  With
@@ -263,8 +320,8 @@ def main() -> int:
     print("TF32 off: matmul.allow_tf32=False, cudnn.allow_tf32=False, "
           "float32_matmul_precision='highest'")
     dev = torch.device("cuda")
-    name = torch.cuda.get_device_name(0)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}; {name}; "
+    card = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; {card}; "
           f"bounds against H100 SXM peaks: {FP32_PEAK / 1e12:g} TFLOP/s "
           f"fp32, {HBM_BW / 1e12:g} TB/s")
 
@@ -903,6 +960,240 @@ def main() -> int:
           f"{k3_plain_ms:.4f}, bound_ms {k3_bound:.5f} ({k3_by}), "
           f"library_ms n/a")
 
+    # -- 14. K5 and K6 vs plain versions ---------------------------------------
+    sdtw_errs, sdtw_inputs = {}, {}
+    for B, n, m in SDTW_SHAPES:
+        for gamma in (0.1, 0.7):
+            dd = sdtw_case(gen, B, n, m, dev)
+            ans, rd = softdtw.softdtw_wavefront(dd, n, m, gamma=gamma,
+                                                return_r=True)
+            ans2, rd2 = softdtw.softdtw_wavefront(dd, n, m, gamma=gamma,
+                                                  return_r=True)
+            hard = softdtw.softdtw_wavefront(dd, n, m, hard=True)
+            e_dd = softdtw.softdtw_wavefront_bwd(dd, rd, n, m, gamma=gamma)
+            e_dd2 = softdtw.softdtw_wavefront_bwd(dd, rd, n, m, gamma=gamma)
+            ans_p, rd_p = ref.softdtw_wavefront_ref(dd, n, m, gamma=gamma,
+                                                    return_r=True)
+            hard_p = ref.softdtw_wavefront_ref(dd, n, m, hard=True)
+            e_p = ref.softdtw_wavefront_bwd_ref(dd, rd, n, m, gamma=gamma)
+            torch.cuda.synchronize()
+            for kname, x in (("K5", ans), ("K5 R", real_cells(rd)),
+                            ("K5 hard", hard), ("K6", e_dd)):
+                check(bool(torch.isfinite(x).all()),
+                      f"{kname} ({B}, {n}, {m}) gamma {gamma}: non-finite")
+            errs5 = [rel_err(ans, ans_p), rel_err(real_cells(rd),
+                                                  real_cells(rd_p))]
+            err5 = max(errs5, key=lambda e: e[1])
+            err5h = rel_err(hard, hard_p)
+            err6 = rel_err(e_dd, e_p)
+            bitwise = (torch.equal(ans, ans2) and torch.equal(rd, rd2)
+                       and torch.equal(e_dd, e_dd2))
+            same = (torch.equal(ans, ans_p) and torch.equal(rd, rd_p)
+                    and torch.equal(hard, hard_p) and torch.equal(e_dd, e_p))
+            sdtw_errs[B, n, m, gamma] = {"K5": err5, "K5 hard": err5h,
+                                         "K6": err6}
+            sdtw_inputs[B, n, m, gamma] = (dd, rd)
+            print(f"K5/K6 vs plain (B, n, m) = ({B}, {n}, {m}) gamma "
+                  f"{gamma}: K5 value {errs5[0][1]:.3e}, R {errs5[1][1]:.3e}"
+                  f", hard {err5h[1]:.3e}, K6 E {err6[1]:.3e} of the peak "
+                  f"(limit {TOL:g}); repeats bitwise identical: {bitwise}; "
+                  f"bitwise equal to the plain versions: {same}")
+            for kname, (_, r) in sdtw_errs[B, n, m, gamma].items():
+                check(r <= TOL, f"{kname} ({B}, {n}, {m}) gamma {gamma}: "
+                                f"kernel disagrees with its plain version")
+            check(bitwise, f"K5/K6 ({B}, {n}, {m}): two calls differ")
+    # the autograd Function (K5 forward, K6 backward) against autograd
+    # through the reference DP
+    gx = torch.Generator().manual_seed(SEED + 14)
+    xs = torch.randn((2, 40, 2), generator=gx).to(dev)
+    ys = torch.randn((2, 60, 2), generator=gx).to(dev)
+    grads = []
+    for loss_of in (lambda a, b: ops.soft_dtw(a, b, 0.5),
+                    lambda a, b: soft_dtw_batch(a, b, 0.5)):
+        a, b = xs.clone().requires_grad_(), ys.clone().requires_grad_()
+        val = loss_of(a, b)
+        val.sum().backward()
+        grads.append((val.detach(), a.grad, b.grad))
+    torch.cuda.synchronize()
+    # two algorithms (the closed-form E-matrix, autodiff through the
+    # logsumexp DP): float32 rounding apart, each of the peak
+    g_errs = [rel_err(u, v) for u, v in zip(grads[0], grads[1])]
+    print(f"ops.soft_dtw (K5 + K6) vs autograd through losses.soft_dtw_batch "
+          f"(2, 40, 60, d=2) gamma 0.5: value {g_errs[0][1]:.3e}, dx "
+          f"{g_errs[1][1]:.3e}, dy {g_errs[2][1]:.3e} of the peak (limit "
+          f"{TOL:g})")
+    check(all(r <= TOL for _, r in g_errs),
+          "ops.soft_dtw disagrees with autograd through the reference DP")
+
+    # -- 15. the soft-DTW training path P4 ----------------------------------------
+    sdtw_mods = {"K1": fused_ode_mlp, "K2": fused_ode_mlp_bwd, "K5": softdtw}
+
+    def zero_p4():
+        for mod in sdtw_mods.values():
+            mod.LAUNCHES = 0
+        softdtw.BWD_LAUNCHES = 0
+
+    def read_p4(path, want):
+        torch.cuda.synchronize()
+        got = {k: mod.LAUNCHES for k, mod in sdtw_mods.items()}
+        got["K6"] = softdtw.BWD_LAUNCHES
+        print(f"{path}: launches {got}")
+        for k, n_ in want.items():
+            check(got[k] == n_, f"{path}: expected {n_} {k} launches, got "
+                                f"{got[k]}")
+        return got
+
+    data96 = recipes.l96_data(num_points=L96_CONFIG.num_points, device=dev)
+    ts96, ys96, split96 = data96
+    ts_tr, ys_tr = ts96[:split96], ys96[:split96]
+    p4_steps = 40
+    p4, p4_params = {}, l96_params
+    for seg in (60, 200):
+        zero_p4()
+        torch.cuda.synchronize()
+        t_p = time.perf_counter()
+        p4_params, hist = trainer.train_twin(
+            l96_twin, p4_params, ts_tr, ys_tr, optimizer=adam(4e-4),
+            num_steps=p4_steps, segment_len=seg, loss=L96_CONFIG.loss,
+            gamma=0.1, noise_std=L96_CONFIG.noise_regulariser,
+            generator=torch.Generator().manual_seed(SEED + seg),
+            backend="fused_cuda")
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t_p
+        segs = (split96 - 1) // seg
+        counts = read_p4(f"P4 train_twin(loss={L96_CONFIG.loss!r}, gamma=0.1,"
+                         f" fused_cuda) {segs} segments of {seg}",
+                         {k: p4_steps for k in ("K1", "K2", "K5", "K6")})
+        check(bool(torch.isfinite(hist).all()), f"P4 seg {seg}: non-finite")
+        p4[seg] = (counts, sec, hist)
+        print(f"[{smi}] P4 segment length {seg} (S={segs}): {p4_steps} steps "
+              f"in {sec:.3f} s = {p4_steps / sec:.2f} steps/s "
+              f"({sec / p4_steps * 1e3:.3f} ms/step); loss "
+              f"{float(hist[0]):.6f} -> {float(hist[-1]):.6f}")
+    m4 = recipes.eval_l96_twin(l96_twin, p4_params, data=data96)
+    with torch.no_grad():
+        pred = l96_twin.simulate(p4_params, ys96[split96 - 1],
+                                 ts96[split96 - 1:split96 + 199])
+    short4 = float((pred[1:] - ys96[split96:split96 + 199]).abs().mean())
+    print(f"P4 after both phases: interpolation L1 {m4['interp_l1']:.4f}, "
+          f"extrapolation L1 over 199 steps {short4:.4f}, over the whole "
+          f"test window {m4['extrap_l1']:.4f} (printed, not gated)")
+    hist4, cmp_steps = {}, 10
+    for substrate, be in (("fused_cuda", "fused_cuda"), ("digital", None)):
+        zero_p4()
+        _, hist4[substrate] = trainer.train_twin(
+            l96_twin, l96_params, ts_tr, ys_tr, optimizer=adam(4e-4),
+            num_steps=cmp_steps, segment_len=60, loss=L96_CONFIG.loss,
+            gamma=0.1,
+            noise_std=L96_CONFIG.noise_regulariser,
+            generator=torch.Generator().manual_seed(SEED + 4), backend=be)
+        want = ({k: cmp_steps for k in ("K1", "K2", "K5", "K6")}
+                if substrate == "fused_cuda" else {"K5": 0, "K6": 0})
+        read_p4(f"P4 {cmp_steps} steps on {substrate}", want)
+    hist4_rel = float(((hist4["fused_cuda"] - hist4["digital"]).abs()
+                       / hist4["digital"].abs()).max())
+    print(f"P4 {cmp_steps} steps, fused_cuda vs digital: loss "
+          f"{float(hist4['fused_cuda'][0]):.6f} -> "
+          f"{float(hist4['fused_cuda'][-1]):.6f}, max rel diff "
+          f"{hist4_rel:.3e} (limit {HIST_TOL:g})")
+    check(hist4_rel <= HIST_TOL, "P4 fused vs digital loss histories differ")
+    t_l = time.perf_counter()
+    lyap = recipes.l96_lyapunov_info()
+    print(f"l96_lyapunov_info() on {dev}: MLE {lyap['mle']:.6f}, Lyapunov "
+          f"time {lyap['lyapunov_time']:.6f} in "
+          f"{time.perf_counter() - t_l:.3f} s")
+    check(lyap["mle"] > 0, "L96 maximal Lyapunov exponent not positive")
+
+    # -- 16. K5 and K6 timing --------------------------------------------------------
+    sdtw_times = {}
+    for (B, n, m), seg in (((29, 61, 61), 60), ((8, 201, 201), 200)):
+        dd, rd = sdtw_inputs[B, n, m, 0.1]
+        rows = {}
+        for kname, call, plain, bwd in (
+                ("K5", lambda: softdtw.softdtw_wavefront(
+                    dd, n, m, gamma=0.1, return_r=True),
+                 lambda: ref.softdtw_wavefront_ref(dd, n, m, gamma=0.1,
+                                                   return_r=True), False),
+                ("K6", lambda: softdtw.softdtw_wavefront_bwd(
+                    dd, rd, n, m, gamma=0.1),
+                 lambda: ref.softdtw_wavefront_bwd_ref(dd, rd, n, m,
+                                                       gamma=0.1), True)):
+            k_ms = cuda_ms(call, reps=50, queue_ahead=True)
+            call_ms = cuda_ms(call, reps=50)
+            p_ms = cuda_ms(plain, reps=3, warmup=1)
+            flops, moved = sdtw_work(B, n, m, bwd)
+            b_ms, b_by = bound(flops, moved)
+            rows[kname] = (k_ms, call_ms, p_ms, b_ms, b_by)
+            wrapper = ("softdtw_wavefront_bwd" if bwd
+                       else "softdtw_wavefront (with R)")
+            print(f"[{smi}] {kname} {wrapper} "
+                  f"(B, n, m) = ({B}, {n}, {m}), chain n+m-1 = {n + m - 1} "
+                  f"diagonals: kernel_ms {k_ms:.4f} (per call with the "
+                  f"wrapper {call_ms:.4f}), plain_ms {p_ms:.4f}, bound_ms "
+                  f"{b_ms:.6f} ({b_by}: {flops / 1e6:.3f} MFLOP, "
+                  f"{moved / 1e6:.3f} MB), launches per fused P4 step 1, "
+                  f"library_ms n/a (no single PyTorch call computes "
+                  f"soft-DTW)")
+        # the whole soft-DTW term of a step, forward and backward, on
+        # predictions and targets of the P4 shape: host clock around 20
+        # calls ended by a device sync (the glue around K5 and K6: the
+        # pairwise cost and its backward, the layout, the gather of E)
+        preds = torch.randn((B, n, 6), generator=gen).to(dev)
+        targets = torch.randn((B, n, 6), generator=gen).to(dev)
+        leaf = preds.clone().requires_grad_()
+
+        def sdtw_term():
+            torch.mean(ops.soft_dtw(leaf, targets, 0.1)).backward()
+
+        sdtw_term()
+        torch.cuda.synchronize()
+        t_t = time.perf_counter()
+        for _ in range(20):
+            sdtw_term()
+        torch.cuda.synchronize()
+        term_ms = (time.perf_counter() - t_t) / 20 * 1e3
+        step_ms = p4[seg][1] / p4_steps * 1e3
+        k56 = rows["K5"][0] + rows["K6"][0]
+        print(f"[{smi}] P4 segment length {seg}: K5 + K6 {k56:.4f} ms of a "
+              f"{step_ms:.3f} ms step ({100 * k56 / step_ms:.2f}%); the "
+              f"soft-DTW term (cost, K5, K6, gather, backward to the "
+              f"predictions) {term_ms:.4f} ms per call, host clock")
+        sdtw_times[B, n, m] = rows
+
+    # where a P4 step's time goes: a torch.profiler trace of 5 steps at
+    # segment length 60 (the trace's own host cost slows the steps)
+    trace_steps = 5
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t_p = time.perf_counter()
+        trainer.train_twin(
+            l96_twin, l96_params, ts_tr, ys_tr, optimizer=adam(4e-4),
+            num_steps=trace_steps, segment_len=60, loss=L96_CONFIG.loss,
+            gamma=0.1, noise_std=L96_CONFIG.noise_regulariser,
+            generator=torch.Generator().manual_seed(SEED), backend="fused_cuda")
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t_p) * 1e3
+    # device-side events only: an operator's own entry repeats the time
+    # of the kernels it launched
+    kernels_us = {ev.key: ev.self_device_time_total
+                  for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA
+                  and ev.self_device_time_total > 0}
+    busy_ms = sum(kernels_us.values()) / 1e3
+    if busy_ms > 0:
+        top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:6]
+        print(f"[{smi}] P4 trace, {trace_steps} steps at segment length 60: "
+              f"wall {traced_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+              f"({100 * busy_ms / traced_ms:.1f}%; idle "
+              f"{100 * (1 - busy_ms / traced_ms):.1f}%); per step by "
+              f"device time: " + "; ".join(
+                  f"{k[:48]} {v / 1e3 / trace_steps:.4f} ms" for k, v in top))
+    else:
+        print("P4 trace: the profiler recorded no device time (device idle "
+              "share not measured)")
+
     k1_paths = {"serve_fleet": launches, "train_hp_twin": hp_counts[0],
                 "train_l96_twin": l96_counts[0]}
     k2_paths = {"train_hp_twin": hp_counts[1],
@@ -1002,10 +1293,33 @@ def main() -> int:
         "library_ms": k7_lib_ms,
         "noisy_ms": k7n_ms,
         "noisy_bound_ms": k7n_bound,
-    }]}
+    }, *[{
+        "name": name,
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/softdtw.cu",
+        "replaces": replaces,
+        "launches": sum(c[0][key] for c in p4.values()),
+        "launches_by_path": {f"P4_segment_{seg}": c[0][key]
+                             for seg, c in p4.items()},
+        "shape": "B=29 n=61 m=61 gamma=0.1 (L96 training, segments of 60)",
+        "max_abs_err": max(e[key][0] for e in sdtw_errs.values()),
+        "max_rel_err_of_peak": max(e[key][1] for e in sdtw_errs.values()),
+        "ms": sdtw_times[29, 61, 61][key][0],
+        "call_ms": sdtw_times[29, 61, 61][key][1],
+        "plain_ms": sdtw_times[29, 61, 61][key][2],
+        "bound_ms": sdtw_times[29, 61, 61][key][3],
+        "bound_by": sdtw_times[29, 61, 61][key][4],
+        "library_ms": None,
+        "segment_200_shape": dict(zip(
+            ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by"),
+            sdtw_times[8, 201, 201][key])),
+    } for name, key, replaces in (
+        ("softdtw_wavefront", "K5", "src/repro/kernels/softdtw.py:110"),
+        ("softdtw_wavefront_bwd", "K6",
+         "src/repro/kernels/softdtw.py:215"))]]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}))
     return 0
 

@@ -43,14 +43,16 @@ MAX_LAYERS = 8
 LAUNCHES = 0
 
 
-def resolve_precision(precision: str | None) -> str:
-    """``None`` or ``"f32"``; the bf16 policies are not ported yet."""
+def resolve_precision(precision: str | None,
+                      what: str = "the fused kernel") -> str:
+    """``None`` or ``"f32"``; the bf16 policies of ``what`` are not ported
+    yet."""
     if precision is None or precision == "f32":
         return "f32"
     if precision in PRECISIONS:
         raise NotImplementedError(
-            f"precision={precision!r}: the bf16 policies of the fused "
-            f"kernel are not ported yet (ROADMAP.md, queue 1); use 'f32'")
+            f"precision={precision!r}: the bf16 policies of {what} are not "
+            f"ported yet (ROADMAP.md, queue 1 item 7); use 'f32'")
     raise ValueError(
         f"unknown precision {precision!r}; have {list(PRECISIONS)}")
 

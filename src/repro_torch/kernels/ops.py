@@ -1,9 +1,9 @@
 """Public wrappers around the port's kernels (port of ``repro/kernels/ops.py``).
 
 The fused neural-ODE rollout (K1), its fused VJP (K2), the time-grid
-helpers they are fed by, the crossbar reads (K7) and the fused analogue
-rollout (K4).  The soft-DTW ops come with a later slice (ROADMAP.md,
-queue 2).
+helpers they are fed by, the crossbar reads (K7), the fused analogue
+rollout (K4), and soft-DTW with its E-matrix backward (K5, K6) and the
+hard DTW metric (K5).
 """
 from __future__ import annotations
 
@@ -14,10 +14,13 @@ import torch
 
 from repro_torch.core.analogue import (AnalogueSpec, conductance_pair,
                                        level_indices)
+from repro_torch.core.losses import _pairwise_dist
 from repro_torch.kernels import crossbar_vmm as _k7
 from repro_torch.kernels import fused_analogue as _k4
 from repro_torch.kernels import fused_ode_mlp as _k1
 from repro_torch.kernels import fused_ode_mlp_bwd as _k2
+from repro_torch.kernels import ref
+from repro_torch.kernels import softdtw as _k5
 
 GRADIENT_MODES = ("fused_vjp", "stopgrad")
 
@@ -257,3 +260,68 @@ def fused_analogue_rollout(staged: dict, y0: torch.Tensor,
             read_noise=float(read_noise), noise_seed=int(noise_seed),
             step_offset=int(step_offset), batch_tile=batch_tile)
     return out.detach()
+
+
+# ---------------------------------------------------------------------------
+# soft-DTW (K5 forward, K6 E-matrix backward)
+# ---------------------------------------------------------------------------
+
+def _diag_layout_batch(D: torch.Tensor) -> torch.Tensor:
+    """(B, n, m) costs -> the kernels' contiguous float32 (B, n+m-1, n)
+    diagonal layout (no padding to a chunk multiple)."""
+    return ref.diag_layout(D.to(torch.float32)).contiguous()
+
+
+def _undiag_batch(e_dd: torch.Tensor, n: int, m: int) -> torch.Tensor:
+    """Inverse of :func:`_diag_layout_batch`: (B, n+m-1, n) -> (B, n, m),
+    cell (i, j) gathered from ``e_dd[:, i+j, i]``."""
+    rows = torch.arange(n, device=e_dd.device)[:, None]
+    cols = torch.arange(m, device=e_dd.device)[None, :]
+    return e_dd[:, rows + cols, rows]
+
+
+class SoftDTW(torch.autograd.Function):
+    """Batched soft-DTW of a (B, n, m) cost matrix: forward K5 with R,
+    backward K6.  ``apply(D, gamma)`` returns (B,) float32; the gradient
+    is ``g[:, None, None] * E`` in D's dtype, E the E-matrix."""
+
+    @staticmethod
+    def forward(ctx, D, gamma):
+        n, m = D.shape[1], D.shape[2]
+        dd = _diag_layout_batch(D)
+        ans, rd = _k5.softdtw_wavefront(dd, n, m, gamma=gamma,
+                                        return_r=True)
+        ctx.save_for_backward(dd, rd)
+        ctx.gamma = gamma
+        ctx.d_dtype = D.dtype
+        return ans
+
+    @staticmethod
+    def backward(ctx, g):
+        dd, rd = ctx.saved_tensors
+        n = dd.shape[2]
+        m = dd.shape[1] - n + 1
+        e_dd = _k5.softdtw_wavefront_bwd(dd, rd, n, m, gamma=ctx.gamma)
+        dD = g[:, None, None] * _undiag_batch(e_dd, n, m)
+        return dD.to(ctx.d_dtype), None
+
+
+def soft_dtw(x: torch.Tensor, y: torch.Tensor, gamma: float = 1.0,
+             precision: str | None = None) -> torch.Tensor:
+    """Batched soft-DTW((B, n, d), (B, m, d)) -> (B,) through the
+    wavefront kernels: K5 forward, K6 backward, differentiable in ``x``
+    and ``y``.  The pairwise |x_i - y_j| cost stays in plain autograd
+    outside the kernels, as the JAX package leaves it to ``jax.vjp``.
+    ``precision``: ``None`` or ``"f32"`` (the bf16 cost slab is not
+    ported)."""
+    _k1.resolve_precision(precision, "the soft-DTW kernels")
+    return SoftDTW.apply(_pairwise_dist(x, y), float(gamma))
+
+
+def dtw_distance(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Batched hard-DTW metric, (B, n, d) x (B, m, d) -> (B,), through K5
+    with ``hard=True``.  Not differentiable (a metric)."""
+    with torch.no_grad():
+        D = _pairwise_dist(x, y)
+        n, m = D.shape[1], D.shape[2]
+        return _k5.softdtw_wavefront(_diag_layout_batch(D), n, m, hard=True)

@@ -5,14 +5,17 @@ stock tensor ops on whatever device its tensors lie on.  The kernel
 wrappers use them for CPU tensors, the CPU tests hold them against the
 JAX package, and ``chip_smoke.py`` holds each kernel against them on the
 card.  Sections: the fused RK4 rollout and its VJP (K1, K2), the counter
-noise stream (K3), the crossbar VMM (K7) and the fused analogue rollout
-(K4).
+noise stream (K3), the crossbar VMM (K7), the fused analogue rollout
+(K4) and the soft-DTW wavefront pair (K5, K6).
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
+
+from repro_torch.core.losses import BIG, _dtw_scan, _hardmin, _softmin
 
 F32 = torch.float32
 
@@ -401,3 +404,170 @@ def fused_analogue_rollout_ref(gps: Sequence[torch.Tensor],
         y = y + dt / 6 * (k1 + 2 * k2 + 2 * k3 + k4)
         ys.append(y)
     return torch.stack(ys)
+
+
+# ---------------------------------------------------------------------------
+# soft-DTW wavefront (K5 forward, K6 E-matrix backward)
+# ---------------------------------------------------------------------------
+
+#: Padding-sentinel threshold of the kernels: a cost at or above it marks
+#: a cell outside the (n, m) matrix (real costs are pairwise distances,
+#: orders of magnitude below it).
+BIG_CUT = BIG * 0.5
+
+
+def diag_layout(D: torch.Tensor) -> torch.Tensor:
+    """(..., n, m) cost matrices -> (..., n+m-1, n) anti-diagonal layout:
+    ``layout[k, i]`` holds cell (i, k-i), BIG where k-i is outside
+    [0, m)."""
+    n, m = D.shape[-2], D.shape[-1]
+    rows = torch.arange(n, device=D.device)
+    j = torch.arange(n + m - 1, device=D.device)[:, None] - rows[None, :]
+    valid = (j >= 0) & (j < m)
+    vals = D[..., rows[None, :], j.clamp(0, m - 1)]
+    return torch.where(valid, vals, torch.full_like(vals, BIG))
+
+
+def softdtw_ref(D: torch.Tensor, gamma: float,
+                hard: bool = False) -> torch.Tensor:
+    """Accumulated (soft-)DTW cost of a (n, m) distance matrix."""
+    return _dtw_scan(D, gamma, _hardmin if hard else _softmin)
+
+
+def softdtw_batch_ref(D: torch.Tensor, gamma: float,
+                      hard: bool = False) -> torch.Tensor:
+    """:func:`softdtw_ref` of each (n, m) matrix of a (B, n, m) batch."""
+    return _dtw_scan(D, gamma, _hardmin if hard else _softmin)
+
+
+def _softmin3(a, b, c, gamma: float, inv_g: float):
+    """Soft minimum with the minimum subtracted, term by term as K5:
+    mn - gamma * log(e^((mn-a)/g) + e^((mn-b)/g) + e^((mn-c)/g))."""
+    mn = torch.minimum(torch.minimum(a, b), c)
+    s = (torch.exp((mn - a) * inv_g) + torch.exp((mn - b) * inv_g)
+         + torch.exp((mn - c) * inv_g))
+    return mn - gamma * torch.log(s)
+
+
+def softdtw_wavefront_ref(dd: torch.Tensor, n: int, m: int, *,
+                          gamma: float = 1.0, hard: bool = False,
+                          return_r: bool = False):
+    """Batched (soft-)DTW from the (B, n+m-1, n) float32 diagonal layout
+    of the costs -> (B,), and with ``return_r`` also R in the same layout
+    — the plain version of K5 (``kernels/csrc/softdtw.cu``).
+
+    Walks the diagonals k = 0 .. n+m-2 as the kernel does: up, left and
+    diag are R_{k-1}[i], R_{k-1}[i-1] and R_{k-2}[i-1] (BIG off the
+    edge); a cell whose cost is at or above ``BIG_CUT`` is invalid and
+    gets R = BIG, the cell (0, 0) takes its cost alone."""
+    B, kd = dd.shape[0], dd.shape[1]
+    inv_g = 1.0 / gamma
+    big = torch.full((B, 1), BIG, dtype=dd.dtype, device=dd.device)
+    r1 = big.expand(B, n)                    # R_{k-1}
+    r2 = big.expand(B, n)                    # R_{k-2}
+    rs = []
+    for k in range(kd):
+        d_k = dd[:, k]
+        left = torch.cat([big, r1[:, :-1]], dim=1)
+        diag = torch.cat([big, r2[:, :-1]], dim=1)
+        if hard:
+            best = torch.minimum(torch.minimum(r1, left), diag)
+        else:
+            best = _softmin3(r1, left, diag, gamma, inv_g)
+        invalid = d_k >= BIG_CUT
+        r_k = d_k if k == 0 else d_k + torch.where(
+            invalid, torch.zeros_like(best), best)
+        r_k = torch.where(invalid, big, r_k)
+        rs.append(r_k)
+        r1, r2 = r_k, r1
+    ans = r1[:, n - 1].contiguous()
+    if return_r:
+        return ans, torch.stack(rs, dim=1)
+    return ans
+
+
+def softdtw_wavefront_bwd_ref(dd: torch.Tensor, rd: torch.Tensor, n: int,
+                              m: int, *, gamma: float = 1.0) -> torch.Tensor:
+    """The E-matrix dSDTW/dD in the diagonal layout, (B, n+m-1, n)
+    float32 — the plain version of K6 (``kernels/csrc/softdtw.cu``).
+
+    The closed-form reverse DP of Cuturi & Blondel 2017 (Alg. 2), walking
+    k = n+m-2 .. 0: the children of cell (i, k-i) sit at layout[k+1, i+1],
+    layout[k+1, i] and layout[k+2, i+1], each weighted by
+    exp((R_child - R - D_child) / gamma) where its cost is below
+    ``BIG_CUT`` and zero otherwise; an invalid cell is zero; E = 1 seeds
+    row n-1 of the last diagonal."""
+    B, kd = dd.shape[0], dd.shape[1]
+    inv_g = 1.0 / gamma
+    zero = torch.zeros((B, 1), dtype=dd.dtype, device=dd.device)
+    big = torch.full((B, 1), BIG, dtype=dd.dtype, device=dd.device)
+    e1 = e2 = zero.expand(B, n)
+    r1 = r2 = d1 = d2 = big.expand(B, n)
+
+    def below(x, pad):
+        """layout row i -> i+1 (the children one row down)."""
+        return torch.cat([x[:, 1:], pad], dim=1)
+
+    def term(ev, rv, dv, r_k):
+        w = torch.exp((rv - r_k - dv) * inv_g)
+        return torch.where(dv < BIG_CUT, ev * w, torch.zeros_like(w))
+
+    es = [None] * kd
+    for k in range(kd - 1, -1, -1):
+        d_k, r_k = dd[:, k], rd[:, k]
+        e_k = (term(below(e1, zero), below(r1, big), below(d1, big), r_k)
+               + term(e1, r1, d1, r_k)
+               + term(below(e2, zero), below(r2, big), below(d2, big), r_k))
+        e_k = torch.where(d_k < BIG_CUT, e_k, torch.zeros_like(e_k))
+        if k == n + m - 2:
+            seed = torch.zeros_like(e_k)
+            seed[:, n - 1] = 1.0
+            e_k = e_k + seed
+        es[k] = e_k
+        e1, e2, r1, r2, d1, d2 = e_k, e1, r_k, r1, d_k, d1
+    return torch.stack(es, dim=1)
+
+
+def softdtw_grad_ref(D, gamma: float) -> np.ndarray:
+    """Closed-form E-matrix (dSDTW/dD) of one (n, m) cost matrix by the
+    reverse DP of Cuturi & Blondel 2017, Alg. 2, in float64 numpy — the
+    oracle for K6 and its plain version.
+
+    Pads R and D with +inf borders so every child weight
+    exp((R_child - R - D_child) / gamma) vanishes outside the matrix.
+    """
+    D = np.asarray(D, dtype=np.float64)
+    n, m = D.shape
+    R = np.full((n, m), np.inf)
+    for i in range(n):
+        for j in range(m):
+            if i == 0 and j == 0:
+                R[i, j] = D[i, j]
+                continue
+            preds = []
+            if i > 0:
+                preds.append(R[i - 1, j])
+            if j > 0:
+                preds.append(R[i, j - 1])
+            if i > 0 and j > 0:
+                preds.append(R[i - 1, j - 1])
+            p = np.asarray(preds)
+            soft = -gamma * (np.log(np.sum(np.exp(-(p - p.min()) / gamma)))
+                             - p.min() / gamma)
+            R[i, j] = D[i, j] + soft
+    Rp = np.full((n + 1, m + 1), np.inf)
+    Rp[:n, :m] = R
+    Dp = np.full((n + 1, m + 1), np.inf)
+    Dp[:n, :m] = D
+    Ep = np.zeros((n + 1, m + 1))
+    Ep[n - 1, m - 1] = 1.0
+    for k in range(n + m - 3, -1, -1):          # reverse anti-diagonals
+        for i in range(max(0, k - m + 1), min(n, k + 1)):
+            j = k - i
+            acc = 0.0
+            for ci, cj in ((i + 1, j), (i, j + 1), (i + 1, j + 1)):
+                if np.isfinite(Dp[ci, cj]):
+                    acc += Ep[ci, cj] * np.exp(
+                        (Rp[ci, cj] - R[i, j] - Dp[ci, cj]) / gamma)
+            Ep[i, j] = acc
+    return Ep[:n, :m]

@@ -4,15 +4,15 @@ The HP-memristor twin (paper Fig. 3) and the Lorenz96 twin (Fig. 4):
 ground truth, derivative-matching warm start, multiple-shooting
 trajectory training on a chosen substrate (``backend="fused_cuda"``
 trains through the hand-written kernels K1 and K2), and the paper's
-evaluation protocols; the analogue noise-robustness grid (Fig. 4j); plus
-the Lorenz96 fleet-serving scenario.  Each recipe takes ``device=``
+evaluation protocols and the Lorenz96 system's Lyapunov time; the
+analogue noise-robustness grid (Fig. 4j); plus the Lorenz96
+fleet-serving scenario.  Each recipe takes ``device=``
 (default ``cuda``; ``"cpu"`` runs the kernels' plain versions) and draws
 from ``torch.Generator``s seeded from ``seed``, so the port's weights
 are not the JAX package's for the same seed.
 
 Not ported yet (ROADMAP.md, queue 1): the recurrent-ResNet and
-recurrent-forecaster baselines, hardware-aware training and the Lyapunov
-analysis.
+recurrent-forecaster baselines and hardware-aware training.
 
 CLI (``--device cpu`` runs the kernels' plain versions):
 
@@ -31,9 +31,10 @@ from repro_torch.core.analogue import AnalogueSpec
 from repro_torch.core.backends import (AnalogueBackend,
                                        FusedAnalogueCudaBackend,
                                        FusedCudaBackend, resolve_backend)
-from repro_torch.core.losses import dtw, l1, mre
+from repro_torch.core.losses import (dtw, l1, lyapunov_time,
+                                     max_lyapunov_exponent, mre)
 from repro_torch.core.twin import (TwinFleet, make_autonomous_twin,
-                                   make_driven_twin)
+                                   make_driven_twin, reference_trajectory)
 from repro_torch.data import hp_memristor as hp
 from repro_torch.data import lorenz96 as l96
 from repro_torch.device import resolve_device
@@ -166,6 +167,30 @@ def eval_l96_twin(twin, params, data=None, device=None):
         extrap = float(l1(pred_x[1:], ys[split:]))
     return {"interp_l1": interp, "extrap_l1": extrap,
             "pred_extrap": pred_x[1:], "true_extrap": ys[split:]}
+
+
+def l96_lyapunov_info(device=None) -> dict:
+    """The maximal Lyapunov exponent of the paper's Lorenz96 system
+    (F = 8) and its Lyapunov time: 4,000 RK4 steps of 0.0025 onto the
+    attractor (500 points of 0.02, 8 steps each), then the tangent
+    rescaling method over 20,000 steps of 0.01, renormalised every 20,
+    from a start direction drawn by a CPU generator seeded with 0.
+    Returns ``{"mle": float, "lyapunov_time": float}``.
+
+    Runs in float64, where the JAX package runs float32: a perturbation
+    of eps = 1e-6 is one or two ulp of a float32 state of size ~5, so in
+    float32 the estimate measures rounding noise (or, when the perturbed
+    state rounds onto the state, collapses for good)."""
+    device = resolve_device(device)
+    f = l96.lorenz96_field(8.0)
+    f64 = torch.float64
+    y0 = torch.tensor(l96.PAPER_Y0, dtype=f64, device=device)
+    ts = torch.arange(500, dtype=f64, device=device) * 0.02
+    with torch.no_grad():
+        ys = reference_trajectory(f, y0, ts, steps_per_interval=8)
+    mle = max_lyapunov_exponent(f, ys[-1], None, dt=0.01, num_steps=20000,
+                                renorm_every=20)
+    return {"mle": float(mle), "lyapunov_time": float(lyapunov_time(mle))}
 
 
 # ---------------------------------------------------------------------------

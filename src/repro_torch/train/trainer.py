@@ -2,9 +2,9 @@
 ``repro/train/trainer.py``).
 
 Faithful to the paper's Methods: Adam, RK4 ODESolve, adjoint-state
-gradients, an L1 objective, and random state noise as a regulariser
-during training (their ref. 46), plus the JAX package's two practical
-additions:
+gradients, an L1 or soft-DTW objective, and random state noise as a
+regulariser during training (their ref. 46), plus the JAX package's two
+practical additions:
 
 * multiple-shooting segmentation — the trajectory is split into segments
   solved from ground-truth initial states;
@@ -17,7 +17,9 @@ batch of one continuous-adjoint IVP (the JAX package vmaps one solve per
 segment), while
 ``backend="fused_cuda"`` makes the segments the batch of one K1 launch
 and differentiates through the reverse-time kernel K2 — training on the
-substrate that serves.
+substrate that serves; its soft-DTW objectives run through the wavefront
+kernels K5 (forward) and K6 (E-matrix backward), where the digital path
+differentiates the reference DP by autograd.
 
 The engines are plain loops: PyTorch runs eagerly, so the JAX package's
 scan-compiled chunks have no counterpart.  Random state noise draws from
@@ -25,9 +27,9 @@ a ``torch.Generator`` handed to ``fit`` (the JAX package splits a
 ``jax.random`` key per step), on the CPU and then moved, so one seed
 gives the same noise on every device.
 
-Not ported yet (ROADMAP.md, queue 1): the soft-DTW objectives (kernels
-K5/K6), hardware-aware training (``hw_aware=``) and the baseline
-trainers (``train_forecaster``, ``train_recurrent_resnet``).
+Not ported yet (ROADMAP.md, queue 1): hardware-aware training
+(``hw_aware=``) and the baseline trainers (``train_forecaster``,
+``train_recurrent_resnet``).
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ import torch
 
 from repro_torch.core.backends import (FusedCudaBackend, resolve_backend,
                                        uniform_dt)
-from repro_torch.core.losses import l1
+from repro_torch.core.losses import l1, soft_dtw_batch
 from repro_torch.train.optimizer import Optimizer, apply_updates
 from repro_torch.tree import tree_leaves, tree_unflatten
 
@@ -120,20 +122,36 @@ def make_segments(ts: torch.Tensor, ys: torch.Tensor, segment_len: int):
     return ts[idx], ys[idx]
 
 
-def _segment_objective(loss: str, preds, ys_seg):
-    """The loss over (S, L+1, D) predictions and targets (only the L1
-    objective is ported)."""
-    if loss != "l1":
+#: The segment objectives: L1, soft-DTW over the segment length, and L1
+#: plus a tenth of that.
+OBJECTIVES = ("l1", "softdtw", "l1+softdtw")
+
+
+def _segment_objective(loss: str, gamma: float, preds, ys_seg,
+                       kernelised: bool = False):
+    """Shared loss combinators over (S, L+1, D) predictions/targets.
+
+    ``kernelised=True`` (the fused training path) sends soft-DTW through
+    the wavefront kernels, K5 forward and the K6 E-matrix backward
+    (:func:`repro_torch.kernels.ops.soft_dtw`), instead of the reference
+    DP differentiated by autograd."""
+    if loss not in OBJECTIVES:
         raise ValueError(loss)
-    return l1(preds.to(torch.float32), ys_seg)
+    preds = preds.to(torch.float32)
+    if loss == "l1":
+        return l1(preds, ys_seg)
+    if kernelised:
+        from repro_torch.kernels import ops
+        sdtw = torch.mean(ops.soft_dtw(preds, ys_seg, gamma))
+    else:
+        sdtw = torch.mean(soft_dtw_batch(preds, ys_seg, gamma))
+    if loss == "softdtw":
+        return sdtw / ys_seg.shape[1]
+    return l1(preds, ys_seg) + 0.1 * sdtw / ys_seg.shape[1]
 
 
-def _check_ported(loss: str, hw_aware) -> None:
+def _check_ported(hw_aware) -> None:
     """Refuse what the port does not have yet, before any solve runs."""
-    if loss in ("softdtw", "l1+softdtw"):
-        raise NotImplementedError(
-            f"loss={loss!r}: soft-DTW and its kernels K5/K6 are not ported "
-            f"yet (ROADMAP.md, queue 1, 'Soft-DTW'); use loss='l1'")
     if hw_aware is not None:
         raise NotImplementedError(
             "hw_aware=: hardware-aware training is not ported yet "
@@ -141,7 +159,7 @@ def _check_ported(loss: str, hw_aware) -> None:
 
 
 def _fused_segment_loss_fn(twin, backend, ts_seg, ys_seg, loss: str,
-                           noise_std: float):
+                           gamma: float, noise_std: float):
     """Multiple-shooting loss on the fused CUDA substrate.
 
     The segments become the kernel's BATCH dimension: one K1 launch
@@ -182,26 +200,29 @@ def _fused_segment_loss_fn(twin, backend, ts_seg, ys_seg, loss: str,
         traj = ops.fused_node_rollout(params, y0p, uhp, dt, batch_tile=bt,
                                       gradient="fused_vjp")
         preds = traj[::sub, :S].transpose(0, 1)          # (S, L+1, D)
-        return _segment_objective(loss, preds, ys_seg)
+        return _segment_objective(loss, gamma, preds, ys_seg,
+                                  kernelised=True)
 
     return loss_fn
 
 
 def segment_loss_fn(twin, ts_seg, ys_seg, loss: str = "l1",
-                    noise_std: float = 0.0, backend=None, hw_aware=None):
+                    gamma: float = 0.1, noise_std: float = 0.0,
+                    backend=None, hw_aware=None):
     """Loss over shooting segments.
 
-    ``backend``: optional execution substrate (Backend instance or
-    registry name); ``None`` uses the twin's own backend.  The digital
-    substrate batches the segments into one solve
+    ``loss``: one of :data:`OBJECTIVES`; ``gamma`` is soft-DTW's
+    smoothing.  ``backend``: optional execution substrate (Backend
+    instance or registry name); ``None`` uses the twin's own backend.
+    The digital substrate batches the segments into one solve
     (:func:`_batched_segments`); the fused CUDA substrate batches them
-    through one K1 launch with the K2 reverse-time VJP (train where you
-    serve)."""
-    _check_ported(loss, hw_aware)
+    through one K1 launch with the K2 reverse-time VJP, and soft-DTW
+    through K5 and K6 (train where you serve)."""
+    _check_ported(hw_aware)
     be = resolve_backend(backend) if backend is not None else twin.backend
     if isinstance(be, FusedCudaBackend):
         return _fused_segment_loss_fn(twin, be, ts_seg, ys_seg, loss,
-                                      noise_std)
+                                      gamma, noise_std)
     if backend is not None:
         twin = twin.with_backend(be)
     twin, ts_rel = _batched_segments(twin, ts_seg)
@@ -211,7 +232,7 @@ def segment_loss_fn(twin, ts_seg, ys_seg, loss: str = "l1",
         if noise_std > 0 and generator is not None:
             y0s = y0s + noise_std * normal_like(generator, y0s)
         preds = twin.simulate(params, y0s, ts_rel).transpose(0, 1)
-        return _segment_objective(loss, preds, ys_seg)
+        return _segment_objective(loss, gamma, preds, ys_seg)
 
     return loss_fn
 
@@ -241,7 +262,7 @@ def _batched_segments(twin, ts_seg):
 def train_twin(twin, params, ts: torch.Tensor, ys: torch.Tensor, *,
                optimizer: Optimizer, num_steps: int,
                segment_len: int = 50, loss: str = "l1",
-               noise_std: float = 0.0,
+               gamma: float = 0.1, noise_std: float = 0.0,
                generator: Optional[torch.Generator] = None,
                backend=None, hw_aware=None):
     """Train a twin on one observed trajectory (paper's training setup).
@@ -249,11 +270,14 @@ def train_twin(twin, params, ts: torch.Tensor, ys: torch.Tensor, *,
     ``backend`` selects the training substrate (see
     :func:`segment_loss_fn`): ``backend="fused_cuda"`` (or a
     ``FusedCudaBackend`` instance) runs every forward and backward solve
-    through the hand-written kernels K1 and K2.  ``generator`` draws the
-    state noise (default: a CPU generator seeded with 0)."""
+    through the hand-written kernels K1 and K2 (and a soft-DTW ``loss``
+    through K5 and K6).  ``gamma`` is soft-DTW's smoothing.
+    ``generator`` draws the state noise (default: a CPU generator seeded
+    with 0)."""
     ts_seg, ys_seg = make_segments(ts, ys, segment_len)
-    loss_fn = segment_loss_fn(twin, ts_seg, ys_seg, loss, noise_std,
-                              backend=backend, hw_aware=hw_aware)
+    loss_fn = segment_loss_fn(twin, ts_seg, ys_seg, loss=loss, gamma=gamma,
+                              noise_std=noise_std, backend=backend,
+                              hw_aware=hw_aware)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     return fit(loss_fn, params, optimizer, num_steps, generator)

@@ -295,7 +295,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
     assert _build.sources() == ["crossbar_vmm", "fused_analogue",
-                                "fused_ode_mlp", "fused_ode_mlp_bwd"]
+                                "fused_ode_mlp", "fused_ode_mlp_bwd",
+                                "softdtw"]
 
 
 def test_library_path_follows_the_source(monkeypatch, tmp_path):

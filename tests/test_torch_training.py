@@ -4,7 +4,8 @@ The continuous adjoint, the optimizers and schedules, the ground-truth
 generators, the losses and the multiple-shooting trainer are held
 against the JAX package on the same numpy-made inputs and params; the
 HP recipe on the fused substrate (K1/K2's plain versions here) is held
-to the HP gates of ``tests/test_twins.py``.  Parity tolerances: adjoint
+to the HP gates of ``tests/test_twins.py``; the soft-DTW objectives
+(K5/K6's plain versions on the fused path) follow JAX's histories.  Parity tolerances: adjoint
 gradients 1e-5 relative to the peak; optimizer steps 1e-6; generated
 data 1e-5 of the peak (HP) and 1e-4 (Lorenz96 over 1200 points, where
 chaos amplifies float32 rounding roughly as e^(1.7 t)); loss histories
@@ -327,9 +328,6 @@ def test_unported_objectives_raise(hp_data):
     ts, ys, _ = hp_data
     tt = ttwin.make_driven_twin(1, thp.WAVEFORMS["sine"](), hidden=14)
     ts_seg, ys_seg = ttrainer.make_segments(t(ts), t(ys), 50)
-    for loss in ("softdtw", "l1+softdtw"):
-        with pytest.raises(NotImplementedError, match="Soft-DTW"):
-            ttrainer.segment_loss_fn(tt, ts_seg, ys_seg, loss=loss)
     with pytest.raises(NotImplementedError, match="Hardware-aware"):
         ttrainer.segment_loss_fn(tt, ts_seg, ys_seg, hw_aware=object())
     with pytest.raises(ValueError, match="uniform time grid"):
@@ -338,6 +336,82 @@ def test_unported_objectives_raise(hp_data):
                                    method="euler")
     with pytest.raises(ValueError, match="RK4 only"):
         ttrainer.segment_loss_fn(euler, ts_seg, ys_seg, backend="fused_cuda")
+
+
+# ---------------------------------------------------------------------------
+# The soft-DTW objectives (fused: K5/K6 plain versions; digital: the
+# reference DP under autograd)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def sdtw_case():
+    """The HP case of tests/test_gradients.py's soft-DTW fit: 200 points,
+    segments of 40, JAX-made params, and JAX's 6-step histories on both
+    substrates for both soft-DTW objectives (gamma 0.1, no state noise)."""
+    ts, xs, _, _ = jhp.generate("sine", num_points=200, dt=1e-3, amp=2.0,
+                                freq=2.0)
+    jt = jtwin.make_driven_twin(1, jhp.WAVEFORMS["sine"](amp=2.0, freq=2.0),
+                                hidden=14)
+    params = jt.init(jax.random.PRNGKey(42))
+    hists = {}
+    for loss in ("l1+softdtw", "softdtw"):
+        for name, be in (("fused", FusedPallasBackend(precision="f32")),
+                         ("digital", None)):
+            hists[loss, name] = np.asarray(jtrainer.train_twin(
+                jt, params, ts, xs[:, None], optimizer=jopt.adam(1e-3),
+                num_steps=6, segment_len=40, loss=loss, gamma=0.1,
+                backend=be)[1])
+    p = [{k: np.asarray(v) for k, v in layer.items()} for layer in params]
+    return np.asarray(ts), np.asarray(xs)[:, None], p, hists
+
+
+@pytest.mark.parametrize("loss", ["l1+softdtw", "softdtw"])
+@pytest.mark.parametrize("backend", ["fused", "digital"])
+def test_softdtw_loss_history_matches_jax(sdtw_case, backend, loss):
+    """6 steps of soft-DTW training from the same JAX-made weights: the
+    port's fused (K1/K2/K5/K6 plain versions) or digital (adjoint +
+    autograd of the reference DP) history is within 1e-3 rel per step of
+    JAX's fused AND digital histories, the reference's own
+    fused-vs-digital gate (tests/test_gradients.py)."""
+    ts, ys, p, hists = sdtw_case
+    tt = ttwin.make_driven_twin(1, thp.WAVEFORMS["sine"](amp=2.0, freq=2.0),
+                                hidden=14)
+    _, got = ttrainer.train_twin(
+        tt, params_from_numpy(p, "cpu"), t(ts), t(ys),
+        optimizer=topt.adam(1e-3), num_steps=6, segment_len=40, loss=loss,
+        gamma=0.1, backend="fused_cuda" if backend == "fused" else None)
+    assert got.shape == (6,) and bool(torch.isfinite(got).all())
+    for ref_backend in ("fused", "digital"):
+        want = hists[loss, ref_backend]
+        assert float(np.max(np.abs(got.numpy() - want)
+                            / np.abs(want))) <= 1e-3, ref_backend
+
+
+@pytest.mark.parametrize("backend", ["fused", "digital"])
+def test_segment_loss_fn_positional_gamma_matches_jax(sdtw_case, backend):
+    """``segment_loss_fn(twin, ts_seg, ys_seg, loss, gamma, noise_std)``
+    means the same in both packages: the fifth positional argument is
+    soft-DTW's gamma (0.5 here, not the default 0.1), the sixth the state
+    noise."""
+    ts, ys, p, _ = sdtw_case
+    jt = jtwin.make_driven_twin(1, jhp.WAVEFORMS["sine"](amp=2.0, freq=2.0),
+                                hidden=14)
+    tt = ttwin.make_driven_twin(1, thp.WAVEFORMS["sine"](amp=2.0, freq=2.0),
+                                hidden=14)
+    j_seg = jtrainer.make_segments(jnp.asarray(ts), jnp.asarray(ys), 40)
+    t_seg = ttrainer.make_segments(t(ts), t(ys), 40)
+    jb = FusedPallasBackend(precision="f32") if backend == "fused" else None
+    tb = "fused_cuda" if backend == "fused" else None
+    want = float(jtrainer.segment_loss_fn(jt, *j_seg, "l1+softdtw", 0.5,
+                                          0.0, jb)(jparams(p), None))
+    got = float(ttrainer.segment_loss_fn(tt, *t_seg, "l1+softdtw", 0.5, 0.0,
+                                         tb)(params_from_numpy(p, "cpu"),
+                                             None))
+    default = float(ttrainer.segment_loss_fn(tt, *t_seg, "l1+softdtw",
+                                             backend=tb)(
+        params_from_numpy(p, "cpu"), None))
+    assert got == pytest.approx(want, rel=1e-5)
+    assert abs(default - got) > 1e-3 * abs(got)
 
 
 def test_l96_recipe_runs_on_the_cpu():
