@@ -12,9 +12,9 @@ result line:
 1. environment: a CUDA card is required; prints its name and power
    limit; TF32 is switched off so the plain versions run in full float32;
 2. build: every kernel source under ``src/repro_torch/kernels/csrc`` (K1,
-   K2, K4 with the K3 fill kernel, K7) is compiled with ``nvcc`` (one
-   process per source, in parallel), with ptxas's registers and spills
-   printed;
+   K2, K4 with the K3 fill kernel, K5 and K6, K7, K8, K9) is compiled with
+   ``nvcc`` (one process per source, in parallel), with ptxas's registers
+   and spills printed;
 3. K1 vs its plain version on the card, at the serving path's shapes,
    in two drive modes, and at a width whose weights need more than 48 KB
    of shared memory; error relative to each trajectory's peak <= 1e-4;
@@ -86,13 +86,38 @@ result line:
    plain version, the card's bound, the chain length n+m-1, the kernels'
    share of a P4 step, the wall time of the whole soft-DTW term (forward
    and backward) per call, and a ``torch.profiler`` trace of 5 P4 steps
-   (device busy share, the kernels by device time).
+   (device busy share, the kernels by device time);
+17. K8 (causal GQA flash attention) and K9 (the selective-SSM scan)
+   against their plain versions: K8 at the JAX package's three test
+   shapes and the Jamba prefill's (B, H, Hkv, S, d) = (2, 32, 8, 4096,
+   128), in float32 (<= 2e-5 of the peak) and bf16 (<= 2e-2, and per
+   element within 2^-8 |want| + 2e-5 of the peak of the plain version's
+   float32 output before its cast), on the model's (B, S, H, d) layout; K9 at JAX's three test shapes and
+   (B, S, DI, N) = (2, 4096, 8192, 16) (<= 1e-5 for y and the final
+   state); repeats bitwise;
+18. P5, Jamba v0.1 served at full width with its depth cut from 32
+   layers to 8 (one period: 7 Mamba mixers, 1 GQA, 4 MoE): in float32
+   at batch 1, ``make_prefill_step`` on (1, 4097) tokens through the
+   kernels (exactly 1 K8 and 7 K9 launches) and again with
+   ``ops.flash_attention``/``ops.ssm_scan`` swapped to their plain
+   versions here (last logits <= 1e-3 of the peak, ssm states <= 1e-4;
+   MoE top-2 choices that differ, printed); then in bf16 ``unembed``'s
+   float32-output product against the widened one (<= 1e-4), two prefill
+   batches of (2, 4097) (1 K8 and 7 K9 each, finite f32 logits, caches
+   of ``init_cache``'s shapes) and ``greedy_generate`` of 16 tokens from
+   a 16-token prompt (no K8 or K9 launch, finite logits);
+19. K8 and K9 timing at P5's shapes with CUDA events (kernel, plain
+   version, the card's bound, and for K8
+   ``scaled_dot_product_attention``), P5's prefill tokens/s and decode
+   ms per token, and a ``torch.profiler`` trace of one bf16 prefill (K8
+   and K9's share of device time, the top five kernels, idle share).
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record, the
 last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import subprocess
@@ -106,6 +131,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.configs import get_config, param_count  # noqa: E402
 from repro_torch.configs.lorenz96_twin import CONFIG as L96_CONFIG  # noqa: E402
 from repro_torch.core.analogue import AnalogueSpec  # noqa: E402
 from repro_torch.core.backends import (AnalogueBackend, DigitalBackend,  # noqa: E402
@@ -117,12 +143,19 @@ from repro_torch.core.node import mlp_init  # noqa: E402
 from repro_torch.core.twin import (TwinFleet, make_autonomous_twin,  # noqa: E402
                                    make_driven_twin)
 from repro_torch.data import hp_memristor as hp  # noqa: E402
-from repro_torch.kernels import (_build, crossbar_vmm, fused_analogue,  # noqa: E402
+from repro_torch.data.tokens import TokenPipeline  # noqa: E402
+from repro_torch.kernels import (_build, crossbar_vmm,  # noqa: E402
+                                 flash_attention, fused_analogue,
                                  fused_ode_mlp, fused_ode_mlp_bwd, noise, ops,
-                                 ref, softdtw)
+                                 ref, softdtw, ssm_scan)
 from repro_torch.launch.fleet_serving import serve_fleet  # noqa: E402
-from repro_torch.train import checkpoint, recipes, trainer  # noqa: E402
+from repro_torch.models import layers as lm_layers  # noqa: E402
+from repro_torch.models import model as lm_model  # noqa: E402
+from repro_torch.models import moe as lm_moe  # noqa: E402
+from repro_torch.train import (checkpoint, lm_trainer, recipes,  # noqa: E402
+                               trainer)
 from repro_torch.train.optimizer import adam  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
 
 TOL = 1e-4          # kernel vs plain, fused vs digital: of the peak |y|
 HIST_TOL = 1e-3     # fused vs digital-adjoint loss history, rel per step
@@ -133,6 +166,9 @@ SEED = 0
 # the power limit printed beside it.
 FP32_PEAK = 67.0e12
 HBM_BW = 3.35e12
+#: Its dense BF16 tensor-core peak (same data sheet): the bound of K8's
+#: bf16 products.
+BF16_PEAK = 989.0e12
 #: Scalar operations of one counter normal (two splitmix32 hashes, two
 #: exponent bitcasts, log, sqrt, cos and three products, each counted as
 #: one operation at the FP32 rate): the bounds count the noise with it.
@@ -301,6 +337,410 @@ def cuda_ms(fn, reps: int, warmup: int = 2, queue_ahead: bool = False
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# -- phases 17-19: the LM serving slice (K8, K9, P5) ---------------------------
+
+#: K8 shapes of phase 17 as (B, H, Hkv, S, d): the JAX package's three test
+#: shapes, then the Jamba prefill's.
+K8_SHAPES = [(1, 2, 2, 32, 16), (2, 4, 2, 64, 32), (1, 8, 2, 128, 64),
+             (2, 32, 8, 4096, 128)]
+#: K9 shapes of phase 17 as (B, S, DI, N): JAX's three, then Jamba's.
+K9_SHAPES = [(1, 8, 16, 4), (2, 32, 64, 16), (1, 64, 128, 16),
+             (2, 4096, 8192, 16)]
+#: K8 vs plain, of the peak |out|: the tolerances of the JAX package's
+#: test_flash_pallas_matches_ref (bf16 output rounding).
+K8_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: bf16 K8, per element, against the plain version's float32 output before its
+#: cast: |got - want| <= 2^-8 |want| (round to nearest in bf16's 8-bit
+#: significand) + K8_TOL[float32] of the peak (the kernel's own float32 sums).
+#: Far tighter than 2e-2 of the peak where rows attend over many keys.
+BF16_ROUND = 2.0 ** -8
+K9_TOL = 1e-5
+P5_SEQ = 4096        # P5 prompt length: the Jamba prefill shape of K8, K9
+P5_LOGIT_TOL = 1e-3   # P5 f32 last logits, kernels vs plain, of the peak
+P5_SSM_TOL = 1e-4     # P5 f32 ssm cache states, kernels vs plain, of the peak
+#: P5 bf16 logits (unembed's float32-output bf16 product on the card) vs the
+#: product of the widened operands, of the peak; a bf16-rounded output would
+#: be ~2^-9 of the peak off.
+UNEMBED_TOL = 1e-4
+#: Float32 operations of one causal (q, kv) pair's softmax besides the
+#: products: scale, mask, max, subtract, exp, sum.
+K8_SOFTMAX_OPS = 6
+#: Float32 operations of one (step, channel, state) of the scan: dt*A, exp,
+#: (dt x)*B, the decay product, the sum, h*C and its sum.
+K9_OPS_PER_STATE = 7
+
+
+def k8_inputs(gen, b, h, hkv, s, d, dtype, dev):
+    """q, k, v as the model hands them to K8: (B, S, heads, d) activations
+    seen as (B, heads, S, d) without a copy."""
+    return [torch.randn((b, s, n, d), generator=gen, device=dev).to(
+        dtype).transpose(1, 2) for n in (h, hkv, hkv)]
+
+
+def k9_inputs(gen, bsz, s, di, n, dev):
+    """Drawn as the JAX package's test draws them."""
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(rn(bsz, s, di)) * 0.1
+    return dt, rn(bsz, s, n), rn(bsz, s, n), rn(bsz, s, di), \
+        -torch.exp(rn(di, n) * 0.3)
+
+
+def k8_work(b, h, hkv, s, d, elem_bytes):
+    """(bound_ms, bound_by, GFLOP of products, MB) of one causal K8 call:
+    the products of the s(s+1)/2 visible pairs of each (batch, head) at
+    the bf16 tensor-core peak (or FP32 for float32 inputs), their softmax
+    at the FP32 peak, and Q, K, V read and O written once."""
+    pairs = b * h * s * (s + 1) // 2
+    products = 4 * d * pairs
+    peak = BF16_PEAK if elem_bytes == 2 else FP32_PEAK
+    moved = flash_attention.hbm_traffic_bytes(b, h, hkv, s, d, d,
+                                              elem_bytes)["total"]
+    times = {"operations": max(products / peak,
+                               K8_SOFTMAX_OPS * pairs / FP32_PEAK) * 1e3,
+             "bytes": moved / HBM_BW * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by, products / 1e9, moved / 1e6
+
+
+def k9_work(bsz, s, di, n):
+    """(bound_ms, bound_by, GFLOP, MB) of one K9 call: dt, x, B, C and A read
+    and y and the final state written once, float32."""
+    flops = bsz * s * di * (K9_OPS_PER_STATE * n + 1)
+    moved = 4 * (3 * bsz * s * di + 2 * bsz * s * n + di * n + bsz * di * n)
+    b_ms, by = bound(flops, moved)
+    return b_ms, by, flops / 1e9, moved / 1e6
+
+
+def lm_slice(dev, smi):
+    """Phases 17-19; returns the K8 and K9 entries of the kernel record."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    # -- 17. K8 and K9 vs their plain versions -----------------------------------
+    k8_errs, k9_errs = {}, {}
+    for b, h, hkv, s, d in K8_SHAPES:
+        for dtype, tol in K8_TOL.items():
+            q, k, v = k8_inputs(gen, b, h, hkv, s, d, dtype, dev)
+            got = flash_attention.flash_attention(q, k, v)
+            again = flash_attention.flash_attention(q, k, v)
+            want = ref.flash_attention_ref(q, k, v)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape and got.dtype == dtype,
+                  f"K8 {(b, h, hkv, s, d)}: {got.shape} {got.dtype}")
+            a, r = rel_err(got.float(), want.float())
+            k8_errs[b, h, hkv, s, d, dtype] = (a, r)
+            print(f"K8 vs plain (B, H, Hkv, S, d) = {(b, h, hkv, s, d)} "
+                  f"{dtype}: max abs err {a:.3e}, of peak {r:.3e} (limit "
+                  f"{tol:g}); repeat bitwise {torch.equal(got, again)}")
+            check(r <= tol, f"K8 {(b, h, hkv, s, d)} {dtype} disagrees with "
+                            f"its plain version")
+            check(torch.equal(got, again), f"K8 {(b, h, hkv, s, d)} {dtype}: "
+                                           f"repeats differ")
+            if dtype == torch.bfloat16:
+                want32 = ref.flash_attention_ref(q.float(), k.float(),
+                                                 v.float())
+                limit = BF16_ROUND * want32.abs() + K8_TOL[torch.float32] * \
+                    float(want32.abs().max())
+                worst = float(((got.float() - want32).abs() / limit).max())
+                k8_errs["bf16_rounding", b, h, hkv, s, d] = worst
+                print(f"  per element vs the float32 plain output: max "
+                      f"|err| / (2^-8 |want| + {K8_TOL[torch.float32]:g} of "
+                      f"the peak) = {worst:.4f} (limit 1)")
+                check(worst <= 1.0, f"K8 {(b, h, hkv, s, d)} bf16 beyond "
+                                    f"the rounding bound of its plain version")
+                del want32, limit
+            del q, k, v, got, again, want
+    for bsz, s, di, n in K9_SHAPES:
+        args = k9_inputs(gen, bsz, s, di, n, dev)
+        y, hf = ssm_scan.ssm_scan(*args)
+        y2, h2 = ssm_scan.ssm_scan(*args)
+        yr, hr = ref.ssm_scan_ref(*args)
+        torch.cuda.synchronize()
+        ya, yrel = rel_err(y, yr)
+        ha, hrel = rel_err(hf, hr)
+        k9_errs[bsz, s, di, n] = (max(ya, ha), max(yrel, hrel))
+        same = torch.equal(y, y2) and torch.equal(hf, h2)
+        print(f"K9 vs plain (B, S, DI, N) = {(bsz, s, di, n)}: y max abs err "
+              f"{ya:.3e}, of peak {yrel:.3e}; h_final {ha:.3e}, of peak "
+              f"{hrel:.3e} (limit {K9_TOL:g}); repeat bitwise {same}")
+        check(max(yrel, hrel) <= K9_TOL, f"K9 {(bsz, s, di, n)} disagrees "
+                                         f"with its plain version")
+        check(same, f"K9 {(bsz, s, di, n)}: repeats differ")
+        del args, y, hf, y2, h2, yr, hr
+    torch.cuda.empty_cache()
+
+    # -- 18. P5: Jamba prefill and decode at full width --------------------------------
+    full = get_config("jamba-v0.1-52b")
+    cfg = dataclasses.replace(full, n_layers=8)
+    print(f"P5 config {cfg.name}: d_model {cfg.d_model}, heads {cfg.n_heads} "
+          f"(kv {cfg.n_kv}, hd {cfg.hd}), d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"Mamba d_inner {cfg.mamba.d_inner} N {cfg.mamba.d_state}, MoE "
+          f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}; reduced: "
+          f"n_layers {full.n_layers} -> {cfg.n_layers} (one whole period, "
+          f"{param_count(cfg) / 1e9:.2f} B params of "
+          f"{param_count(full) / 1e9:.2f} B)")
+    s_len = P5_SEQ
+    n_mamba = sum(sp.mixer == "mamba" for sp in lm_model.block_program(cfg)[1])
+
+    def zero_lm():
+        flash_attention.LAUNCHES = 0
+        ssm_scan.LAUNCHES = 0
+
+    def read_lm(path, want):
+        torch.cuda.synchronize()
+        got = {"K8": flash_attention.LAUNCHES, "K9": ssm_scan.LAUNCHES}
+        print(f"{path}: launches {got}")
+        for key, n_ in want.items():
+            check(got[key] == n_, f"{path}: expected {n_} {key} launches, "
+                                  f"got {got[key]}")
+        return got
+
+    choices = []
+    route_moe = lm_moe.moe_apply
+
+    def recording_moe(params, mcfg, x):
+        choices[-1].append(torch.sort(lm_moe.route(params, mcfg, x)[2],
+                                      dim=-1).values)
+        return route_moe(params, mcfg, x)
+
+    lm_counts = {}
+    # parity in float32, batch of 1: kernels, then the plain versions
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    t_i = time.perf_counter()
+    params = lm_model.init_params(cfg32, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    print(f"P5 float32 params on {dev}: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, drawn in "
+          f"{time.perf_counter() - t_i:.2f} s")
+    batch = {"tokens": TokenPipeline(cfg.vocab, s_len, 1, seed=SEED)
+             .batch_at(0)["tokens"].to(dev)}
+    prefill32 = lm_trainer.make_prefill_step(cfg32)
+    runs = {}
+    lm_moe.moe_apply = recording_moe
+    plain_ops = {"flash_attention": lambda q, k, v, scale=None:
+                 ref.flash_attention_ref(q, k, v, scale=scale),
+                 "ssm_scan": ref.ssm_scan_ref}
+    kernel_ops = {name: getattr(ops, name) for name in plain_ops}
+    try:
+        for mode in ("kernels", "plain"):
+            choices.append([])
+            if mode == "plain":
+                for name, fn in plain_ops.items():
+                    setattr(ops, name, fn)
+            zero_lm()
+            t_p = time.perf_counter()
+            logits, cache = prefill32(params, batch)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t_p
+            got = read_lm(f"P5 float32 prefill (1, {s_len}) on {mode}",
+                          {"K8": 1, "K9": n_mamba} if mode == "kernels"
+                          else {"K8": 0, "K9": 0})
+            if mode == "kernels":
+                lm_counts["P5_f32_prefill"] = got
+            runs[mode] = (logits, [cache["stack"][f"b{i}"]["ssm"]
+                                   for i, sp in enumerate(
+                                       lm_model.block_program(cfg)[1])
+                                   if sp.mixer == "mamba"])
+            print(f"P5 float32 prefill on {mode}: {secs:.3f} s")
+            del cache
+    finally:
+        lm_moe.moe_apply = route_moe
+        for name, fn in kernel_ops.items():
+            setattr(ops, name, fn)
+    la, lr = rel_err(runs["kernels"][0], runs["plain"][0])
+    sr = max(rel_err(a, b)[1] for a, b in zip(runs["kernels"][1],
+                                              runs["plain"][1]))
+    flips = sum(int((a != b).sum()) for a, b in zip(*choices))
+    n_choices = sum(int(a.numel()) for a in choices[0])
+    print(f"P5 float32 kernels vs plain: last logits max abs err {la:.3e}, "
+          f"of peak {lr:.3e} (limit {P5_LOGIT_TOL:g}); ssm states of peak "
+          f"{sr:.3e} (limit {P5_SSM_TOL:g}); MoE top-{cfg.moe.top_k} choices "
+          f"that differ: {flips} of {n_choices}")
+    check(bool(torch.isfinite(runs["kernels"][0]).all()),
+          "P5 float32 logits not finite")
+    check(lr <= P5_LOGIT_TOL, "P5 float32 logits: kernels vs plain differ")
+    check(sr <= P5_SSM_TOL, "P5 float32 ssm states: kernels vs plain differ")
+    del params, runs, logits, choices
+    torch.cuda.empty_cache()
+
+    # serving in the config's own bf16: two prefill batches, then decode
+    t_i = time.perf_counter()
+    params = lm_model.init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    print(f"P5 bf16 params on {dev}: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, drawn in "
+          f"{time.perf_counter() - t_i:.2f} s")
+    # unembed's card branch (bf16 operands, float32 output) at the prefill's
+    # shape, against the product of the widened operands
+    table = params["embed"] if cfg.tie_embeddings else params["head"]
+    x = torch.randn((2, s_len, cfg.d_model), generator=gen, device=dev).to(
+        table.dtype)
+    ua, ur = rel_err(lm_layers.unembed(x, table), x.float() @ table.float().t())
+    print(f"P5 unembed (2, {s_len}, {cfg.d_model}) x {tuple(table.shape)} "
+          f"{table.dtype}, float32 out: max abs err {ua:.3e}, of peak "
+          f"{ur:.3e} vs the widened product (limit {UNEMBED_TOL:g})")
+    check(ur <= UNEMBED_TOL, "P5 unembed disagrees with the widened product")
+    del x, table
+    torch.cuda.empty_cache()
+    prefill = lm_trainer.make_prefill_step(cfg)
+    want_cache = lm_model.init_cache(cfg, 2, s_len, device=dev)
+    want_leaves = [(tuple(x.shape), x.dtype) for x in tree_leaves(want_cache)]
+    del want_cache
+    pipe = TokenPipeline(cfg.vocab, s_len, 2, seed=SEED)
+    prefill_secs = []
+    for i in range(2):
+        batch = {"tokens": pipe.batch_at(1 + i)["tokens"].to(dev)}
+        torch.cuda.synchronize()
+        zero_lm()
+        t_p = time.perf_counter()
+        logits, cache = prefill(params, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t_p
+        lm_counts[f"P5_bf16_prefill_{i}"] = read_lm(
+            f"P5 bf16 prefill {i} (2, {s_len})", {"K8": 1, "K9": n_mamba})
+        check(tuple(logits.shape) == (2, cfg.vocab)
+              and logits.dtype == torch.float32, f"P5 logits {logits.shape}")
+        check(bool(torch.isfinite(logits).all()), "P5 bf16 logits not finite")
+        got_leaves = [(tuple(x.shape), x.dtype) for x in tree_leaves(cache)]
+        check(got_leaves == want_leaves, f"P5 cache leaves {got_leaves} vs "
+                                         f"init_cache's {want_leaves}")
+        prefill_secs.append(secs)
+        print(f"[{smi}] P5 bf16 prefill {i}: (2, {s_len}) in "
+              f"{secs * 1e3:.3f} ms, {2 * s_len / secs:,.0f} tokens/s")
+        del logits, cache
+
+    finite = []
+    decode_step = lm_trainer.decode_step
+
+    def checking_decode(*args):
+        out = decode_step(*args)
+        finite.append(torch.isfinite(out[0]).all())
+        return out
+
+    prompt = pipe.batch_at(3)["tokens"][:, :16].to(dev)
+    zero_lm()
+    lm_trainer.decode_step = checking_decode
+    try:
+        torch.cuda.synchronize()
+        t_g = time.perf_counter()
+        toks = lm_trainer.greedy_generate(params, cfg, prompt, 16, 32)
+        torch.cuda.synchronize()
+        gen_secs = time.perf_counter() - t_g
+    finally:
+        lm_trainer.decode_step = decode_step
+    lm_counts["P5_greedy_generate"] = read_lm(
+        "P5 greedy_generate (16 + 16 tokens)", {"K8": 0, "K9": 0})
+    steps = prompt.shape[1] + 16 - 1
+    check(tuple(toks.shape) == (2, 16), f"generated {tuple(toks.shape)}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), "token range")
+    check(len(finite) == steps and bool(torch.stack(finite).all()),
+          "P5 decode logits not finite")
+    decode_ms = gen_secs / steps * 1e3
+    print(f"[{smi}] P5 greedy_generate: {steps} decode steps of batch 2 in "
+          f"{gen_secs:.3f} s, {decode_ms:.3f} ms per token step; first "
+          f"tokens {toks[0, :6].tolist()}")
+
+    # -- 19. K8 and K9 timing, and where P5's time goes ---------------------------
+    b, h, hkv, s, d = K8_SHAPES[-1]
+    q, k, v = k8_inputs(gen, b, h, hkv, s, d, torch.bfloat16, dev)
+    k8_ms = cuda_ms(lambda: flash_attention.flash_attention(q, k, v), reps=5)
+    k8_plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v), reps=2,
+                       warmup=1)
+    k8_lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=d ** -0.5, enable_gqa=True), reps=5)
+    k8_bound, k8_by, k8_gf, k8_mb = k8_work(b, h, hkv, s, d, 2)
+    print(f"[{smi}] K8 flash_attention (B, H, Hkv, S, d) = {(b, h, hkv, s, d)} "
+          f"bf16: kernel_ms {k8_ms:.4f}, plain_ms {k8_plain:.4f}, bound_ms "
+          f"{k8_bound:.4f} ({k8_by}: {k8_gf:.1f} GFLOP of products, "
+          f"{k8_mb:.1f} MB), library_ms {k8_lib:.4f} (scaled_dot_product_"
+          f"attention, causal, enable_gqa)")
+    del q, k, v
+    bsz, s, di, n = K9_SHAPES[-1]
+    args = k9_inputs(gen, bsz, s, di, n, dev)
+    k9_ms = cuda_ms(lambda: ssm_scan.ssm_scan(*args), reps=5)
+    k9_plain = cuda_ms(lambda: ref.ssm_scan_ref(*args), reps=1, warmup=1)
+    k9_bound, k9_by, k9_gf, k9_mb = k9_work(bsz, s, di, n)
+    print(f"[{smi}] K9 ssm_scan (B, S, DI, N) = {(bsz, s, di, n)}: kernel_ms "
+          f"{k9_ms:.4f}, plain_ms {k9_plain:.4f}, bound_ms {k9_bound:.4f} "
+          f"({k9_by}: {k9_gf:.2f} GFLOP, {k9_mb:.1f} MB), library_ms n/a (no "
+          f"single PyTorch call computes the scan)")
+    del args
+
+    batch = {"tokens": pipe.batch_at(1)["tokens"].to(dev)}
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t_p = time.perf_counter()
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t_p) * 1e3
+    kernels_us = {ev.key: ev.self_device_time_total
+                  for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA
+                  and ev.self_device_time_total > 0}
+    busy_ms = sum(kernels_us.values()) / 1e3
+    if busy_ms > 0:
+        k8_dev = sum(t for key, t in kernels_us.items()
+                     if "k8_flash" in key) / 1e3
+        k9_dev = sum(t for key, t in kernels_us.items()
+                     if "k9_ssm_scan" in key) / 1e3
+        top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:5]
+        print(f"[{smi}] P5 trace, one bf16 prefill (2, {s_len}): wall "
+              f"{traced_ms:.3f} ms, device busy {busy_ms:.3f} ms (idle "
+              f"{100 * (1 - busy_ms / traced_ms):.1f}%); K8 {k8_dev:.3f} ms "
+              f"({100 * k8_dev / busy_ms:.1f}% of device time), K9 "
+              f"{k9_dev:.3f} ms ({100 * k9_dev / busy_ms:.1f}%); top five by "
+              f"device time: " + "; ".join(
+                  f"{key[:60]} {t / 1e3:.3f} ms" for key, t in top))
+    else:
+        print("P5 trace: the profiler recorded no device time (device idle "
+              "share not measured)")
+    del params
+    torch.cuda.empty_cache()
+
+    def paths(key):
+        return {p: c[key] for p, c in lm_counts.items() if c[key]}
+
+    k8_err = k8_errs[(*K8_SHAPES[-1], torch.bfloat16)]
+    k9_err = k9_errs[K9_SHAPES[-1]]
+    return [{
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/legacy/flash_attention.py:65",
+        "launches": sum(paths("K8").values()),
+        "launches_by_path": paths("K8"),
+        "shape": "B=2 H=32 Hkv=8 S=4096 d=128 bf16 (Jamba prefill)",
+        "max_abs_err": k8_err[0],
+        "max_rel_err_of_peak": k8_err[1],
+        "f32_max_rel_err_of_peak": k8_errs[(*K8_SHAPES[-1],
+                                            torch.float32)][1],
+        "bf16_err_of_rounding_bound": k8_errs[("bf16_rounding",
+                                               *K8_SHAPES[-1])],
+        "ms": k8_ms,
+        "plain_ms": k8_plain,
+        "bound_ms": k8_bound,
+        "bound_by": k8_by,
+        "library_ms": k8_lib,
+    }, {
+        "name": "ssm_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/legacy/ssm_scan.py:51",
+        "launches": sum(paths("K9").values()),
+        "launches_by_path": paths("K9"),
+        "shape": "B=2 S=4096 DI=8192 N=16 (Jamba prefill)",
+        "max_abs_err": k9_err[0],
+        "max_rel_err_of_peak": k9_err[1],
+        "ms": k9_ms,
+        "plain_ms": k9_plain,
+        "bound_ms": k9_bound,
+        "bound_by": k9_by,
+        "library_ms": None,
+    }]
 
 
 def main() -> int:
@@ -1194,6 +1634,9 @@ def main() -> int:
         print("P4 trace: the profiler recorded no device time (device idle "
               "share not measured)")
 
+    # -- 17-19. the LM serving slice: K8, K9 and P5 (Jamba at full width) ------
+    lm_entries = lm_slice(dev, smi)
+
     k1_paths = {"serve_fleet": launches, "train_hp_twin": hp_counts[0],
                 "train_l96_twin": l96_counts[0]}
     k2_paths = {"train_hp_twin": hp_counts[1],
@@ -1316,7 +1759,7 @@ def main() -> int:
     } for name, key, replaces in (
         ("softdtw_wavefront", "K5", "src/repro/kernels/softdtw.py:110"),
         ("softdtw_wavefront_bwd", "K6",
-         "src/repro/kernels/softdtw.py:215"))]]}
+         "src/repro/kernels/softdtw.py:215"))], *lm_entries]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

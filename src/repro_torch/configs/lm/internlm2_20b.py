@@ -1,0 +1,15 @@
+"""InternLM2 20B [arXiv:2403.17297; hf] — dense GQA."""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="internlm2-20b", family="dense",
+    n_layers=48, d_model=6144, n_heads=48, n_kv=8, d_ff=16384,
+    vocab=92544, head_dim=128, rope_theta=1000000.0,
+)
+
+SMOKE = ArchConfig(
+    name="internlm2-20b-smoke", family="dense",
+    n_layers=2, d_model=96, n_heads=6, n_kv=2, d_ff=160,
+    vocab=512, head_dim=16, rope_theta=1000000.0,
+    dtype="float32", remat="none",
+)

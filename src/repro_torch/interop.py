@@ -1,5 +1,5 @@
-"""Carry MLP parameters and programmed crossbars between the JAX package
-and the port as numpy.
+"""Carry MLP parameters, programmed crossbars and LM parameter trees
+between the JAX package and the port as numpy.
 
 Both packages keep the same layouts, a list of ``{"w": (in, out),
 "b": (out,)}`` arrays for an MLP and a list of ``{"gp", "gm", "scale"}``
@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.tree import tree_map
 
 
 def params_from_numpy(params: Sequence[dict], device=None) -> list[dict]:
@@ -42,3 +43,34 @@ def progs_from_numpy(progs: Sequence[dict], device=None) -> list[dict]:
 def progs_to_numpy(progs: Sequence[dict]) -> list[dict]:
     """The inverse: tensors on any device -> numpy arrays on the host."""
     return params_to_numpy(progs)
+
+
+def _leaf_from_numpy(x, device) -> torch.Tensor:
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        # numpy's bf16 (from ml_dtypes) is no dtype torch.from_numpy takes:
+        # widen to float32 and narrow again, exact both ways
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True)).to(device)
+
+
+def lm_params_from_numpy(tree, device=None):
+    """A JAX LM param tree (nested dicts, the ``prelude`` list, ``stack``
+    leaves with their leading n_periods axis) of arrays -> the same tree
+    of tensors on ``device`` (default ``cuda``), values and dtypes kept,
+    bf16 included."""
+    device = resolve_device(device)
+    return tree_map(lambda x: _leaf_from_numpy(x, device), tree)
+
+
+def lm_params_to_numpy(tree):
+    """The inverse: tensors on any device -> numpy arrays on the host.  bf16
+    leaves come back as float32 (numpy has no bf16 of its own); every
+    other dtype is kept."""
+    def leaf(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.to(torch.float32)
+        return t.numpy()
+    return tree_map(leaf, tree)

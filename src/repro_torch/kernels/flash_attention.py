@@ -1,0 +1,113 @@
+"""Causal GQA flash attention (port of ``repro/kernels/legacy/flash_attention.py``).
+
+:func:`flash_attention` is K8 and replaces
+``src/repro/kernels/legacy/flash_attention.py:65 flash_attention_pallas``:
+softmax(q k^T * scale, causal) v for every query head, its kv head being
+``h // (H / Hkv)``, in one launch of the hand-written Hopper kernel
+``csrc/flash_attention.cu``.  One block per (q tile of 64 rows, head,
+batch) walks the kv tiles of 64 up to the diagonal and skips the rest,
+with the running max, denominator and accumulator in float32 registers
+and the Q, K and V tiles in shared memory; the kernel's design, and what
+bounds it, are in the source's header.  Against its plain version
+(:func:`repro_torch.kernels.ref.flash_attention_ref`, dense causal
+softmax in float32) it agrees within 2e-5 of the peak |out| in float32
+and 2e-2 in bfloat16, the tolerances of the JAX package's own test.
+
+Device rule: the plain version runs only for CPU tensors; CUDA tensors
+launch the kernel or raise.  Inputs are float32 or bfloat16 with a
+contiguous last dimension of 16, 32, 64 or 128; any strides of the
+other dimensions are read in place (the model hands in its (B, S, H, d)
+activations transposed, without a copy), and the output takes q's
+layout.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import ref
+
+#: Head dims the kernel is compiled for (every ported config's).
+HEAD_DIMS = (16, 32, 64, 128)
+#: Launches of the CUDA kernel in this process (one per kernel launch).
+LAUNCHES = 0
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.ndim != 4:
+            raise ValueError(f"flash_attention: {name} has shape "
+                             f"{tuple(t.shape)}; want 4-D (B, heads, S, d)")
+        if t.dtype not in _DTYPES:
+            raise ValueError(f"flash_attention: {name} has dtype {t.dtype}; "
+                             f"the kernel takes float32 or bfloat16")
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    if (k.shape != (b, hkv, s, d) or v.shape != k.shape or hkv < 1
+            or h % hkv):
+        raise ValueError(
+            f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+            f"{tuple(v.shape)}; want q (B, H, S, d) and k, v (B, Hkv, S, d) "
+            f"with Hkv dividing H")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: dtypes differ ({q.dtype}, "
+                         f"{k.dtype}, {v.dtype})")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_attention: devices differ ({q.device}, "
+                         f"{k.device}, {v.device})")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: tensors on {q.device} — the "
+                         f"kernel runs on CUDA and its plain version on "
+                         f"the CPU")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float | None = None) -> torch.Tensor:
+    """Causal GQA attention: q (B, H, S, d), k and v (B, Hkv, S, d) with
+    Hkv | H -> (B, H, S, d) in q's dtype and layout.  ``scale`` defaults
+    to d ** -0.5."""
+    global LAUNCHES
+    _check(q, k, v)
+    b, h, s, d = q.shape
+    scale = float(scale) if scale is not None else d ** -0.5
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, scale=scale)
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d}; the kernel is "
+                         f"compiled for {HEAD_DIMS}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention: the last dimension of q, k and v "
+                         "must be contiguous")
+    out = torch.empty_like(q)       # q's layout when q is dense
+    strides = (ctypes.c_longlong * 12)(
+        *[t.stride(i) for t in (q, k, v, out) for i in range(3)])
+    from repro_torch.kernels import _build
+    fn = _build.load("flash_attention").k8_flash_attention
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 int(q.dtype == torch.bfloat16), b, h, k.shape[1], s, d,
+                 strides, scale,
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention: CUDA kernel launch failed with cudaError_t "
+            f"{err} (B={b}, H={h}, Hkv={k.shape[1]}, S={s}, d={d}, "
+            f"{q.dtype})")
+    LAUNCHES += 1
+    return out
+
+
+def hbm_traffic_bytes(b, h, hkv, s, d, dv, dtype_bytes=2) -> dict:
+    """The kernel's device-memory contract: Q, K and V read once and O
+    written once (the port of the TPU kernel's DMA contract)."""
+    q_io = b * h * s * d * dtype_bytes
+    kv_io = 2 * b * hkv * s * d * dtype_bytes
+    o_io = b * h * s * dv * dtype_bytes
+    return {"q": q_io, "kv": kv_io, "out": o_io,
+            "total": q_io + kv_io + o_io}

@@ -2,8 +2,9 @@
 
 The fused neural-ODE rollout (K1), its fused VJP (K2), the time-grid
 helpers they are fed by, the crossbar reads (K7), the fused analogue
-rollout (K4), and soft-DTW with its E-matrix backward (K5, K6) and the
-hard DTW metric (K5).
+rollout (K4), soft-DTW with its E-matrix backward (K5, K6) and the
+hard DTW metric (K5), and the LM layers' causal GQA flash attention (K8)
+and selective-SSM scan (K9).
 """
 from __future__ import annotations
 
@@ -16,11 +17,13 @@ from repro_torch.core.analogue import (AnalogueSpec, conductance_pair,
                                        level_indices)
 from repro_torch.core.losses import _pairwise_dist
 from repro_torch.kernels import crossbar_vmm as _k7
+from repro_torch.kernels import flash_attention as _k8
 from repro_torch.kernels import fused_analogue as _k4
 from repro_torch.kernels import fused_ode_mlp as _k1
 from repro_torch.kernels import fused_ode_mlp_bwd as _k2
 from repro_torch.kernels import ref
 from repro_torch.kernels import softdtw as _k5
+from repro_torch.kernels import ssm_scan as _k9
 
 GRADIENT_MODES = ("fused_vjp", "stopgrad")
 
@@ -325,3 +328,22 @@ def dtw_distance(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         D = _pairwise_dist(x, y)
         n, m = D.shape[1], D.shape[2]
         return _k5.softdtw_wavefront(_diag_layout_batch(D), n, m, hard=True)
+
+
+# ---------------------------------------------------------------------------
+# LM layers: causal GQA flash attention (K8), selective-SSM scan (K9)
+# ---------------------------------------------------------------------------
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float | None = None) -> torch.Tensor:
+    """Causal GQA attention through K8: q (B, H, S, d), k and v
+    (B, Hkv, S, d) with Hkv | H -> (B, H, S, d) in q's dtype
+    (:func:`repro_torch.kernels.flash_attention.flash_attention`)."""
+    return _k8.flash_attention(q, k, v, scale=scale)
+
+
+def ssm_scan(dt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+             x: torch.Tensor, a: torch.Tensor):
+    """Mamba's selective scan through K9 -> (y (B, S, DI), h_final
+    (B, DI, N)) (:func:`repro_torch.kernels.ssm_scan.ssm_scan`)."""
+    return _k9.ssm_scan(dt, b, c, x, a)

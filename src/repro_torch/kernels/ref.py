@@ -6,7 +6,8 @@ wrappers use them for CPU tensors, the CPU tests hold them against the
 JAX package, and ``chip_smoke.py`` holds each kernel against them on the
 card.  Sections: the fused RK4 rollout and its VJP (K1, K2), the counter
 noise stream (K3), the crossbar VMM (K7), the fused analogue rollout
-(K4) and the soft-DTW wavefront pair (K5, K6).
+(K4), the soft-DTW wavefront pair (K5, K6), and the LM kernels: causal
+GQA flash attention (K8) and the selective-SSM scan (K9).
 """
 from __future__ import annotations
 
@@ -571,3 +572,49 @@ def softdtw_grad_ref(D, gamma: float) -> np.ndarray:
                         (Rp[ci, cj] - R[i, j] - Dp[ci, cj]) / gamma)
             Ep[i, j] = acc
     return Ep[:n, :m]
+
+
+# ---------------------------------------------------------------------------
+# LM kernels: causal GQA flash attention (K8), selective-SSM scan (K9)
+# ---------------------------------------------------------------------------
+
+#: Score of a masked (q, kv) pair in K8 and its plain version (not -inf,
+#: as the TPU kernel has it).
+ATTN_NEG_INF = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, scale: Optional[float] = None) -> torch.Tensor:
+    """Plain K8 (port of ``flash_attention_pallas_ref``): dense causal
+    softmax attention in float32.  q (B, H, S, d); k, v (B, Hkv, S, d)
+    with Hkv | H, kv head h // (H / Hkv); returns (B, H, S, d) in q's
+    dtype."""
+    b, h, s, d = q.shape
+    group = h // k.shape[1]
+    scale = scale if scale is not None else d ** -0.5
+    kk = k.repeat_interleave(group, dim=1).to(F32)
+    vv = v.repeat_interleave(group, dim=1).to(F32)
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.to(F32), kk) * scale
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    scores.masked_fill_(~mask, ATTN_NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    del scores
+    return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
+
+
+def ssm_scan_ref(dt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                 x: torch.Tensor, a: torch.Tensor):
+    """Plain K9 (port of ``ssm_scan_ref``), the sequential scan:
+    h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t, y_t = <h_t, C_t>.
+    dt, x (B, S, DI); b, c (B, S, N); a (DI, N); float32.  Returns
+    (y (B, S, DI), h_final (B, DI, N))."""
+    bsz, s, di = dt.shape
+    h = torch.zeros((bsz, di, a.shape[-1]), dtype=F32, device=dt.device)
+    ys = torch.empty((bsz, s, di), dtype=F32, device=dt.device)
+    for t in range(s):
+        dt_t = dt[:, t]
+        da = torch.exp(dt_t[:, :, None] * a)
+        dbx = (dt_t * x[:, t])[:, :, None] * b[:, t, None, :]
+        h = da * h + dbx
+        ys[:, t] = torch.sum(h * c[:, t, None, :], dim=-1)
+    return ys, h

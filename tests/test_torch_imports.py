@@ -24,7 +24,7 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
-        assert len(names) >= 36, names
+        assert len(names) >= 58, names
         print(len(names), "modules")
     """)
     env = dict(os.environ)
