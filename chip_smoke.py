@@ -14,7 +14,11 @@ result line:
 2. build: every kernel source under ``src/repro_torch/kernels/csrc`` (K1,
    K2, K4 with the K3 fill kernel, K5 and K6, K7, K8, K9) is compiled with
    ``nvcc`` (one process per source, in parallel), with ptxas's registers
-   and spills printed;
+   and spills printed; then a line per kernel library counting, with
+   ``cuobjdump --dump-sass``, the tensor-core ``HMMA`` instructions of
+   each kernel function in it: the bf16 K8 (``k8_flash_mma_kernel``) and
+   K7's GEMM (``k7_gemm_kernel``) must have some, the float32 K8
+   (``k8_flash_kernel``) none;
 3. K1 vs its plain version on the card, at the serving path's shapes,
    in two drive modes, and at a width whose weights need more than 48 KB
    of shared memory; error relative to each trajectory's peak <= 1e-4;
@@ -50,9 +54,13 @@ result line:
    equal; float64 conductances bitwise the float32 ones; the noisy
    rollout split at step 120 and resumed with ``step_offset=120``
    bitwise equal to the unsplit one;
-11. K7 (crossbar VMM) against its plain version at M=1024, K=513, N=512:
-   float and uint8 storage, clean reads, read noise, stuck cells
-   (<= 1e-4 of the peak); float64 conductances bitwise the float32 ones;
+11. K7 (crossbar VMM) against its plain version at M=1024, K=513, N=512
+   and at the ragged (100, 70, 50): float and uint8 storage, clean reads,
+   read noise, stuck cells (<= 1e-4 of the peak), each case repeated
+   bitwise with one read pass per call, and the read pass
+   (``crossbar_vmm.effective_g``) bitwise equal to
+   ``ref.crossbar_effective_g``; float64 conductances bitwise the float32
+   ones;
 12. the analogue paths, each with the K1, K3, K4 and K7 counts zeroed just
    before and read just after: P1, both analogue gates of
    ``tests/test_twins.py`` for the HP twin of phase 7 on
@@ -63,7 +71,8 @@ result line:
    with the noisy faulty spec two serves bitwise equal); P3,
    ``AnalogueBackend`` with uint8 storage at the scorecard width
    6->512->512->6 rolling out 1024 twins x 50 steps (exactly 200 K7
-   launches, within 1e-4 of the same path on K7's plain version);
+   GEMM and 200 read-pass launches, within 1e-4 of the same path on K7's
+   plain version);
 13. K3, K4 and K7 timing with CUDA events: kernel, plain version, the
    card's bound, and for K7 one ``torch.matmul`` on the pre-combined pair;
 14. K5 (soft-DTW forward with R, and hard DTW) and K6 (the E-matrix
@@ -89,8 +98,8 @@ result line:
    (device busy share, the kernels by device time);
 17. K8 (causal GQA flash attention) and K9 (the selective-SSM scan)
    against their plain versions: K8 at the JAX package's three test
-   shapes and the Jamba prefill's (B, H, Hkv, S, d) = (2, 32, 8, 4096,
-   128), in float32 (<= 2e-5 of the peak) and bf16 (<= 2e-2, and per
+   shapes, the Jamba prefill's (B, H, Hkv, S, d) = (2, 32, 8, 4096,
+   128) and a ragged (1, 32, 8, 4097, 128), in float32 (<= 2e-5 of the peak) and bf16 (<= 2e-2, and per
    element within 2^-8 |want| + 2e-5 of the peak of the plain version's
    float32 output before its cast), on the model's (B, S, H, d) layout; K9 at JAX's three test shapes and
    (B, S, DI, N) = (2, 4096, 8192, 16) (<= 1e-5 for y and the final
@@ -108,7 +117,7 @@ result line:
    a 16-token prompt (no K8 or K9 launch, finite logits);
 19. K8 and K9 timing at P5's shapes with CUDA events (kernel, plain
    version, the card's bound, and for K8
-   ``scaled_dot_product_attention``), P5's prefill tokens/s and decode
+   ``scaled_dot_product_attention`` and the achieved TFLOP/s), P5's prefill tokens/s and decode
    ms per token, and a ``torch.profiler`` trace of one bf16 prefill (K8
    and K9's share of device time, the top five kernels, idle share).
 
@@ -120,6 +129,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -159,6 +169,9 @@ from repro_torch.tree import tree_leaves  # noqa: E402
 
 TOL = 1e-4          # kernel vs plain, fused vs digital: of the peak |y|
 HIST_TOL = 1e-3     # fused vs digital-adjoint loss history, rel per step
+#: K7 shapes of phase 11 as (M, K, N): P3's middle array (timed in phase
+#: 13), then a ragged one.
+K7_SHAPES = [(1024, 513, 512), (100, 70, 50)]
 SEED = 0
 
 # The H100 SXM's published peaks (NVIDIA data sheet, 700 W): FP32 without
@@ -169,6 +182,9 @@ HBM_BW = 3.35e12
 #: Its dense BF16 tensor-core peak (same data sheet): the bound of K8's
 #: bf16 products.
 BF16_PEAK = 989.0e12
+#: Its dense TF32 tensor-core peak (same data sheet): the bound of K7's
+#: 3xTF32 products.
+TF32_PEAK = 495.0e12
 #: Scalar operations of one counter normal (two splitmix32 hashes, two
 #: exponent bitcasts, log, sqrt, cos and three products, each counted as
 #: one operation at the FP32 rate): the bounds count the noise with it.
@@ -317,6 +333,22 @@ def real_cells(r):
     return torch.where(r < ref.BIG_CUT, r, torch.zeros_like(r))
 
 
+def sass_hmma(lib: Path) -> dict:
+    """{kernel function (mangled name): HMMA instructions in its SASS} of
+    one built kernel library, read with ``cuobjdump --dump-sass``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
 def cuda_ms(fn, reps: int, warmup: int = 2, queue_ahead: bool = False
             ) -> float:
     """Mean ms per call between CUDA events around ``reps`` calls.  With
@@ -341,10 +373,12 @@ def cuda_ms(fn, reps: int, warmup: int = 2, queue_ahead: bool = False
 
 # -- phases 17-19: the LM serving slice (K8, K9, P5) ---------------------------
 
+#: K8 at the Jamba prefill, (B, H, Hkv, S, d): timed in phase 19.
+K8_P5 = (2, 32, 8, 4096, 128)
 #: K8 shapes of phase 17 as (B, H, Hkv, S, d): the JAX package's three test
-#: shapes, then the Jamba prefill's.
+#: shapes, the Jamba prefill's, and a ragged S (not a multiple of 64).
 K8_SHAPES = [(1, 2, 2, 32, 16), (2, 4, 2, 64, 32), (1, 8, 2, 128, 64),
-             (2, 32, 8, 4096, 128)]
+             K8_P5, (1, 32, 8, 4097, 128)]
 #: K9 shapes of phase 17 as (B, S, DI, N): JAX's three, then Jamba's.
 K9_SHAPES = [(1, 8, 16, 4), (2, 32, 64, 16), (1, 64, 128, 16),
              (2, 4096, 8192, 16)]
@@ -405,6 +439,19 @@ def k8_work(b, h, hkv, s, d, elem_bytes):
     return times[by], by, products / 1e9, moved / 1e6
 
 
+def k7_work(M, K, N, noisy, moved):
+    """(bound_ms, bound_by, GFLOP of products) of one K7 call: its three
+    TF32 products per multiply-add (3xTF32) at the TF32 tensor-core peak,
+    a noisy read's noise at the FP32 peak, and ``moved`` bytes."""
+    products = 3 * 2 * M * K * N
+    noise_ops = K * N * OPS_PER_NOISY_PAIR if noisy else 0
+    times = {"operations": max(products / TF32_PEAK,
+                               noise_ops / FP32_PEAK) * 1e3,
+             "bytes": moved / HBM_BW * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by, products / 1e9
+
+
 def k9_work(bsz, s, di, n):
     """(bound_ms, bound_by, GFLOP, MB) of one K9 call: dt, x, B, C and A read
     and y and the final state written once, float32."""
@@ -414,8 +461,9 @@ def k9_work(bsz, s, di, n):
     return b_ms, by, flops / 1e9, moved / 1e6
 
 
-def lm_slice(dev, smi):
-    """Phases 17-19; returns the K8 and K9 entries of the kernel record."""
+def lm_slice(dev, smi, hmma):
+    """Phases 17-19; returns the K8 and K9 entries of the kernel record
+    (``hmma``: K8's SASS HMMA counts by kernel function, phase 2)."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     # -- 17. K8 and K9 vs their plain versions -----------------------------------
@@ -643,7 +691,7 @@ def lm_slice(dev, smi):
           f"tokens {toks[0, :6].tolist()}")
 
     # -- 19. K8 and K9 timing, and where P5's time goes ---------------------------
-    b, h, hkv, s, d = K8_SHAPES[-1]
+    b, h, hkv, s, d = K8_P5
     q, k, v = k8_inputs(gen, b, h, hkv, s, d, torch.bfloat16, dev)
     k8_ms = cuda_ms(lambda: flash_attention.flash_attention(q, k, v), reps=5)
     k8_plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v), reps=2,
@@ -651,11 +699,14 @@ def lm_slice(dev, smi):
     k8_lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, is_causal=True, scale=d ** -0.5, enable_gqa=True), reps=5)
     k8_bound, k8_by, k8_gf, k8_mb = k8_work(b, h, hkv, s, d, 2)
+    k8_tflops = k8_gf / k8_ms        # GFLOP / ms = TFLOP/s
     print(f"[{smi}] K8 flash_attention (B, H, Hkv, S, d) = {(b, h, hkv, s, d)} "
           f"bf16: kernel_ms {k8_ms:.4f}, plain_ms {k8_plain:.4f}, bound_ms "
           f"{k8_bound:.4f} ({k8_by}: {k8_gf:.1f} GFLOP of products, "
           f"{k8_mb:.1f} MB), library_ms {k8_lib:.4f} (scaled_dot_product_"
-          f"attention, causal, enable_gqa)")
+          f"attention, causal, enable_gqa); achieved {k8_tflops:.1f} TFLOP/s "
+          f"of the causal products ({1.5 * k8_tflops:.1f} counting the "
+          f"kernel's two P.V products)")
     del q, k, v
     bsz, s, di, n = K9_SHAPES[-1]
     args = k9_inputs(gen, bsz, s, di, n, dev)
@@ -704,7 +755,7 @@ def lm_slice(dev, smi):
     def paths(key):
         return {p: c[key] for p, c in lm_counts.items() if c[key]}
 
-    k8_err = k8_errs[(*K8_SHAPES[-1], torch.bfloat16)]
+    k8_err = k8_errs[(*K8_P5, torch.bfloat16)]
     k9_err = k9_errs[K9_SHAPES[-1]]
     return [{
         "name": "flash_attention",
@@ -716,10 +767,13 @@ def lm_slice(dev, smi):
         "shape": "B=2 H=32 Hkv=8 S=4096 d=128 bf16 (Jamba prefill)",
         "max_abs_err": k8_err[0],
         "max_rel_err_of_peak": k8_err[1],
-        "f32_max_rel_err_of_peak": k8_errs[(*K8_SHAPES[-1],
-                                            torch.float32)][1],
-        "bf16_err_of_rounding_bound": k8_errs[("bf16_rounding",
-                                               *K8_SHAPES[-1])],
+        "f32_max_rel_err_of_peak": k8_errs[(*K8_P5, torch.float32)][1],
+        "bf16_err_of_rounding_bound": k8_errs[("bf16_rounding", *K8_P5)],
+        "ragged_bf16_err_of_rounding_bound": k8_errs[("bf16_rounding",
+                                                      *K8_SHAPES[-1])],
+        "tflops": k8_tflops,
+        "sass_hmma": sum(n for fn, n in hmma.items()
+                         if "k8_flash_mma_kernel" in fn),
         "ms": k8_ms,
         "plain_ms": k8_plain,
         "bound_ms": k8_bound,
@@ -763,7 +817,8 @@ def main() -> int:
     card = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; {card}; "
           f"bounds against H100 SXM peaks: {FP32_PEAK / 1e12:g} TFLOP/s "
-          f"fp32, {HBM_BW / 1e12:g} TB/s")
+          f"fp32, {TF32_PEAK / 1e12:g} tf32 and {BF16_PEAK / 1e12:g} bf16 "
+          f"tensor cores, {HBM_BW / 1e12:g} TB/s")
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -774,6 +829,19 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  {src}: {line.strip()}")
+    hmma = {src: sass_hmma(path) for src, path in libs.items()}
+    for src, counts in hmma.items():
+        print(f"SASS HMMA {src}: " + "; ".join(
+            f"{fn} {n}" for fn, n in counts.items()))
+    for src, kernel, tensor_cores in (
+            ("flash_attention", "k8_flash_mma_kernel", True),
+            ("flash_attention", "k8_flash_kernel", False),
+            ("crossbar_vmm", "k7_gemm_kernel", True)):
+        found = {fn: n for fn, n in hmma[src].items() if kernel in fn}
+        check(bool(found), f"SASS: no {kernel} in {src}")
+        check(all((n > 0) == tensor_cores for n in found.values()),
+              f"SASS: {kernel} has HMMA counts {list(found.values())}; want "
+              f"{'> 0' if tensor_cores else '0'} in every instantiation")
 
     # -- 3. kernel vs plain version -------------------------------------------
     gen = torch.Generator().manual_seed(SEED)
@@ -1143,15 +1211,7 @@ def main() -> int:
     check(torch.equal(resumed, full), "K4 split-and-resume differs")
 
     # -- 11. K7 vs plain version ---------------------------------------------------
-    M, K, N = 1024, 513, 512
     spec = AnalogueSpec()
-    g7 = torch.Generator().manual_seed(SEED + 7)
-    x7 = torch.randn((M, K), generator=g7).to(dev)
-    ip = torch.randint(0, 64, (K, N), generator=g7, dtype=torch.uint8).to(dev)
-    im = torch.randint(0, 64, (K, N), generator=g7, dtype=torch.uint8).to(dev)
-    fp = (spec.g_min + ip.float() * spec.g_step) * (
-        1 + 0.0436 * torch.randn((K, N), generator=g7).to(dev))
-    fm = spec.g_min + im.float() * spec.g_step
     stuck7 = dict(stuck_rate=0.01, g_max=spec.g_max, g_min=spec.g_min,
                   fault_seed=SEED, fault_salts=(FAULT_SALT_BASE + 2,
                                                 FAULT_SALT_BASE + 3))
@@ -1164,22 +1224,57 @@ def main() -> int:
         "uint8_stuck_drift": ("uint8", dict(stuck7, drift=0.99)),
         "float_noise_stuck": ("float", dict(noisy7, **stuck7)),
     }
+
+    def k7_arrays(seed, M, K, N):
+        g7 = torch.Generator().manual_seed(seed)
+        x = torch.randn((M, K), generator=g7).to(dev)
+        ip = torch.randint(0, 64, (K, N), generator=g7,
+                           dtype=torch.uint8).to(dev)
+        im = torch.randint(0, 64, (K, N), generator=g7,
+                           dtype=torch.uint8).to(dev)
+        fp = (spec.g_min + ip.float() * spec.g_step) * (
+            1 + 0.0436 * torch.randn((K, N), generator=g7).to(dev))
+        fm = spec.g_min + im.float() * spec.g_step
+        return x, ip, im, fp, fm
+
     k7_errs = {}
-    for case, (storage, kw) in k7_cases.items():
-        a_, b_ = (ip, im) if storage == "uint8" else (fp, fm)
-        g_step = spec.g_step if storage == "uint8" else None
-        got = crossbar_vmm.crossbar_matmul(x7, a_, b_, inv_scale=1.0,
+    for i, (M, K, N) in enumerate(K7_SHAPES):
+        x_, ip_, im_, fp_, fm_ = k7_arrays(SEED + 7 + i, M, K, N)
+        if i == 0:
+            x7, ip, im, fp, fm = x_, ip_, im_, fp_, fm_
+        for case, (storage, kw) in k7_cases.items():
+            a_, b_ = (ip_, im_) if storage == "uint8" else (fp_, fm_)
+            g_step = spec.g_step if storage == "uint8" else None
+            reads0 = crossbar_vmm.READ_LAUNCHES
+            got = crossbar_vmm.crossbar_matmul(x_, a_, b_, inv_scale=1.0,
+                                               g_step=g_step, **kw)
+            again = crossbar_vmm.crossbar_matmul(x_, a_, b_, inv_scale=1.0,
+                                                 g_step=g_step, **kw)
+            want = ref.crossbar_matmul_ref(x_, a_, b_, inv_scale=1.0,
                                            g_step=g_step, **kw)
-        want = ref.crossbar_matmul_ref(x7, a_, b_, inv_scale=1.0,
-                                       g_step=g_step, **kw)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()), f"K7 {case}: non-finite")
-        k7_errs[case] = rel_err(got, want)
-        print(f"K7 vs plain [{case}] M={M} K={K} N={N}: max abs err "
-              f"{k7_errs[case][0]:.3e}, of peak {k7_errs[case][1]:.3e} "
-              f"(limit {TOL:g})")
-        check(k7_errs[case][1] <= TOL,
-              f"K7 {case}: kernel disagrees with its plain version")
+            reads = crossbar_vmm.READ_LAUNCHES - reads0
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), f"K7 {case}: non-finite")
+            err = rel_err(got, want)
+            if i == 0:
+                k7_errs[case] = err
+            same = torch.equal(got, again)
+            line = (f"K7 vs plain [{case}] M={M} K={K} N={N}: max abs err "
+                    f"{err[0]:.3e}, of peak {err[1]:.3e} (limit {TOL:g}); "
+                    f"repeat bitwise {same}; read-pass launches {reads}")
+            check(err[1] <= TOL,
+                  f"K7 {case} {(M, K, N)}: kernel disagrees with its plain "
+                  f"version")
+            check(same, f"K7 {case} {(M, K, N)}: repeats differ")
+            check(reads == 2,
+                  f"K7 {case}: {reads} read-pass launches in two calls")
+            g_read = crossbar_vmm.effective_g(a_, b_, g_step=g_step, **kw)
+            g_want = ref.crossbar_effective_g(a_, b_, g_step=g_step, **kw)
+            g_same = torch.equal(g_read, g_want)
+            line += f"; read pass bitwise ref.crossbar_effective_g {g_same}"
+            check(g_same, f"K7 {case} {(M, K, N)}: the read pass differs "
+                          f"from ref.crossbar_effective_g")
+            print(line)
     same = torch.equal(
         crossbar_vmm.crossbar_matmul(x7, fp.double(), fm.double(),
                                      inv_scale=1.0, **noisy7),
@@ -1188,16 +1283,18 @@ def main() -> int:
     check(same, "K7: float64 conductances read differently from float32")
 
     # -- 12. the analogue paths ----------------------------------------------------
-    counters = {"K1": fused_ode_mlp, "K3": noise, "K4": fused_analogue,
-                "K7": crossbar_vmm}
+    counters = {"K1": (fused_ode_mlp, "LAUNCHES"), "K3": (noise, "LAUNCHES"),
+                "K4": (fused_analogue, "LAUNCHES"),
+                "K7": (crossbar_vmm, "LAUNCHES"),
+                "K7_read": (crossbar_vmm, "READ_LAUNCHES")}
 
     def zero_counts():
-        for mod in counters.values():
-            mod.LAUNCHES = 0
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
 
     def read_counts(path, want):
         torch.cuda.synchronize()
-        got = {k: mod.LAUNCHES for k, mod in counters.items()}
+        got = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
         print(f"{path}: launches {got}")
         for k, n in want.items():
             check(got[k] == n, f"{path}: expected {n} {k} launches, got "
@@ -1325,7 +1422,7 @@ def main() -> int:
         p3 = wide_fleet.rollout_batch(wide_params, y0_wide, ts_wide)
     path_counts["P3_analogue_scorecard_width"] = read_counts(
         "P3 AnalogueBackend(uint8) 6->512->512->6, 1024 twins x 50 steps",
-        {"K7": 200, "K4": 0, "K1": 0})
+        {"K7": 200, "K7_read": 200, "K4": 0, "K1": 0})
     p3_sec = time.perf_counter() - t_p
     real_k7 = crossbar_vmm.crossbar_matmul
     crossbar_vmm.crossbar_matmul = (
@@ -1360,6 +1457,7 @@ def main() -> int:
               f"{p_ms:.4f}, bound_ms {b_ms:.4f} ({b_by}: {flops / 1e9:.3f} "
               f"GFLOP, {moved / 1e6:.3f} MB), launches per request 1, "
               f"library_ms n/a (no single PyTorch call computes the rollout)")
+    M, K, N = K7_SHAPES[0]
     k7_args = dict(inv_scale=1.0, g_step=spec.g_step)
     k7_call = functools.partial(crossbar_vmm.crossbar_matmul, x7, ip, im,
                                 **k7_args)
@@ -1371,22 +1469,27 @@ def main() -> int:
     w7 = (ip.float() - im.float()) * spec.g_step
     k7_lib_ms = cuda_ms(lambda: torch.matmul(x7, w7), reps=50,
                         queue_ahead=True)
-    k7_flops = 2 * M * K * N
-    k7_bound, k7_by = bound(k7_flops, tensor_bytes(x7, ip, im) + 4 * M * N)
+    k7_moved = tensor_bytes(x7, ip, im) + 4 * M * N
+    k7_bound, k7_by, k7_gflop = k7_work(M, K, N, False, k7_moved)
+    k7rc_ms = cuda_ms(lambda: crossbar_vmm.effective_g(
+        ip, im, g_step=spec.g_step), reps=50, queue_ahead=True)
     print(f"[{smi}] K7 crossbar_matmul [uint8_clean] M={M} K={K} N={N}: "
-          f"kernel_ms {k7_ms:.4f} (per call with the wrapper "
-          f"{k7_wall_ms:.4f}), plain_ms {k7_plain_ms:.4f}, bound_ms "
-          f"{k7_bound:.4f} ({k7_by}: {k7_flops / 1e9:.3f} GFLOP), library_ms "
+          f"kernel_ms {k7_ms:.4f} (read pass + GEMM; the read pass alone "
+          f"{k7rc_ms:.4f}; per call with the wrapper {k7_wall_ms:.4f}), "
+          f"plain_ms {k7_plain_ms:.4f}, bound_ms {k7_bound:.4f} ({k7_by}: "
+          f"{k7_gflop:.3f} GFLOP of 3xTF32 products), library_ms "
           f"{k7_lib_ms:.4f} (torch.matmul on the pre-combined f32 pair, "
-          f"TF32 off), launches per evaluation 1 (P3)")
+          f"TF32 off), launches per evaluation 1 GEMM + 1 read pass (P3)")
     k7n_args = dict(k7_args, **noisy7)
     k7n_ms = cuda_ms(lambda: crossbar_vmm.crossbar_matmul(x7, ip, im,
                                                           **k7n_args),
                      reps=50, queue_ahead=True)
-    k7n_bound, k7n_by = bound(k7_flops + K * N * OPS_PER_NOISY_PAIR,
-                              tensor_bytes(x7, ip, im) + 4 * M * N)
+    k7n_bound, k7n_by, _ = k7_work(M, K, N, True, k7_moved)
+    k7r_ms = cuda_ms(lambda: crossbar_vmm.effective_g(
+        ip, im, g_step=spec.g_step, **noisy7), reps=50, queue_ahead=True)
     print(f"[{smi}] K7 crossbar_matmul [uint8_read_noise] M={M} K={K} N={N}: "
-          f"kernel_ms {k7n_ms:.4f}, bound_ms {k7n_bound:.4f} ({k7n_by})")
+          f"kernel_ms {k7n_ms:.4f} (read pass + GEMM; the read pass alone "
+          f"{k7r_ms:.4f}), bound_ms {k7n_bound:.4f} ({k7n_by})")
     n3 = shape[0] * shape[1]
     k3_call = functools.partial(noise.counter_normal, SEED, 5, shape,
                                 device=dev)
@@ -1635,7 +1738,7 @@ def main() -> int:
               "share not measured)")
 
     # -- 17-19. the LM serving slice: K8, K9 and P5 (Jamba at full width) ------
-    lm_entries = lm_slice(dev, smi)
+    lm_entries = lm_slice(dev, smi, hmma["flash_attention"])
 
     k1_paths = {"serve_fleet": launches, "train_hp_twin": hp_counts[0],
                 "train_l96_twin": l96_counts[0]}
@@ -1734,8 +1837,13 @@ def main() -> int:
         "bound_ms": k7_bound,
         "bound_by": k7_by,
         "library_ms": k7_lib_ms,
+        "read_pass_ms": k7rc_ms,
         "noisy_ms": k7n_ms,
+        "noisy_read_pass_ms": k7r_ms,
         "noisy_bound_ms": k7n_bound,
+        "read_launches": sum(by_path("K7_read").values()),
+        "sass_hmma": sum(n for fn, n in hmma["crossbar_vmm"].items()
+                         if "k7_gemm_kernel" in fn),
     }, *[{
         "name": name,
         "route": "cuda",

@@ -6,72 +6,94 @@
 // head of query head h being h / (H / Hkv), as the Pallas BlockSpec index
 // maps have it.  The same constants as the TPU kernel: masked scores are
 // -1e30 (not -inf), the denominator is max(l, 1e-30), and the output is
-// cast to q's dtype.  Inputs float32 or bfloat16; every score, probability
-// and sum in float32.
-//
-// Design.
-//  * One block of 256 threads per (q tile of 64 rows, head, batch); the
-//    block walks the kv tiles of 64 from the first up to the diagonal and
-//    stops there, so the tiles above it are never loaded (the TPU kernel
-//    skips them with @pl.when).  The q tiles with the most kv tiles are
-//    scheduled first.
-//  * The Q tile is staged in shared memory once, as float32; each K and V
-//    tile per step.  The running max m, the denominator l and the (64, d)
-//    accumulator stay in registers for the whole walk: thread (ty, tx) of
-//    the 16 x 16 grid owns rows ty + 16 i (i < 4), and in the score tile
-//    columns tx + 16 j (j < 4), in the accumulator columns tx + 16 j
-//    (j < d / 16).  A row's max and sum are shuffle reductions over the 16
-//    lanes that share ty (one half of a warp); the probabilities go through
-//    shared memory to the P.V product.
-//  * Q and K rows are read as float4 along d (row stride d + 4 keeps the
-//    eight lanes of each 128-bit phase on distinct banks); V is read one
-//    column per lane.
-//  * Arithmetic on CUDA cores in float32: score = (q . k) * scale with the
-//    dot product summed in order over d by FMAs, precise expf, and
-//    acc / max(l, 1e-30) by IEEE division.  Tensor cores (mma.sync or wgmma
-//    on bf16 operands), TMA and larger tiles are later work.
-//  * Inputs are addressed through (batch, head, row) strides in elements and
-//    a contiguous last dimension, so the model's (B, S, H, d) activations go
-//    in without a copy; the output is written through strides of its own.
-//  * At d = 128 a block holds 115 KiB of shared memory (117,760 bytes),
-//    above the 48 KB static limit: the launch raises the block's dynamic
-//    allowance first.
+// cast to q's dtype.  Every score, probability and sum is float32.  Inputs
+// are addressed through (batch, head, row) strides in elements and a
+// contiguous last dimension, so the model's (B, S, H, d) activations go in
+// without a copy; the output is written through strides of its own.  Both
+// kernels below walk, per block, the kv tiles of 64 from the first up to
+// the diagonal and stop there (the TPU kernel skips the tiles above it with
+// @pl.when), and schedule the q tiles with the longest walks first.
 //
 // Bound on this card (H100 SXM).  At the Jamba prefill, B = 2, H = 32,
 // Hkv = 8, S = 4096, d = 128, bf16: the causal half of Q K^T and of P V is
-// ~275 GFLOP, 0.28 ms at the 989 TFLOP/s bf16 tensor-core peak, against
+// ~275 GFLOP, 0.278 ms at the 989 TFLOP/s bf16 tensor-core peak, against
 // ~168 MB of Q, K, V and O (0.05 ms at 3.35 TB/s; hbm_traffic_bytes in
 // flash_attention.py): operations bound it.
-// This kernel does the products on CUDA cores in float32 (67 TFLOP/s
-// peak), so it cannot come closer than ~4 ms; its measured time is in
-// PERF.md.
+//
+// bfloat16: k8_flash_mma_kernel, on the tensor cores (FlashAttention-2's
+// structure on mma.sync).
+//  * One block of 4 warps per (q tile of 64 rows, head, batch); warp w owns
+//    rows 16w .. 16w + 15 of the tile.  Q, K and V stay bf16 in shared
+//    memory, rows padded to d + 8 elements so that the eight rows each
+//    ldmatrix phase reads fall on distinct 16-byte bank groups.  At d = 128
+//    a block holds 85 KiB (Q once, K and V twice), so two blocks share an
+//    SM.
+//  * Q is loaded once and kept as A fragments in registers.  K and V tiles
+//    come through cp.async, 16 bytes a thread, double-buffered: tile i + 1
+//    is in flight while tile i is computed.  Rows at or past S are filled
+//    with zeros by the copy itself (source size 0), so any S >= 1 works.
+//  * S = Q K^T by mma.sync.m16n8k16 (bf16 x bf16 -> float32), K fragments
+//    by ldmatrix.  A bf16 x bf16 product is exact in float32, so only the
+//    order of the sums differs from the CUDA-core kernel.
+//  * Scale, the causal mask on the diagonal tile (-1e30 for a key past the
+//    row or past S) and the online softmax run on the accumulator fragments
+//    in registers: a row lives on the four lanes of a quad, so its max and
+//    sum are two shuffles; l accumulates the float32 probabilities.  The
+//    softmax runs in base 2, log2(e) folded into the scale, so each
+//    probability is one exp2f (a few instructions) where the precise expf
+//    took about ten: the loop issues several times more other instructions
+//    than MMAs, so each one saved counts.
+//  * P V reuses the score fragments as the A operand, with no trip through
+//    shared memory.  P rounded to bf16 would add up to 2^-9 relative error
+//    per term, more than the per-element bound the kernel is held to
+//    (2^-8 |want| + 2e-5 of the peak, of which the output's own rounding
+//    takes most), so P is split into hi = bf16(p) and lo = bf16(p - hi) and
+//    both are multiplied by V (ldmatrix.trans fragments) into the float32
+//    O fragments: P keeps ~16 significant bits.  That makes P V two
+//    products, ~412 GFLOP of MMAs in all at the Jamba prefill.
+//  * Epilogue: O / max(l, 1e-30) by IEEE division, rounded to bf16 and
+//    stored two elements at a time.
+//  * wgmma, TMA and a producer warp are later work.
+//
+// float32: k8_flash_kernel, on CUDA cores (TF32 operands would miss the
+// 2e-5-of-the-peak agreement float32 is held to).  One block of 256 threads
+// per (q tile, head, batch); the Q tile is staged in shared memory once, as
+// float32, each K and V tile per step; m, l and the (64, d) accumulator stay
+// in registers: thread (ty, tx) of the 16 x 16 grid owns rows ty + 16 i
+// (i < 4), and in the score tile columns tx + 16 j (j < 4), in the
+// accumulator columns tx + 16 j (j < d / 16).  A row's max and sum are
+// shuffle reductions over the 16 lanes that share ty; the probabilities go
+// through shared memory to the P.V product.  score = (q . k) * scale summed
+// in order over d by FMAs, precise expf.  At d = 128 the block holds
+// 115 KiB.  At the 67 TFLOP/s FP32 peak it cannot come under ~4 ms at the
+// prefill's shape; it serves the float32 parity prefill.
+//
+// Measured times of both are in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #define K8_BQ 64
 #define K8_BK 64
 #define K8_THREADS 256
+#define K8_MMA_THREADS 128
 #define K8_NEG_INF (-1e30f)
 #define K8_PS (K8_BK + 4)
-
-__device__ __forceinline__ float k8_load(const float* p) { return *p; }
-__device__ __forceinline__ float k8_load(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void k8_store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void k8_store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 struct K8Strides {
   long long b, h, s;   // elements between batches, heads and rows
 };
 
+// -- float32 on CUDA cores -----------------------------------------------------
+
 template <int D>
 constexpr int k8_smem_floats() {
   return K8_BQ * (D + 4) + K8_BK * (D + 4) + K8_BK * D + K8_BQ * K8_PS;
 }
+
+__device__ __forceinline__ float k8_load(const float* p) { return *p; }
+__device__ __forceinline__ void k8_store(float* p, float v) { *p = v; }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(K8_THREADS)
@@ -233,44 +255,317 @@ k8_flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-static int k8_launch(const void* q, const void* k, const void* v, void* o,
-                     int B, int H, int group, int S, const long long* st,
-                     float scale, cudaStream_t stream) {
+// -- bfloat16 on the tensor cores --------------------------------------------
+
+__device__ __forceinline__ uint32_t k8_smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, or 16 zero bytes where !valid (source size 0).
+__device__ __forceinline__ void k8_cp_async16(void* dst, const void* src,
+                                              bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   k8_smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void k8_cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void k8_cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void k8_ldmatrix_x4(uint32_t (&r)[4],
+                                               const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(k8_smem_addr(p)));
+}
+__device__ __forceinline__ void k8_ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                     const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(k8_smem_addr(p)));
+}
+
+// c (16 x 8, float32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
+__device__ __forceinline__ void k8_mma(float (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t k8_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (p0, p1) -> hi = bf16(p), lo = bf16(p - hi), each packed low element first
+__device__ __forceinline__ void k8_split(float p0, float p1, uint32_t& hi,
+                                         uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+  hi = k8_bits(h);
+  lo = k8_bits(__floats2bfloat162_rn(p0 - __low2float(h),
+                                     p1 - __high2float(h)));
+}
+
+template <int D>
+constexpr int k8_mma_smem_bytes() {
+  return (K8_BQ + 4 * K8_BK) * (D + 8) * 2;
+}
+
+template <int D>
+__global__ void __launch_bounds__(K8_MMA_THREADS, 2)
+k8_flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    __nv_bfloat16* __restrict__ o, int S, int group,
+                    K8Strides qs, K8Strides ks, K8Strides vs, K8Strides os,
+                    float scale) {
+  constexpr int LD = D + 8;       // row stride of every tile, in elements
+  constexpr int CH = D / 8;       // 16-byte chunks per row
+  constexpr int KS = D / 16;      // k-steps of Q K^T
+  constexpr int NT = D / 8;       // n-tiles of O
+  extern __shared__ __align__(16) unsigned char k8_smem[];
+  __nv_bfloat16* qt = reinterpret_cast<__nv_bfloat16*>(k8_smem);  // [BQ][LD]
+  __nv_bfloat16* kt = qt + K8_BQ * LD;       // [2][BK][LD]
+  __nv_bfloat16* vt = kt + 2 * K8_BK * LD;   // [2][BK][LD]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;        // fragment row (and row + 8)
+  const int t = lane & 3;         // fragment column pair
+  const int qi = gridDim.x - 1 - blockIdx.x;   // longest walks first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int q0 = qi * K8_BQ;
+
+  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
+  const __nv_bfloat16* kb = k + b * ks.b + (h / group) * ks.h;
+  const __nv_bfloat16* vb = v + b * vs.b + (h / group) * vs.h;
+
+  // 64 rows from row r0 of src into dst; rows >= S become zeros
+  auto load_tile = [&](__nv_bfloat16* dst, const __nv_bfloat16* src,
+                       long long rs, int r0) {
+    for (int c = tid; c < K8_BK * CH; c += K8_MMA_THREADS) {
+      const int r = c / CH;
+      const int col = (c - r * CH) * 8;
+      const int s = r0 + r;
+      k8_cp_async16(dst + r * LD + col, src + (s < S ? s : 0) * rs + col,
+                    s < S);
+    }
+  };
+
+  load_tile(qt, qb, qs.s, q0);
+  load_tile(kt, kb, ks.s, 0);
+  load_tile(vt, vb, vs.s, 0);
+  k8_cp_async_commit();
+
+  uint32_t qf[KS][4];
+  float oacc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+  float m0 = K8_NEG_INF, m1 = K8_NEG_INF, l0 = 0.f, l1 = 0.f;
+  const int row0 = q0 + warp * 16 + g;   // this thread's two rows
+  const float scale_log2 = __fmul_rn(scale, 1.4426950408889634f);
+  const int row1 = row0 + 8;
+
+  for (int ki = 0; ki <= qi; ++ki) {
+    const int buf = ki & 1;
+    const int k0 = ki * K8_BK;
+    if (ki < qi) {     // the next tile flies while this one is computed
+      load_tile(kt + (buf ^ 1) * K8_BK * LD, kb, ks.s, k0 + K8_BK);
+      load_tile(vt + (buf ^ 1) * K8_BK * LD, vb, vs.s, k0 + K8_BK);
+      k8_cp_async_commit();
+      k8_cp_async_wait<1>();
+    } else {
+      k8_cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (ki == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        k8_ldmatrix_x4(qf[kk], qt + (warp * 16 + (lane & 15)) * LD + kk * 16 +
+                                   (lane >> 4) * 8);
+    }
+    const __nv_bfloat16* kc = kt + buf * K8_BK * LD;
+    const __nv_bfloat16* vc = vt + buf * K8_BK * LD;
+
+    // scores of the warp's 16 rows against the tile's 64 keys
+    float sc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t kf[4];
+        k8_ldmatrix_x4(kf, kc + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD +
+                               kk * 16 + ((lane >> 3) & 1) * 8);
+        k8_mma(sc[2 * np], qf[kk], kf[0], kf[1]);
+        k8_mma(sc[2 * np + 1], qf[kk], kf[2], kf[3]);
+      }
+
+    // scale, causal mask (diagonal tile only), online softmax per row, in
+    // base 2: s = score * scale * log2(e), p = 2^(s - m)
+    const bool diag = ki == qi;
+    float mx0 = K8_NEG_INF, mx1 = K8_NEG_INF;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float s = __fmul_rn(sc[j][e], scale_log2);
+        if (diag) {
+          const int kpos = k0 + j * 8 + 2 * t + (e & 1);
+          if (kpos > (e < 2 ? row0 : row1) || kpos >= S) s = K8_NEG_INF;
+        }
+        sc[j][e] = s;
+        if (e < 2) mx0 = fmaxf(mx0, s); else mx1 = fmaxf(mx1, s);
+      }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(sc[j][e] - (e < 2 ? mn0 : mn1));
+        sc[j][e] = p;
+        if (e < 2) rs0 += p; else rs1 += p;
+      }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      rs0 += __shfl_xor_sync(0xffffffffu, rs0, off);
+      rs1 += __shfl_xor_sync(0xffffffffu, rs1, off);
+    }
+    l0 = fmaf(l0, c0, rs0);
+    l1 = fmaf(l1, c1, rs1);
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      oacc[n][0] *= c0;
+      oacc[n][1] *= c0;
+      oacc[n][2] *= c1;
+      oacc[n][3] *= c1;
+    }
+
+    // O += P_hi V + P_lo V, 16 keys per k-step
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t ph[4], pl[4];
+      k8_split(sc[2 * kk][0], sc[2 * kk][1], ph[0], pl[0]);
+      k8_split(sc[2 * kk][2], sc[2 * kk][3], ph[1], pl[1]);
+      k8_split(sc[2 * kk + 1][0], sc[2 * kk + 1][1], ph[2], pl[2]);
+      k8_split(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ph[3], pl[3]);
+      uint32_t vf[D / 16][4];
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp)
+        k8_ldmatrix_x4_trans(vf[dp], vc + (kk * 16 + (lane & 15)) * LD +
+                                         dp * 16 + (lane >> 4) * 8);
+      // all hi products, then all lo: consecutive MMAs are independent, so
+      // none waits for another's result
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        k8_mma(oacc[2 * dp], ph, vf[dp][0], vf[dp][1]);
+        k8_mma(oacc[2 * dp + 1], ph, vf[dp][2], vf[dp][3]);
+      }
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        k8_mma(oacc[2 * dp], pl, vf[dp][0], vf[dp][1]);
+        k8_mma(oacc[2 * dp + 1], pl, vf[dp][2], vf[dp][3]);
+      }
+    }
+    __syncthreads();    // every warp is done with this buffer
+  }
+
+  __nv_bfloat16* ob = o + b * os.b + h * os.h;
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int col = n * 8 + 2 * t;
+    if (row0 < S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row0 * os.s + col) =
+          __floats2bfloat162_rn(oacc[n][0] / d0, oacc[n][1] / d0);
+    if (row1 < S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row1 * os.s + col) =
+          __floats2bfloat162_rn(oacc[n][2] / d1, oacc[n][3] / d1);
+  }
+}
+
+template <int D>
+static int k8_launch_f32(const void* q, const void* k, const void* v,
+                         void* o, int B, int H, int group, int S,
+                         const K8Strides* st, float scale,
+                         cudaStream_t stream) {
   const size_t smem = sizeof(float) * k8_smem_floats<D>();
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        k8_flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        k8_flash_kernel<float, D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const K8Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
-      vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
   const dim3 grid((S + K8_BQ - 1) / K8_BQ, H, B);
-  k8_flash_kernel<T, D><<<grid, K8_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, group, qs, ks, vs, os,
-      scale);
+  k8_flash_kernel<float, D><<<grid, K8_THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, group, st[0],
+      st[1], st[2], st[3], scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int k8_dispatch(const void* q, const void* k, const void* v, void* o,
-                       int B, int H, int group, int S, int D,
-                       const long long* st, float scale, cudaStream_t stream) {
-  switch (D) {
-    case 16: return k8_launch<T, 16>(q, k, v, o, B, H, group, S, st, scale, stream);
-    case 32: return k8_launch<T, 32>(q, k, v, o, B, H, group, S, st, scale, stream);
-    case 64: return k8_launch<T, 64>(q, k, v, o, B, H, group, S, st, scale, stream);
-    case 128: return k8_launch<T, 128>(q, k, v, o, B, H, group, S, st, scale, stream);
-    default: return (int)cudaErrorInvalidValue;
+template <int D>
+static int k8_launch_bf16(const void* q, const void* k, const void* v,
+                          void* o, int B, int H, int group, int S,
+                          const K8Strides* st, float scale,
+                          cudaStream_t stream) {
+  const size_t smem = k8_mma_smem_bytes<D>();
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        k8_flash_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
   }
+  const dim3 grid((S + K8_BQ - 1) / K8_BQ, H, B);
+  k8_flash_mma_kernel<D><<<grid, K8_MMA_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      S, group, st[0], st[1], st[2], st[3], scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+static int k8_launch(const void* q, const void* k, const void* v, void* o,
+                     int bf16, int B, int H, int group, int S,
+                     const K8Strides* st, float scale, cudaStream_t stream) {
+  return bf16 ? k8_launch_bf16<D>(q, k, v, o, B, H, group, S, st, scale,
+                                  stream)
+              : k8_launch_f32<D>(q, k, v, o, B, H, group, S, st, scale,
+                                 stream);
 }
 
 // Launch K8 on `stream`.  q, k, v and o are device pointers of one dtype
-// (bf16 = 0: float32, 1: bfloat16) with a contiguous last dimension of d
-// elements; `strides` is a host array of 12 element strides, (batch, head,
-// row) of q, k, v and o in that order.  Returns the cudaError_t of the
+// (bf16 = 0: float32, on CUDA cores; 1: bfloat16, on the tensor cores) with
+// a contiguous last dimension of d elements; `strides` is a host array of
+// 12 element strides, (batch, head, row) of q, k, v and o in that order.
+// For bfloat16 the q, k and v pointers and their strides must be multiples
+// of 16 bytes (the wrapper sees to it).  Returns the cudaError_t of the
 // launch (0 on success); nothing is allocated and nothing synchronises.
 extern "C" int k8_flash_attention(const void* q, const void* k,
                                   const void* v, void* o, int bf16, int B,
@@ -281,10 +576,16 @@ extern "C" int k8_flash_attention(const void* q, const void* k,
       H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaGetLastError();   // clear any stale error first
-  const long long* st = static_cast<const long long*>(strides);
+  const long long* p = static_cast<const long long*>(strides);
+  const K8Strides st[4] = {{p[0], p[1], p[2]}, {p[3], p[4], p[5]},
+                           {p[6], p[7], p[8]}, {p[9], p[10], p[11]}};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return k8_dispatch<__nv_bfloat16>(q, k, v, o, B, H, H / Hkv, S, D, st,
-                                      scale, s);
-  return k8_dispatch<float>(q, k, v, o, B, H, H / Hkv, S, D, st, scale, s);
+  const int group = H / Hkv;
+  switch (D) {
+    case 16: return k8_launch<16>(q, k, v, o, bf16, B, H, group, S, st, scale, s);
+    case 32: return k8_launch<32>(q, k, v, o, bf16, B, H, group, S, st, scale, s);
+    case 64: return k8_launch<64>(q, k, v, o, bf16, B, H, group, S, st, scale, s);
+    case 128: return k8_launch<128>(q, k, v, o, bf16, B, H, group, S, st, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

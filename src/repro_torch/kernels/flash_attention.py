@@ -6,9 +6,11 @@ softmax(q k^T * scale, causal) v for every query head, its kv head being
 ``h // (H / Hkv)``, in one launch of the hand-written Hopper kernel
 ``csrc/flash_attention.cu``.  One block per (q tile of 64 rows, head,
 batch) walks the kv tiles of 64 up to the diagonal and skips the rest,
-with the running max, denominator and accumulator in float32 registers
-and the Q, K and V tiles in shared memory; the kernel's design, and what
-bounds it, are in the source's header.  Against its plain version
+with the running max, denominator and accumulator in float32 registers.
+bfloat16 inputs go to the tensor-core kernel (``mma.sync`` on bf16 tiles
+that ``cp.async`` double-buffers; P split into bf16 hi + lo for the P.V
+product); float32 inputs to the CUDA-core kernel.  The kernels' design,
+and what bounds them, are in the source's header.  Against its plain version
 (:func:`repro_torch.kernels.ref.flash_attention_ref`, dense causal
 softmax in float32) it agrees within 2e-5 of the peak |out| in float32
 and 2e-2 in bfloat16, the tolerances of the JAX package's own test.
@@ -18,7 +20,10 @@ launch the kernel or raise.  Inputs are float32 or bfloat16 with a
 contiguous last dimension of 16, 32, 64 or 128; any strides of the
 other dimensions are read in place (the model hands in its (B, S, H, d)
 activations transposed, without a copy), and the output takes q's
-layout.
+layout.  The bf16 kernel copies 16 bytes at a time, so a bf16 input whose
+address or (batch, head, row) strides are not multiples of 16 bytes is
+copied to a fresh contiguous tensor first (the model's activations never
+are).
 """
 from __future__ import annotations
 
@@ -64,6 +69,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
                          f"the CPU")
 
 
+def _aligned16(t: torch.Tensor) -> bool:
+    """Whether the bf16 kernel's 16-byte copies can read ``t`` in place."""
+    step = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(t.stride(i) % step == 0
+                                          for i in range(3))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float | None = None) -> torch.Tensor:
     """Causal GQA attention: q (B, H, S, d), k and v (B, Hkv, S, d) with
@@ -81,6 +93,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: the last dimension of q, k and v "
                          "must be contiguous")
+    if q.dtype == torch.bfloat16:
+        q, k, v = (t if _aligned16(t) else t.clone(
+            memory_format=torch.contiguous_format) for t in (q, k, v))
     out = torch.empty_like(q)       # q's layout when q is dense
     strides = (ctypes.c_longlong * 12)(
         *[t.stride(i) for t in (q, k, v, out) for i in range(3)])

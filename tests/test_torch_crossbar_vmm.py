@@ -8,7 +8,9 @@ both storage modes, clean reads, read noise (the reference's per-128x128
 tile salts with tile-local ids, hence the 150 x 130 arrays that span
 several tiles), stuck cells at global ids, drift, a clamp, and the
 dispatch rule of ``analogue_matmul``.  The CUDA kernel is held against
-the plain version on the card by ``chip_smoke.py``.
+the plain version on the card by ``chip_smoke.py``; here its 3xTF32
+rounding scheme is emulated in plain torch and held to the card's 1e-4
+of the peak at P3's shape, and single TF32 shown to miss it.
 """
 import numpy as np
 import pytest
@@ -211,3 +213,91 @@ def test_argument_errors(kw, match):
     with pytest.raises(ValueError, match="meta"):
         tk7.crossbar_matmul(t(x).to("meta"), t(fp).to("meta"),
                             t(fm).to("meta"), inv_scale=1.0)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(read_noise=0.02, g_step=G_STEP), "g_min > 0"),
+    (dict(stuck_rate=0.1, g_max=0.0, g_min=0.0), "g_max > g_min"),
+    (dict(g_step=None, uint8=True), "uint8"),
+    (dict(g_step=G_STEP, uint8=False), "uint8"),
+])
+def test_effective_g_keeps_the_read_rules(kw, match):
+    """``effective_g`` holds a read to the rules ``crossbar_matmul`` does."""
+    _, ip, im, fp, fm = make_arrays(5, 4, 8, 6)
+    uint8 = kw.pop("uint8", "g_step" in kw)
+    a, b = (ip, im) if uint8 else (fp, fm)
+    with pytest.raises(ValueError, match=match):
+        tk7.effective_g(t(a), t(b), **kw)
+
+
+# -- the 3xTF32 tensor-core K7's rounding scheme, emulated on the CPU ----------
+
+def tf32_rna(a: torch.Tensor) -> torch.Tensor:
+    """float32 -> TF32 (10 mantissa bits) by round to nearest, ties away
+    from zero, on the bit pattern: ``cvt.rna.tf32.f32``."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def k7_tf32_emulation(x, g, *, three=True):
+    """x @ g as ``csrc/crossbar_vmm.cu``'s GEMM rounds it: each operand
+    split as big = tf32(a), small = tf32(a - big), and small.big +
+    big.small + big.big summed in float32 (3xTF32); with ``three=False``
+    big.big alone (single TF32)."""
+    xb, gb = tf32_rna(x), tf32_rna(g)
+    if not three:
+        return xb @ gb
+    xs, gs = tf32_rna(x - xb), tf32_rna(g - gb)
+    return xs @ gb + xb @ gs + xb @ gb
+
+
+def k7_scheme_err(storage, read, three=True) -> float:
+    """Error of the emulated K7, of the peak, against the plain version at
+    P3's middle array (M, K, N) = (1024, 513, 512)."""
+    x, ip, im, fp, fm = make_arrays(6, 1024, 513, 512)
+    a, b = (ip, im) if storage == "uint8" else (fp, fm)
+    kw = dict(g_step=G_STEP if storage == "uint8" else None, **READS[read])
+    g = tk7.effective_g(t(a), t(b), **kw)
+    want = tk7.crossbar_matmul(t(x), t(a), t(b), inv_scale=1.0, **kw)
+    got = k7_tf32_emulation(t(x), g, three=three)
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    one = 1.0 + 2.0 ** -10           # a TF32 value: kept
+    tie = 1.0 + 2.0 ** -11           # halfway: away from zero
+    a = torch.tensor([one, tie, -tie, 1.0 + 2.0 ** -12, 3e-5],
+                     dtype=torch.float32)
+    got = tf32_rna(a)
+    assert got[:4].tolist() == [one, 1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10),
+                                1.0]
+    assert abs(float(got[4]) - 3e-5) <= 2.0 ** -11 * 3e-5
+
+
+@pytest.mark.parametrize("storage,read", [("uint8", "clean"),
+                                          ("float", "read_noise")])
+def test_k7_3xtf32_scheme_meets_the_kernel_tolerance(storage, read):
+    assert k7_scheme_err(storage, read) <= 1e-4
+
+
+def test_k7_single_tf32_misses_the_kernel_tolerance():
+    """Why the kernel splits its operands: one TF32 product misses 1e-4
+    of the peak on the float noisy read with random x."""
+    assert k7_scheme_err("float", "read_noise", three=False) > 1e-4
+
+
+@pytest.mark.parametrize("read", sorted(READS))
+def test_effective_g_is_the_reads_conductance(read):
+    """``effective_g`` (the read pass on a card) is the G the plain
+    version multiplies by: x @ G reproduces it bitwise on the CPU."""
+    x, ip, im, _, _ = make_arrays(7, 5, 140, 130)
+    kw = dict(g_step=G_STEP, **{k: v for k, v in READS[read].items()
+                                if k != "clamp"})
+    g = tk7.effective_g(t(ip), t(im), **kw)
+    assert g.dtype == torch.float32 and g.shape == (140, 130)
+    assert torch.equal(g, tk7.ref.crossbar_effective_g(t(ip), t(im), **kw))
+    assert torch.equal(t(x) @ g, tk7.crossbar_matmul(t(x), t(ip), t(im),
+                                                     inv_scale=1.0, **kw))
+    with pytest.raises(ValueError, match="uint8"):
+        tk7.effective_g(t(ip), t(im))
+

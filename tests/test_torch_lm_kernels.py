@@ -13,7 +13,10 @@ K8 2e-5 in float32 and 2e-2 in bfloat16 (the output is rounded to bf16),
 K9 1e-5.  The tests marked ``cuda`` hold the kernels against the plain
 versions on a card and skip without one; there the bf16 K8 output is also
 held, per element, to bf16's rounding bound 2^-8 |want| (plus 2e-5 of the
-peak) against the plain version's float32 output before its cast.
+peak) against the plain version's float32 output before its cast.  The
+bf16 kernel's rounding scheme (float32 scores and softmax, P split into
+bf16 hi + lo for P.V) is emulated in plain torch and held to that bound
+here, and P rounded to bf16 alone shown to miss it.
 """
 import numpy as np
 import pytest
@@ -140,6 +143,90 @@ def test_ssm_scan_wrapper_checks():
         tops.ssm_scan(dt.double(), b, b, dt, a)
     with pytest.raises(ValueError, match="contiguous"):
         tops.ssm_scan(dt, b, b, torch.zeros((1, 8, 4)).transpose(1, 2), a)
+
+
+# -- the bf16 tensor-core K8's rounding scheme, emulated on the CPU ------------
+
+#: (B, H, Hkv, S, d) of the emulation: the JAX package's three test shapes,
+#: a ragged S (not a multiple of 64), and a long one at the Jamba head dim.
+MMA_SHAPES = [shape[:5] for shape in FLASH_SHAPES] + [(1, 4, 2, 97, 32),
+                                                     (1, 4, 2, 1024, 128)]
+
+
+def k8_mma_emulation(q, k, v, *, split_p=True):
+    """What ``csrc/flash_attention.cu``'s bf16 kernel computes, in plain
+    torch: bf16 inputs, float32 scores per 64-key tile (bf16 x bf16
+    products are exact in float32), the online softmax in float32 and in
+    base 2 (scores times scale * log2(e), causal mask -1e30, exp2), P split into bf16 hi + lo for the P.V product (or,
+    with ``split_p=False``, P rounded to bf16 alone), the output divided by
+    max(l, 1e-30) and rounded to bf16."""
+    b, h, s, d = q.shape
+    group = h // k.shape[1]
+    scale_log2 = float(torch.tensor(d ** -0.5) * torch.tensor(1.4426950408889634))
+    qf = q.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    m = torch.full((b, h, s, 1), -1e30)
+    l = torch.zeros((b, h, s, 1))
+    o = torch.zeros((b, h, s, d))
+    rows = torch.arange(s)[:, None]
+    for k0 in range(0, s, 64):
+        kt, vt = kf[:, :, k0:k0 + 64], vf[:, :, k0:k0 + 64]
+        sc = (qf @ kt.transpose(-1, -2)) * scale_log2
+        sc = sc.masked_fill(torch.arange(k0, k0 + kt.shape[2])[None, :]
+                            > rows, -1e30)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(sc - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        hi = p.to(torch.bfloat16).float()
+        pv = hi @ vt
+        if split_p:
+            pv = pv + (p - hi).to(torch.bfloat16).float() @ vt
+        o = o * corr + pv
+        m = m_new
+    return (o / l.clamp_min(1e-30)).to(torch.bfloat16)
+
+
+def bf16_rounding_ratio(got, q, k, v) -> float:
+    """max |got - want| / (2^-8 |want| + 2e-5 of the peak), want the plain
+    float32 output on the same (bf16-valued) inputs: the per-element bound
+    ``chip_smoke.py`` holds the bf16 kernel to."""
+    want = tref.flash_attention_ref(q.float(), k.float(), v.float())
+    limit = 2.0 ** -8 * want.abs() + 2e-5 * want.abs().max()
+    return float(((got.float() - want).abs() / limit).max())
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d", MMA_SHAPES)
+def test_k8_mma_scheme_meets_the_bf16_rounding_bound(b, h, hkv, s, d):
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in flash_inputs(s + d, b, h, hkv, s, d))
+    got = k8_mma_emulation(q, k, v)
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    assert bf16_rounding_ratio(got, q, k, v) <= 1.0
+
+
+def test_k8_bf16_p_alone_breaks_the_bound():
+    """Why the kernel splits P: rounded to bf16 alone, P.V misses the
+    per-element bound at the long shape."""
+    b, h, hkv, s, d = MMA_SHAPES[-1]
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in flash_inputs(s + d, b, h, hkv, s, d))
+    assert bf16_rounding_ratio(k8_mma_emulation(q, k, v, split_p=False),
+                               q, k, v) > 1.0
+
+
+def test_k8_bf16_alignment_rule():
+    """The bf16 kernel's 16-byte copies read a tensor in place only where
+    its address and (batch, head, row) strides are multiples of 16 bytes;
+    the wrapper copies any other."""
+    x = torch.zeros((2, 4, 8, 16), dtype=torch.bfloat16)
+    assert tk8._aligned16(x) and tk8._aligned16(x.transpose(1, 2))
+    assert not tk8._aligned16(torch.zeros(2 * 4 * 8 * 16 + 1,
+                                          dtype=torch.bfloat16)[1:]
+                              .view(2, 4, 8, 16))
+    assert not tk8._aligned16(torch.zeros((2, 4, 8, 20),
+                                          dtype=torch.bfloat16)[..., :16])
 
 
 @pytest.fixture
