@@ -18,30 +18,39 @@ result line:
    ``cuobjdump --dump-sass``, the tensor-core ``HMMA`` instructions of
    each kernel function in it: the bf16 K8 (``k8_flash_mma_kernel``) and
    K7's GEMM (``k7_gemm_kernel``) must have some, the float32 K8
-   (``k8_flash_kernel``) none;
+   (``k8_flash_kernel``) none; and for K1 and K2 the ``FFMA`` and ``LDS``
+   instructions of each kernel function and of its densest phase between
+   two barriers, with their ratios;
 3. K1 vs its plain version on the card, at the serving path's shapes,
    in two drive modes, and at a width whose weights need more than 48 KB
    of shared memory; error relative to each trajectory's peak <= 1e-4;
+   each trajectory bitwise identical at one twin per block and at four;
 4. the serving path: a seeded He-init Lorenz96 twin is saved with the
    port's ``save_twin`` and served by ``serve_fleet`` on the ``fused_cuda``
    backend, 2 request batches of 1024 twins x 200 RK4 steps; launch
    counts are zeroed just before and read just after; the result is held
    against the same requests served on the digital backend (<= 1e-4);
-5. K1 timing with CUDA events: kernel, plain version, and the card's
-   bound;
+5. K1 timing with CUDA events at the fleet request: kernel, plain
+   version, the card's bound, microseconds per RK4 step and the launch
+   geometry;
 6. K2 vs its plain version on the card at the Lorenz96 training shapes
    (paper and CI windows), the HP training shape (per-twin drive), the
    fleet shape and the 128-wide case; each gradient within 1e-4 of its
-   peak, and two calls bitwise identical;
+   peak, and two calls bitwise identical; dy0 bitwise identical at one
+   twin per block and at four, the gradients there within 1e-4 too;
 7. the training paths, each with the K1 and K2 counts zeroed just before
    and read just after: ``train_hp_twin(200, 250, "fused_cuda")`` to the
    HP gates of ``tests/test_twins.py``; 40 HP steps on fused_cuda vs the
-   digital adjoint (loss histories <= 1e-3 rel); ``train_l96_twin`` at
+   digital adjoint (loss histories <= 1e-3 rel; exactly 40 K1 and K2
+   launches on fused_cuda, none on digital); ``train_l96_twin`` at
    the CI budget to the Lorenz96 gates; gradient steps per second of
    each trajectory phase;
-8. K2 timing with CUDA events at the Lorenz96 training and fleet shapes:
-   kernel, plain version (autograd through ``fused_node_rollout_ref``)
-   and the card's bound;
+8. K1 and K2 timing with CUDA events at every shape a main path launches
+   them at: the fleet request (1024 x 200), HP training (9 x 50, one drive
+   per twin), Lorenz96 training (14 x 60, 29 x 60) and P4's 8 x 200:
+   kernel, plain version (for K2 autograd through
+   ``fused_node_rollout_ref``), the card's bound, microseconds per RK4
+   step and the launch geometry;
 9. K3 (the counter noise stream) on the card against its plain version
    on a 513 x 512 block at two salts, one above 2^31: hash bits, uniforms
    and stuck masks bitwise, normals within 1e-6;
@@ -129,6 +138,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -227,6 +237,30 @@ def make_case(gen, sizes, B, T, du_mode, device):
                                       dtype=torch.float64)
         u = (amp * torch.sin(2 * torch.pi * freq * th[None, :]))[..., None]
     return params, y0, u.to(torch.float32).to(device)
+
+
+def k1_bound(sizes, B, T, u):
+    """(bound_ms, bound_by, GFLOP, MB) of one K1 call: the MLP's products
+    for every twin and RK4 stage; y0, the drive and the weights read once,
+    the trajectory written once."""
+    pairs = list(zip(sizes[:-1], sizes[1:]))
+    macs = sum(a * b for a, b in pairs)
+    P = sum(a * b + b for a, b in pairs)
+    flops = 2 * macs * 4 * T * B
+    nbytes = 4 * (B * sizes[-1] + u.numel() + P + (T + 1) * B * sizes[-1])
+    t_ops, t_bytes = flops / FP32_PEAK * 1e3, nbytes / HBM_BW * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops / 1e9, nbytes / 1e6)
+
+
+def geometry_str(g) -> str:
+    return (f"{g.blocks} blocks x {g.threads} threads, "
+            f"{g.twins_per_block} twin(s) per block, {g.smem_bytes} B smem")
+
+
+#: The other tile of :func:`fused_ode_mlp.launch_geometry`'s two.
+def other_tile(g) -> int:
+    return 1 if g.twins_per_block != 1 else fused_ode_mlp.FLEET_TWINS_PER_BLOCK
 
 
 def k2_bound(sizes, B, T, u):
@@ -333,19 +367,41 @@ def real_cells(r):
     return torch.where(r < ref.BIG_CUT, r, torch.zeros_like(r))
 
 
-def sass_hmma(lib: Path) -> dict:
-    """{kernel function (mangled name): HMMA instructions in its SASS} of
-    one built kernel library, read with ``cuobjdump --dump-sass``."""
+#: SASS opcodes counted per kernel function by :func:`sass_counts`.
+SASS_OPCODES = ("HMMA", "FFMA", "LDS")
+
+
+def sass_counts(lib: Path) -> dict:
+    """{kernel function (mangled name): {opcode: instructions}} for the
+    opcodes of ``SASS_OPCODES`` (tensor-core products, float32 FMAs,
+    shared-memory loads of any width) in the SASS of one built kernel
+    library, read with ``cuobjdump --dump-sass``; ``"dense"`` holds the
+    FFMA and LDS of the stretch between two block barriers with the most
+    FFMAs (in K1 the hidden layer's product, in K2 the gradient-tile
+    phase)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "--dump-sass", str(lib)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    counts, fn = {}, None
+    counts, fn, seg = {}, None, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = 0
-        elif fn is not None and "HMMA" in line:
-            counts[fn] += 1
+            counts[fn] = dict.fromkeys(SASS_OPCODES, 0)
+            counts[fn]["dense"] = seg = {"FFMA": 0, "LDS": 0}
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
+                      line)
+        if fn is None or not m:
+            continue
+        op = m.group(1)
+        if op in SASS_OPCODES:
+            counts[fn][op] += 1
+        if op == "BAR":
+            if seg["FFMA"] > counts[fn]["dense"]["FFMA"]:
+                counts[fn]["dense"] = seg
+            seg = {"FFMA": 0, "LDS": 0}
+        elif op in seg:
+            seg[op] += 1
     return counts
 
 
@@ -829,10 +885,21 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  {src}: {line.strip()}")
-    hmma = {src: sass_hmma(path) for src, path in libs.items()}
+    sass = {src: sass_counts(path) for src, path in libs.items()}
+    hmma = {src: {fn: c["HMMA"] for fn, c in counts.items()}
+            for src, counts in sass.items()}
     for src, counts in hmma.items():
         print(f"SASS HMMA {src}: " + "; ".join(
             f"{fn} {n}" for fn, n in counts.items()))
+    # K1 and K2: float32 FMAs per shared-memory load, in the whole function
+    # and in its densest barrier-to-barrier phase
+    for src in ("fused_ode_mlp", "fused_ode_mlp_bwd"):
+        print(f"SASS FFMA/LDS {src}: " + "; ".join(
+            f"{fn} FFMA {c['FFMA']} LDS {c['LDS']} ratio "
+            f"{c['FFMA'] / max(c['LDS'], 1):.2f}, densest phase FFMA "
+            f"{c['dense']['FFMA']} LDS {c['dense']['LDS']} ratio "
+            f"{c['dense']['FFMA'] / max(c['dense']['LDS'], 1):.2f}"
+            for fn, c in sass[src].items()))
     for src, kernel, tensor_cores in (
             ("flash_attention", "k8_flash_mma_kernel", True),
             ("flash_attention", "k8_flash_kernel", False),
@@ -872,6 +939,18 @@ def main() -> int:
         print(f"kernel vs plain [{case}] B={B} T={T} sizes={sizes}: "
               f"max abs err {a:.3e}, of peak {r:.3e} (limit {TOL:g})")
         check(r <= TOL, f"{case}: kernel disagrees with its plain version")
+        # the same twins at one twin per block and at the other tile: a
+        # twin's trajectory does not depend on the launch geometry
+        chosen = fused_ode_mlp.launch_geometry(y0p.shape[0], sizes)
+        for rt in sorted({1, other_tile(chosen)}):
+            forced = fused_ode_mlp.launch_geometry(y0p.shape[0], sizes,
+                                                   twins_per_block=rt)
+            alt = fused_ode_mlp.fused_node_rollout_at(forced, y0p, up, ws, bs,
+                                                      dt)[:, :B]
+            same = torch.equal(alt, got)
+            print(f"  K1 [{case}] at {geometry_str(chosen)} vs "
+                  f"{geometry_str(forced)}: bitwise identical: {same}")
+            check(same, f"{case}: K1's trajectory depends on the geometry")
 
     # -- 4. the main path ------------------------------------------------------
     cfg = recipes.FLEET
@@ -927,17 +1006,13 @@ def main() -> int:
         y0p, up, ws, bs, dt, batch_tile=bt), reps=20, warmup=3)
     plain_ms = cuda_ms(lambda: ref.fused_node_rollout_ref(
         y0p, up, ws, bs, dt), reps=5, warmup=1)
-    macs = sum(a * b for a, b in zip(sizes[:-1], sizes[1:]))
-    flops = 2 * macs * 4 * T * B
-    nbytes = 4 * (y0p.numel() + up.numel() + sum(w.numel() for w in ws)
-                  + sum(b.numel() for b in bs) + (T + 1) * B * sizes[-1])
-    t_ops, t_bytes = flops / FP32_PEAK * 1e3, nbytes / HBM_BW * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"[{smi}] K1 fused_node_rollout B={B} T={T} sizes={sizes}: "
-          f"kernel_ms {kernel_ms:.4f}, plain_ms {plain_ms:.4f}, "
-          f"bound_ms {bound_ms:.4f} ({bound_by}: {flops / 1e9:.3f} GFLOP, "
-          f"{nbytes / 1e6:.3f} MB), launches per request 1, "
+    bound_ms, bound_by, gflop, mb = k1_bound(sizes, B, T, up)
+    print(f"[{smi}] K1 fused_node_rollout B={B} T={T} sizes={sizes} at "
+          f"{geometry_str(fused_ode_mlp.launch_geometry(B, sizes))}: "
+          f"kernel_ms {kernel_ms:.4f} ({1e3 * kernel_ms / T:.3f} us per RK4 "
+          f"step), plain_ms {plain_ms:.4f}, "
+          f"bound_ms {bound_ms:.4f} ({bound_by}: {gflop:.3f} GFLOP, "
+          f"{mb:.3f} MB), launches per request 1, "
           f"library_ms n/a (no single PyTorch call computes an RK4 rollout)")
 
     # -- 6. K2 vs plain version -------------------------------------------------
@@ -959,7 +1034,8 @@ def main() -> int:
         ws = [p["w"] for p in params]
         bs = [p["b"] for p in params]
         try:
-            need = fused_ode_mlp_bwd.smem_bytes_bwd(sizes)
+            need = fused_ode_mlp.launch_geometry(B, sizes,
+                                                 backward=True).smem_bytes
         except ValueError as e:
             print(f"K2 [{case}] sizes={sizes}: refused: {e}")
             continue
@@ -985,6 +1061,26 @@ def main() -> int:
               f"identical: {bitwise}")
         check(r <= TOL, f"K2 {case}: kernel disagrees with its plain version")
         check(bitwise, f"K2 {case}: two calls differ")
+        # one twin per block and the other tile: dy0 bitwise, the weight
+        # gradients (summed in another order) within the same tolerance
+        chosen = fused_ode_mlp.launch_geometry(B, sizes, backward=True)
+        for rt in sorted({1, other_tile(chosen)}):
+            try:
+                forced = fused_ode_mlp.launch_geometry(
+                    B, sizes, backward=True, twins_per_block=rt)
+            except ValueError as e:
+                print(f"  K2 [{case}] at {rt} twins per block: refused: {e}")
+                continue
+            alt = fused_ode_mlp_bwd.fused_node_rollout_bwd_at(
+                forced, traj, u, ws, bs, g, dt)
+            same = torch.equal(alt[0], got[0])
+            _, r_alt, _ = grads_rel_err(alt, want)
+            print(f"  K2 [{case}] at {geometry_str(chosen)} vs "
+                  f"{geometry_str(forced)}: dy0 bitwise identical: {same}; "
+                  f"gradients vs plain {r_alt:.3e} of peak (limit {TOL:g})")
+            check(same, f"K2 {case}: dy0 depends on the geometry")
+            check(r_alt <= TOL, f"K2 {case}: gradients at {rt} twins per "
+                                f"block disagree with the plain version")
 
     # -- 7. the training paths ---------------------------------------------------
     phases = []             # (path, steps, seconds) per trajectory phase
@@ -1039,14 +1135,17 @@ def main() -> int:
         twin40 = make_driven_twin(1, hp.WAVEFORMS["sine"](
             amp=recipes.HP_AMP, freq=recipes.HP_FREQ), hidden=14)
         p0 = twin40.init(torch.Generator().manual_seed(42), device=dev)
-        hists = {}
+        hists, hp40_counts = {}, {}
         for substrate, be in (("fused_cuda", "fused_cuda"),
                               ("digital", None)):
-            path[0] = f"hp_40_steps_{substrate}"
+            reset_counts(f"hp_40_steps_{substrate}")
             _, hists[substrate] = trainer.train_twin(
                 twin40, p0, ts, xs[:, None], optimizer=adam(1e-3),
                 num_steps=40, segment_len=50, loss="l1", noise_std=0.002,
                 generator=torch.Generator().manual_seed(1), backend=be)
+            torch.cuda.synchronize()
+            hp40_counts[substrate] = read_counts(
+                f"hp_40_steps_{substrate}", 40 if be else 0)
         hist_rel = float(((hists["fused_cuda"] - hists["digital"]).abs()
                           / hists["digital"].abs()).max())
         print(f"HP 40 steps, fused_cuda vs digital adjoint: loss "
@@ -1079,26 +1178,68 @@ def main() -> int:
         print(f"[{smi}] trajectory phase {phase}: {steps} gradient steps in "
               f"{sec:.3f} s = {steps / sec:.2f} steps/s")
 
-    # -- 8. K2 timing --------------------------------------------------------------
-    k2_times = {}
-    for case in ("l96_train_autonomous", "fleet_l96"):
+    # -- 8. K1 and K2 timing at every main-path shape ------------------------------
+    # (B, T) of each launch on the main paths: the fleet request (K1 on
+    # phase 4; K2 at the same shape for comparison), HP training (9
+    # segments of 50), Lorenz96 training at the CI and paper windows (14 and
+    # 29 of 60) and P4's 8 segments of 200 (inputs from their own generator,
+    # so the earlier phases' data stay as they were)
+    gen8 = torch.Generator().manual_seed(SEED + 8)
+    params8, y08, u8 = make_case(gen8, (6, 64, 64, 6), 8, 200, "none", dev)
+    ws8 = [p["w"] for p in params8]
+    bs8 = [p["b"] for p in params8]
+    traj8 = fused_ode_mlp.fused_node_rollout(y08, u8, ws8, bs8, 0.0025,
+                                             batch_tile=8)
+    g8 = torch.randn(traj8.shape, generator=gen8).to(dev)
+    k2_inputs["p4_segment_200"] = (traj8, u8, ws8, bs8, g8, 0.0025,
+                                   (6, 64, 64, 6), 8, 200)
+    timed_shapes = ("fleet_l96", "hp_train_per_twin_drive",
+                    "l96_train_ci_autonomous", "l96_train_autonomous",
+                    "p4_segment_200")
+    k1_times, k2_times = {}, {}
+    for case in timed_shapes:
         traj, u, ws, bs, g, dt, sizes, B, T = k2_inputs[case]
-        k_ms = cuda_ms(lambda: fused_ode_mlp_bwd.fused_node_rollout_bwd(
-            traj, u, ws, bs, g, dt), reps=20, warmup=3)
-        y0r = traj[0].clone().requires_grad_()
-        wr = [w.clone().requires_grad_() for w in ws]
-        br = [b.clone().requires_grad_() for b in bs]
-        out = ref.fused_node_rollout_ref(y0r, u, wr, br, dt)
-        p_ms = cuda_ms(lambda: torch.autograd.grad(
-            out, [y0r, *wr, *br], g, retain_graph=True), reps=5, warmup=1)
-        b_ms, b_by, gflop, mb = k2_bound(sizes, B, T, u)
-        k2_times[case] = (k_ms, p_ms, b_ms, b_by)
-        print(f"[{smi}] K2 fused_node_rollout_bwd [{case}] B={B} T={T} "
-              f"sizes={sizes}: kernel_ms {k_ms:.4f}, plain_ms {p_ms:.4f} "
-              f"(autograd through fused_node_rollout_ref), bound_ms "
-              f"{b_ms:.4f} ({b_by}: {gflop:.3f} GFLOP, {mb:.3f} MB), "
-              f"launches per call 2 (sweep + reduction), library_ms n/a "
-              f"(no single PyTorch call computes this VJP)")
+        y0 = traj[0].contiguous()
+        reps = 20 if B * T < 100_000 else 10
+        for kname, times, call, plain, bound_of, backward in (
+                ("K1 fused_node_rollout", k1_times,
+                 lambda: fused_ode_mlp.fused_node_rollout(
+                     y0, u, ws, bs, dt, batch_tile=B),
+                 lambda: ref.fused_node_rollout_ref(y0, u, ws, bs, dt),
+                 k1_bound, False),
+                ("K2 fused_node_rollout_bwd", k2_times,
+                 lambda: fused_ode_mlp_bwd.fused_node_rollout_bwd(
+                     traj, u, ws, bs, g, dt),
+                 None, k2_bound, True)):
+            k_ms = cuda_ms(call, reps=reps, warmup=3)
+            if plain is None:           # autograd through the plain rollout
+                y0r = traj[0].clone().requires_grad_()
+                wr = [w.clone().requires_grad_() for w in ws]
+                br = [b.clone().requires_grad_() for b in bs]
+                out = ref.fused_node_rollout_ref(y0r, u, wr, br, dt)
+                p_ms = cuda_ms(lambda: torch.autograd.grad(
+                    out, [y0r, *wr, *br], g, retain_graph=True), reps=3,
+                    warmup=1)
+                del out
+            else:
+                p_ms = cuda_ms(plain, reps=3, warmup=1)
+            b_ms, b_by, gflop, mb = bound_of(sizes, B, T, u)
+            geom = fused_ode_mlp.launch_geometry(B, sizes, backward=backward)
+            times[case] = dict(B=B, T=T, sizes=list(sizes), ms=k_ms,
+                               plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                               us_per_step=1e3 * k_ms / T,
+                               blocks=geom.blocks,
+                               twins_per_block=geom.twins_per_block,
+                               threads=geom.threads)
+            print(f"[{smi}] {kname} [{case}] B={B} T={T} sizes={sizes} at "
+                  f"{geometry_str(geom)}: kernel_ms {k_ms:.4f} "
+                  f"({1e3 * k_ms / T:.3f} us per RK4 step), plain_ms "
+                  f"{p_ms:.4f}{' (autograd through fused_node_rollout_ref)' if backward else ''}, "
+                  f"bound_ms {b_ms:.4f} ({b_by}: {gflop:.3f} GFLOP, "
+                  f"{mb:.3f} MB), library_ms n/a (no single PyTorch call "
+                  f"computes {'this VJP' if backward else 'an RK4 rollout'})"
+                  + (", launches per call 2 (sweep + reduction)"
+                     if backward else ""))
 
     # -- 9. K3 on the card ---------------------------------------------------------
     shape = (513, 512)
@@ -1632,7 +1773,9 @@ def main() -> int:
             generator=torch.Generator().manual_seed(SEED + 4), backend=be)
         want = ({k: cmp_steps for k in ("K1", "K2", "K5", "K6")}
                 if substrate == "fused_cuda" else {"K5": 0, "K6": 0})
-        read_p4(f"P4 {cmp_steps} steps on {substrate}", want)
+        got4 = read_p4(f"P4 {cmp_steps} steps on {substrate}", want)
+        if substrate == "fused_cuda":
+            p4_cmp = got4
     hist4_rel = float(((hist4["fused_cuda"] - hist4["digital"]).abs()
                        / hist4["digital"].abs()).max())
     print(f"P4 {cmp_steps} steps, fused_cuda vs digital: loss "
@@ -1741,15 +1884,25 @@ def main() -> int:
     lm_entries = lm_slice(dev, smi, hmma["flash_attention"])
 
     k1_paths = {"serve_fleet": launches, "train_hp_twin": hp_counts[0],
-                "train_l96_twin": l96_counts[0]}
+                "hp_40_steps_fused_cuda": hp40_counts["fused_cuda"][0],
+                "train_l96_twin": l96_counts[0],
+                **{f"P4_segment_{seg}": c[0]["K1"] for seg, c in p4.items()},
+                "P4_10_steps_fused_cuda": p4_cmp["K1"]}
     k2_paths = {"train_hp_twin": hp_counts[1],
-                "train_l96_twin": l96_counts[1]}
+                "hp_40_steps_fused_cuda": hp40_counts["fused_cuda"][1],
+                "train_l96_twin": l96_counts[1],
+                **{f"P4_segment_{seg}": c[0]["K2"] for seg, c in p4.items()},
+                "P4_10_steps_fused_cuda": p4_cmp["K2"]}
+
+    def ffma_lds(src):
+        return {fn: {k: c[k] for k in ("FFMA", "LDS", "dense")}
+                for fn, c in sass[src].items()}
 
     def by_path(key):
         return {p: c[key] for p, c in path_counts.items() if c[key]}
 
-    k_ms, p_ms, b_ms, b_by = k2_times["l96_train_autonomous"]
-    fk_ms, fp_ms, fb_ms, fb_by = k2_times["fleet_l96"]
+    k2_row = k2_times["l96_train_autonomous"]
+    k2_fleet = k2_times["fleet_l96"]
     c4_ms, c4_plain, c4_bound, c4_by = k4_times["fleet_float_clean"]
     n4_ms, n4_plain, n4_bound, n4_by = k4_times["fleet_uint8_noise_stuck_drift"]
     record = {"kernels": [{
@@ -1766,6 +1919,8 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "shapes": k1_times,
+        "sass": ffma_lds("fused_ode_mlp"),
     }, {
         "name": "fused_node_rollout_bwd",
         "route": "cuda",
@@ -1776,15 +1931,18 @@ def main() -> int:
         "shape": "l96_train_autonomous B=29 T=60 6-64-64-6",
         "max_abs_err": k2_errs["l96_train_autonomous"][0],
         "max_rel_err_of_peak": k2_errs["l96_train_autonomous"][1],
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "bound_ms": b_ms,
-        "bound_by": b_by,
+        "ms": k2_row["ms"],
+        "plain_ms": k2_row["plain_ms"],
+        "bound_ms": k2_row["bound_ms"],
+        "bound_by": k2_row["bound_by"],
         "library_ms": None,
-        "fleet_shape": {"B": 1024, "T": 200, "ms": fk_ms,
-                        "plain_ms": fp_ms, "bound_ms": fb_ms,
-                        "bound_by": fb_by,
+        "fleet_shape": {"B": 1024, "T": 200, "ms": k2_fleet["ms"],
+                        "plain_ms": k2_fleet["plain_ms"],
+                        "bound_ms": k2_fleet["bound_ms"],
+                        "bound_by": k2_fleet["bound_by"],
                         "max_rel_err_of_peak": k2_errs["fleet_l96"][1]},
+        "shapes": k2_times,
+        "sass": ffma_lds("fused_ode_mlp_bwd"),
     }, {
         "name": "counter_noise",
         "route": "cuda",

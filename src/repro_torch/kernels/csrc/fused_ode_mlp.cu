@@ -9,215 +9,256 @@
 //  * No grid-carried state.  The Pallas grid walks (batch tiles, time
 //    chunks) in order and carries the RK4 state across chunks in VMEM
 //    scratch.  CUDA blocks run concurrently and in no order, so each block
-//    owns `rows` twins and loops over all T steps itself.  Time chunking was
-//    a VMEM-budget artifact and is gone: drive rows are read straight from
-//    device memory, and under f32 the chunk-boundary rounding is a no-op.
-//  * Weights stationary in shared memory.  Every w_l (in, out) and b_l (out,)
-//    is copied into shared memory once and read from there for all
-//    4 * T evaluations; the state, the RK4 sum and the activations stay in
-//    shared memory too.  Device-memory traffic is y0 and the drive in, the
-//    trajectory out.  The wrapper (fused_ode_mlp.py:smem_bytes) sizes the
-//    block's dynamic shared memory and refuses an MLP that does not fit
-//    the 227 KB a block may use.
-//  * Geometry.  A block of K1_THREADS threads owns `rows` twins (the
-//    wrapper passes 8: 1024 twins -> 128 blocks on the 132 SMs).  Each layer
-//    is a (rows, in) x (in, out) product: thread i computes output
-//    (i / out, i % out) as a sequential FMA chain over `in`.  Activation
-//    rows are stored with an odd stride so that threads of one warp reading
-//    different rows at the same k hit different banks.
+//    owns RT twins (RT = 1 or 4) and loops over all T steps itself.
+//  * Weights stationary in shared memory, read from there for all 4 * T
+//    evaluations; the state, the RK4 sum, the activations and a chunk of
+//    the drive stay in shared memory too.  Device-memory traffic is y0 and
+//    the drive in (tc steps of it per load, one barrier per chunk), the
+//    trajectory out.
+//  * Geometry (fused_ode_mlp.py:launch_geometry).  One twin per block while
+//    four per block would leave SMs idle (every training shape: B <= 132
+//    blocks, one per twin); once the fleet fills the card at four twins
+//    per block (B >= 528), four, so each weight quad read from shared
+//    memory feeds 16 FMAs, and the 1024-twin request runs 256 blocks of 128
+//    threads, two per SM.  Threads: a lane for every lane of the widest
+//    product.  The wrapper sizes the shared memory and refuses an MLP that
+//    does not fit the 227 KB a block may use.
+//  * The MLP evaluation is fused_mlp_eval.cuh: each layer a team-split
+//    product with a fixed summation order that depends on the layer's
+//    widths only, so a twin's trajectory is the same bits whatever the
+//    twins per block and the thread count; K2 recomputes the stages with the
+//    same code.  The Lorenz96 (6->64->64->6) and HP (2->14->14->1) twins
+//    run instantiations with their widths compiled in; every other width
+//    runs the same code with run-time widths.
 //  * Arithmetic, term by term as the JAX kernel (make_rk4_step): the host
 //    rounds dt, dt/2 and dt/6 once from float64 to float32; a layer is dot,
 //    then + b, then ReLU (none on the last layer); the update is
 //    y + (dt/6) * (((k1 + 2 k2) + 2 k3) + k4).  The RK4 combinations use
 //    __fmul_rn / __fadd_rn so nvcc cannot contract them into FMAs; the dot
-//    products use fmaf and sum in order k = 0..in-1, which is not the
-//    order of XLA's or PyTorch's matmul, so parity with the plain version
-//    is to a tolerance (1e-4 of the trajectory's peak), not bitwise.
+//    products' order is fused_mlp_eval.cuh's, not XLA's or PyTorch's, so
+//    parity with the plain version is to a tolerance (1e-4 of the
+//    trajectory's peak), not bitwise.
+//  * Per step: 4 * L layer phases, each ending in a block barrier.  The
+//    last layer's epilogue does the RK4 bookkeeping and writes the next
+//    stage's input (two input buffers alternate), so no phase only
+//    assembles a stage input.
 //
 // Bound on this card (H100 SXM).  For the Lorenz96 fleet request (B=1024
 // twins, T=200 steps, 6->64->64->6): 4 evaluations * 2 * 4,864 MACs =
-// 9,728 FLOP per twin-step, 7.97 GFLOP per request, about 0.12 ms at the
+// 38,912 FLOP per twin-step, 7.97 GFLOP per request, 0.119 ms at the
 // 67 TFLOP/s FP32 peak without tensor cores; the 4.94 MB trajectory write
-// is 1.5 us at 3.35 TB/s.  So the operations bound it, and in this simple
-// kernel the serial chain of 200 * 4 * 3 dependent layers (each ending in
-// a block barrier) bounds it further: the measured time is in PERF.md.
-// wgmma, TMA and clusters are later work.
+// is 1.5 us at 3.35 TB/s.  So the operations bound it.  The chain of
+// 200 * 4 * L dependent barriered phases, each a few hundred cycles, is
+// what the kernel waits on; the measured times are in PERF.md.  One call is
+// one launch.
 
-#include <cuda_runtime.h>
+#include "fused_mlp_eval.cuh"
 
-#define K1_MAX_LAYERS 8
-#define K1_THREADS 256
-
-struct K1Mlp {
-  const float* w[K1_MAX_LAYERS];   // (in_l, out_l) row-major
-  const float* b[K1_MAX_LAYERS];   // (out_l,)
-  int sizes[K1_MAX_LAYERS + 1];    // in_0, out_0 = in_1, ..., out_{L-1}
-  int num_layers;
-};
+#define K1_MAX_THREADS 512
 
 // Floats of dynamic shared memory one block needs (the Python wrapper's
 // smem_bytes computes the same number).
-static long long k1_smem_floats(const K1Mlp& m, int rows) {
-  long long params = 0;
+static long long k1_smem_floats(const FmMlp& m, int rt, int tc) {
+  const FmLayout lay = fm_layout(m, false);
   int hidden = 0;
-  for (int l = 0; l < m.num_layers; ++l) {
-    params += (long long)m.sizes[l] * m.sizes[l + 1] + m.sizes[l + 1];
-    if (l + 1 < m.num_layers && m.sizes[l + 1] > hidden) hidden = m.sizes[l + 1];
-  }
+  for (int l = 0; l + 1 < m.num_layers; ++l)
+    if (m.sizes[l + 1] > hidden) hidden = m.sizes[l + 1];
   const int D = m.sizes[m.num_layers];
-  const int xstride = m.sizes[0] | 1;
-  const int hstride = hidden > 0 ? (hidden | 1) : 0;
-  return params + (long long)rows * (3 * D + xstride + 2 * hstride);
+  const int Du = m.sizes[0] - D;
+  const long long act = (long long)rt * (2 * fm_round4(m.sizes[0]) +
+                                         2 * fm_round4(hidden) +
+                                         2 * fm_round4(D));
+  return lay.total + act + fm_round4((2 * tc + 1) * Du * rt);
 }
 
-__global__ void __launch_bounds__(K1_THREADS)
+// The last layer's epilogue: k_{s+1} = sums + b goes straight into the RK4
+// bookkeeping and the y columns of the next stage's input, so a stage is
+// L barriered phases.  After stage s of step t (s = 0..3): acc = k1, then
+// acc += 2 k2, acc += 2 k3, the next input y + c k; after the last stage
+// y <- y + (dt/6) (acc + k4), stored as trajectory row t + 1 and as the y
+// columns of step t + 1's first input.  Each (j, twin) has one lane.
+template <int RT> struct K1StepEpi {
+  float* ys;        // [D][RT]
+  float* acc;       // [D][RT]
+  float* xnext;     // [in0][RT] the next stage's input
+  float* out_next;  // trajectory row t + 1 at this block's first twin
+  int s, Du, D, nr;
+  float cnext, dt6;
+  __device__ __forceinline__ void operator()(int j0, int n_out, int r,
+                                             const float (&a)[4],
+                                             float4 b4) const {
+    const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = j0 + c;
+      if (j < n_out) {
+        const float k = __fadd_rn(a[c], b[c]);
+        const int i = j * RT + r;
+        float v;
+        if (s == 3) {
+          v = __fadd_rn(ys[i], __fmul_rn(dt6, __fadd_rn(acc[i], k)));
+          ys[i] = v;
+          if (r < nr) out_next[r * D + j] = v;
+        } else {
+          acc[i] = (s == 0) ? k : __fadd_rn(acc[i], __fmul_rn(2.0f, k));
+          v = fm_stage_y(ys[i], cnext, k);
+        }
+        xnext[(Du + j) * RT + r] = v;
+      }
+    }
+  }
+};
+
+template <int RT, class Shape>
+__global__ void __launch_bounds__(K1_MAX_THREADS)
 k1_rollout_kernel(const float* __restrict__ y0, const float* __restrict__ u,
-                  float* __restrict__ out, const K1Mlp mlp, int B, int T,
-                  int D, int Du, long long u_twin_stride, float dt, float dt2,
-                  float dt6, int rows, int hstride) {
-  extern __shared__ float smem[];
+                  float* __restrict__ out, const FmMlp mlp, const FmLayout lay,
+                  const FmOps ops, const Shape shape, int B, int T,
+                  long long u_twin_stride, float dt, float dt2, float dt6,
+                  int tc) {
+  extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  const int L = mlp.num_layers;
-  const int r0 = blockIdx.x * rows;
-  const int nr = min(rows, B - r0);
+  const int L = shape.layers();
+  const int D = shape.width(L);
+  const int in0 = shape.width(0);
+  const int Du = in0 - D;
+  const int r0 = blockIdx.x * RT;
+  const int nr = min(RT, B - r0);
+  int hidden = 0;
+#pragma unroll(Shape::kUnroll)
+  for (int l = 1; l < L; ++l) hidden = max(hidden, shape.width(l));
+  const int hstep = fm_round4(hidden) * RT;
+  const int xstep = fm_round4(in0) * RT;
 
-  // Weights resident for the whole rollout.
-  int off = 0;
-  for (int l = 0; l < L; ++l) {
-    const int nw = mlp.sizes[l] * mlp.sizes[l + 1];
-    const int nb = mlp.sizes[l + 1];
-    const float* w = mlp.w[l];
-    const float* b = mlp.b[l];
-    for (int i = tid; i < nw; i += nt) smem[off + i] = w[i];
-    off += nw;
-    for (int i = tid; i < nb; i += nt) smem[off + i] = b[i];
-    off += nb;
-  }
-  const int in0 = mlp.sizes[0];
-  const int xstride = in0 | 1;
-  float* ys = smem + off;              // (rows, D)   state y_t
-  float* acc = ys + rows * D;          // (rows, D)   k1 + 2 k2 + 2 k3
-  float* ks = acc + rows * D;          // (rows, D)   last layer's output k_s
-  float* xs = ks + rows * D;           // (rows, xstride)  MLP input [u, y']
-  float* h0 = xs + rows * xstride;     // (rows, hstride)  hidden ping
-  float* h1 = h0 + rows * hstride;     // (rows, hstride)  hidden pong
+  float* xs = smem + lay.total;              // 2 x [in0][RT] stage inputs
+  float* h0 = xs + 2 * xstep;                // [hidden][RT] ping, then pong
+  float* ys = h0 + 2 * hstep;                // [D][RT] state y_t
+  float* acc = ys + fm_round4(D) * RT;       // [D][RT] k1 + 2 k2 + 2 k3
+  float* ubuf = acc + fm_round4(D) * RT;     // [2 tc + 1][Du][RT] drive chunk
+  const int nact = (int)(ubuf - xs) + fm_round4((2 * tc + 1) * Du * RT);
 
-  for (int i = tid; i < nr * D; i += nt) {
-    const float v = y0[(long long)r0 * D + i];
-    ys[i] = v;
-    out[(long long)r0 * D + i] = v;    // trajectory row 0 = y0
+  fm_load_weights(smem, mlp, lay, ops, false);
+  for (int i = tid; i < nact; i += nt) xs[i] = 0.0f;
+  __syncthreads();
+  if (Du > 0 && T > 0)
+    fm_stage_drive<RT>(ubuf, u, u_twin_stride, Du, 0, 2 * min(tc, T) + 1, r0,
+                       nr);
+  for (int i = tid; i < D * RT; i += nt) {
+    const int j = i / RT, r = i % RT;
+    if (r < nr) {
+      const float v = y0[(long long)(r0 + r) * D + j];
+      ys[i] = v;
+      xs[Du * RT + i] = v;                     // step 0's first input
+      out[(long long)(r0 + r) * D + j] = v;    // trajectory row 0 = y0
+    }
   }
   __syncthreads();
+  for (int e = tid; e < Du * RT; e += nt) xs[e] = ubuf[e];
+  __syncthreads();
 
+  int c0 = 0;                                  // first step of the drive chunk
   for (int t = 0; t < T; ++t) {
-    for (int s = 0; s < 4; ++s) {
-      // Stage input: u at half-step h, and y + c * k_{s-1}; fold k_{s-1}
-      // into the RK4 sum on the way.
-      const int h = 2 * t + (s == 0 ? 0 : (s == 3 ? 2 : 1));
-      const float c = (s == 3) ? dt : dt2;
-      for (int i = tid; i < nr * in0; i += nt) {
-        const int r = i / in0;
-        const int col = i - r * in0;
-        float v;
-        if (col < Du) {
-          v = u[(long long)(r0 + r) * u_twin_stride + (long long)h * Du + col];
-        } else {
-          const int j = r * D + (col - Du);
-          v = ys[j];
-          if (s > 0) {
-            const float k = ks[j];
-            v = __fadd_rn(v, __fmul_rn(c, k));
-            acc[j] = (s == 1) ? k : __fadd_rn(acc[j], __fmul_rn(2.0f, k));
-          }
-        }
-        xs[r * xstride + col] = v;
-      }
+    if (Du > 0 && t > 0 && t % tc == 0) {
+      // step t's first input already holds u at half-step 2t (the last row
+      // of the previous chunk); the new chunk serves the later stages
+      c0 = t;
+      fm_stage_drive<RT>(ubuf, u, u_twin_stride, Du, 2 * t,
+                         2 * min(tc, T - t) + 1, r0, nr);
       __syncthreads();
-
-      // MLP: dot, + b, ReLU (none on the last layer).
-      const float* src = xs;
-      int sstride = xstride;
-      int woff = 0;
-      for (int l = 0; l < L; ++l) {
-        const int din = mlp.sizes[l];
-        const int dout = mlp.sizes[l + 1];
-        const float* W = smem + woff;
-        const float* bias = W + din * dout;
-        woff += din * dout + dout;
-        const bool last = (l == L - 1);
-        float* dst = last ? ks : ((l & 1) ? h1 : h0);
-        const int dstride = last ? D : hstride;
-        for (int i = tid; i < nr * dout; i += nt) {
-          const int r = i / dout;
-          const int j = i - r * dout;
-          const float* x = src + r * sstride;
-          float a = 0.0f;
-#pragma unroll 4
-          for (int k = 0; k < din; ++k) a = fmaf(x[k], W[k * dout + j], a);
-          a = __fadd_rn(a, bias[j]);
-          if (!last && a < 0.0f) a = 0.0f;
-          dst[r * dstride + j] = a;
-        }
-        __syncthreads();
-        src = dst;
-        sstride = dstride;
-      }
     }
-    // ks holds k4: y <- y + (dt/6) * (acc + k4); store trajectory row t+1.
-    float* row = out + ((long long)(t + 1) * B + r0) * D;
-    for (int i = tid; i < nr * D; i += nt) {
-      const float y = __fadd_rn(ys[i], __fmul_rn(dt6, __fadd_rn(acc[i], ks[i])));
-      ys[i] = y;
-      row[i] = y;
+    float* out_next = out + ((long long)(t + 1) * B + r0) * D;
+#pragma unroll 1
+    for (int s = 0; s < 4; ++s) {
+      const int n = 4 * t + s;
+      const float* xcur = xs + (n & 1) * xstep;
+      float* xnext = xs + ((n + 1) & 1) * xstep;
+      // the drive columns of the next stage's input (half-steps 2t+1,
+      // 2t+1, 2t+2, then 2t+2 for step t+1's first stage)
+      const int hn = 2 * t + (s == 2 || s == 3 ? 2 : 1);
+      if (s < 3 || t + 1 < T)
+        for (int e = tid; e < Du * RT; e += nt)
+          xnext[e] = ubuf[(hn - 2 * c0) * Du * RT + e];
+      fm_mlp<RT>(shape, smem, xcur, h0, hstep, 1,
+                 K1StepEpi<RT>{ys, acc, xnext, out_next, s, Du, D, nr,
+                               (s == 2) ? dt : dt2, dt6});
     }
-    __syncthreads();
   }
 }
+
+template <int RT, class Shape>
+static int k1_launch(const Shape& shape, int grid, int threads,
+                     long long smem_bytes, cudaStream_t st, const float* y0,
+                     const float* u, float* out, const FmMlp& mlp,
+                     const FmLayout& lay, const FmOps& ops, int B, int T,
+                     long long u_twin_stride, float dt, float dt2, float dt6,
+                     int tc) {
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        k1_rollout_kernel<RT, Shape>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  k1_rollout_kernel<RT, Shape><<<grid, threads, (size_t)smem_bytes, st>>>(
+      y0, u, out, mlp, lay, ops, shape, B, T, u_twin_stride, dt, dt2, dt6, tc);
+  return (int)cudaGetLastError();
+}
+
+// The Lorenz96 twin and the HP memristor twin, compiled for their widths.
+using K1L96 = FmFixedShape<6, 64, 64, 6>;
+using K1HP = FmFixedShape<2, 14, 14, 1>;
 
 // Launch K1 on `stream`.  Pointers are device pointers except w_ptrs,
 // b_ptrs and sizes, which are host arrays of num_layers, num_layers and
 // num_layers + 1 entries.  u may be null when Du == 0; u_twin_stride is 0
 // for a drive shared by the fleet and (2T+1)*Du for one drive per twin.
+// twins (1 or 4), threads, tc (drive steps staged per load) and smem_bytes
+// are the wrapper's launch_geometry; smem_bytes must equal the layout's.
 // Returns the cudaError_t of the launch (0 on success); nothing is
 // allocated and nothing synchronises.
 extern "C" int k1_fused_node_rollout_f32(
     const void* y0, const void* u, void* out, const void* w_ptrs,
     const void* b_ptrs, const void* sizes, int num_layers, int B, int T,
     int D, int Du, long long u_twin_stride, float dt, float dt2, float dt6,
-    int rows, long long smem_bytes, void* stream) {
-  if (num_layers < 1 || num_layers > K1_MAX_LAYERS || B < 1 || T < 0 ||
-      rows < 1)
+    int twins, int threads, int tc, long long smem_bytes, void* stream) {
+  if (num_layers < 1 || num_layers > FM_MAX_LAYERS || B < 1 || T < 0 ||
+      (twins != 1 && twins != 4) || threads < 32 || threads % 32 != 0 ||
+      threads > K1_MAX_THREADS || tc < 1)
     return (int)cudaErrorInvalidValue;
-  K1Mlp mlp;
+  FmMlp mlp;
+  FmDynShape dyn;
   const void* const* w = static_cast<const void* const*>(w_ptrs);
   const void* const* b = static_cast<const void* const*>(b_ptrs);
   const int* sz = static_cast<const int*>(sizes);
   mlp.num_layers = num_layers;
-  int hidden = 0;
+  dyn.L = num_layers;
   for (int l = 0; l < num_layers; ++l) {
     mlp.w[l] = static_cast<const float*>(w[l]);
     mlp.b[l] = static_cast<const float*>(b[l]);
-    if (l + 1 < num_layers && sz[l + 1] > hidden) hidden = sz[l + 1];
   }
-  for (int l = 0; l <= num_layers; ++l) mlp.sizes[l] = sz[l];
+  for (int l = 0; l <= FM_MAX_LAYERS; ++l)
+    mlp.sizes[l] = dyn.size[l] = l <= num_layers ? sz[l] : 0;
   if (mlp.sizes[0] != Du + D || mlp.sizes[num_layers] != D)
     return (int)cudaErrorInvalidValue;
-  if (smem_bytes != 4 * k1_smem_floats(mlp, rows))
+  if (smem_bytes != 4 * k1_smem_floats(mlp, twins, tc))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaGetLastError();   // clear any stale error first
-  if (smem_bytes > 48 * 1024) {
-    err = cudaFuncSetAttribute(k1_rollout_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem_bytes);
-    if (err != cudaSuccess) return (int)err;
+  const FmLayout lay = fm_layout(mlp, false);
+  const FmOps ops = fm_ops(mlp, lay, false);
+  cudaGetLastError();                      // clear any stale error first
+  const int grid = (B + twins - 1) / twins;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* y0f = static_cast<const float*>(y0);
+  const float* uf = static_cast<const float*>(u);
+  float* outf = static_cast<float*>(out);
+#define K1_LAUNCH(RT, SHAPE)                                                \
+  return k1_launch<RT>(SHAPE, grid, threads, smem_bytes, st, y0f, uf, outf, \
+                       mlp, lay, ops, B, T, u_twin_stride, dt, dt2, dt6, tc)
+  if (K1L96::matches(sz, num_layers)) {
+    if (twins == 4) K1_LAUNCH(4, K1L96{});
+    K1_LAUNCH(1, K1L96{});
   }
-  const int hstride = hidden > 0 ? (hidden | 1) : 0;
-  const int grid = (B + rows - 1) / rows;
-  k1_rollout_kernel<<<grid, K1_THREADS, (size_t)smem_bytes,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(y0), static_cast<const float*>(u),
-      static_cast<float*>(out), mlp, B, T, D, Du, u_twin_stride, dt, dt2, dt6,
-      rows, hstride);
-  return (int)cudaGetLastError();
+  if (K1HP::matches(sz, num_layers) && twins == 1) K1_LAUNCH(1, K1HP{});
+  if (twins == 4) K1_LAUNCH(4, dyn);
+  K1_LAUNCH(1, dyn);
+#undef K1_LAUNCH
 }

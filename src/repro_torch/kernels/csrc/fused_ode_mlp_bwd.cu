@@ -13,13 +13,14 @@
 // Design.
 //  * No grid-carried state.  The Pallas grid walks time chunks in reverse
 //    and accumulates dW/db into one output block for the whole grid, which
-//    relies on the TPU running grid cells in order.  Here each block owns
-//    `rows` twins for all T steps and carries their adjoint a (rows, D) in
-//    shared memory; nothing crosses blocks during the sweep.
-//  * No replay of chunks.  Step t reads its state straight from trajectory
-//    row t: these are exactly the states K1 continued with.  The step's
-//    four stages are recomputed into shared memory with K1's arithmetic
-//    (the same fmaf order, the same host-rounded dt, dt/2, dt/6), so the
+//    relies on the TPU running grid cells in order.  Here each block owns RT
+//    twins (launch geometry as K1's: one per block at the training shapes,
+//    four at the fleet shape) for all T steps and carries their adjoint a
+//    in shared memory; nothing crosses blocks during the sweep.
+//  * No replay of chunks.  Step t reads its state from trajectory row t:
+//    these are exactly the states K1 continued with.  Rows of traj, g and
+//    the drive come into shared memory tc steps at a time.  The step's four
+//    stages are recomputed with K1's own code (fused_mlp_eval.cuh), so the
 //    stage inputs and post-ReLU activations equal the forward's bit for
 //    bit; an activation's sign is the ReLU mask.  relu'(0) = 0, as
 //    torch.relu's gradient in the plain version (the JAX kernel's
@@ -30,253 +31,339 @@
 //      c = (dt/6) a;  gk1 = gk4 = c;  gk2 = gk3 = 2c;
 //    then stages 4, 3, 2, 1, each back through the MLP to the cotangent gx
 //    of its input y + c_s k_{s-1}:  a += gx;  gk_{s-1} += c_s gx
-//    (c_s = dt for stage 4, dt/2 for stages 3 and 2).
-//  * Weight gradients without atomics.  Each weight or bias entry is owned
-//    by one thread of the block, which adds its block's contribution in a
-//    fixed order (twins 0..rows-1 within a stage, stages 4..1 within a
-//    step, steps T-1..0).  At the end each block writes its sums to row
-//    blockIdx.x of a (blocks, P) buffer, and k2_reduce_kernel sums the rows
-//    in block order.  So one K2 call is two launches, and a repeated call
-//    gives bitwise-identical gradients.
-//  * Shared memory.  The weights (rows padded to an odd stride so that a
-//    warp reading a column, as the backward product does, hits 32
-//    different banks), the gradient accumulators, and per twin the
-//    adjoint, the state, the stage output, four stage cotangents, four
-//    stage inputs and the 4 * (L-1) hidden activations of the step, plus
-//    two hidden-width buffers for the backward.  fused_ode_mlp_bwd.py:
-//    smem_bytes_bwd computes the same size and refuses a width over the
-//    227 KB a block may use; above 48 KB the launch raises the block's
-//    dynamic allowance first.
+//    (c_s = dt for stage 4, dt/2 for stages 3 and 2).  The input-cotangent
+//    products run on w_l^T, kept transposed in shared memory, with the same
+//    team-split fixed-order sums as the forward, so dy0 of a twin does not
+//    depend on the geometry either.
+//  * Weight gradients off the chain, without atomics.  The backward keeps
+//    every stage's layer inputs and output cotangents of the step; after the
+//    step one phase adds them into the gradient.  The gradient is cut into
+//    4 x 4 tiles of (w_l; b_l), each owned by one thread, which holds its
+//    tiles (at most K2_MAX_TILES) in registers for the whole sweep and adds
+//    in a fixed order (steps T-1..0, stages 4..1, twins 0..RT-1).  At the
+//    end each block writes its tiles to row blockIdx.x of a (blocks, P)
+//    buffer, and k2_reduce_kernel sums the rows in block order.  So one K2
+//    call is two launches, and a repeated call gives bitwise-identical
+//    gradients.
+//  * Per step: one load phase, the recompute's 4 * (1 + L) phases, 4 * L
+//    input-cotangent phases and the gradient phase, each ending in a block
+//    barrier.  Widths are compiled in for the Lorenz96 and HP twins, as in
+//    K1.
 //
 // Bound on this card (H100 SXM).  Per twin-step, the forward recompute is
 // 4 * 2 * MACs FLOP and the backward per stage a second product for the
-// weight gradient and a third for the input cotangent: ~3x K1's work, so
-// the operations bound it (at B=1024, T=200, 6->64->64->6: ~23.9 GFLOP,
-// ~0.36 ms at 67 TFLOP/s FP32).  Like K1, this simple kernel is held back
-// by its serial chain instead: per step 4 stages x 2 directions x L layers,
-// each ending in a block barrier.  The measured times are in PERF.md.
+// weight gradient and a third for the input cotangent (only the y columns
+// of layer 0): ~3x K1's work, so the operations bound it (at B=1024, T=200,
+// 6->64->64->6: ~23.9 GFLOP, ~0.36 ms at 67 TFLOP/s FP32).  At the training
+// shapes (one twin per block, B <= 29 blocks) the chain of ~30 barriered
+// phases per step is what it waits on.  The measured times are in PERF.md.
 
-#include <cuda_runtime.h>
+#include "fused_mlp_eval.cuh"
 
-#define K2_MAX_LAYERS 8
-#define K2_THREADS 256
+#define K2_MAX_THREADS 512
+#define K2_MAX_TILES 4
 #define K2_REDUCE_THREADS 256
 
-struct K2Mlp {
-  const float* w[K2_MAX_LAYERS];   // (in_l, out_l) row-major
-  const float* b[K2_MAX_LAYERS];   // (out_l,)
-  int sizes[K2_MAX_LAYERS + 1];    // in_0, out_0 = in_1, ..., out_{L-1}
-  int num_layers;
-};
+// Tiles of layer l's gradient: ceil(in/4) + 1 (the bias) rows of
+// ceil(out/4) tiles.
+__host__ __device__ inline int k2_layer_tiles(int din, int dout) {
+  return ((din + 3) / 4 + 1) * ((dout + 3) / 4);
+}
+
+static int k2_hidden(const FmMlp& m) {
+  int hidden = 0;
+  for (int l = 0; l + 1 < m.num_layers; ++l)
+    if (m.sizes[l + 1] > hidden) hidden = m.sizes[l + 1];
+  return hidden;
+}
 
 // Floats of dynamic shared memory one block needs (the Python wrapper's
 // smem_bytes_bwd computes the same number).
-static long long k2_smem_floats(const K2Mlp& m, int rows) {
-  long long wpad = 0, params = 0;
-  int hidden = 0;
-  for (int l = 0; l < m.num_layers; ++l) {
-    const int din = m.sizes[l], dout = m.sizes[l + 1];
-    wpad += (long long)din * (dout | 1) + dout;
-    params += (long long)din * dout + dout;
-    if (l + 1 < m.num_layers && dout > hidden) hidden = dout;
-  }
+static long long k2_smem_floats(const FmMlp& m, int rt, int tc) {
+  const FmLayout lay = fm_layout(m, true);
   const int L = m.num_layers;
-  const int D = m.sizes[L];
-  const int xstride = m.sizes[0] | 1;
-  const int hstride = hidden > 0 ? (hidden | 1) : 0;
-  return wpad + params +
-         (long long)rows * (7 * D + 4 * xstride + 4 * (L - 1) * hstride +
-                            2 * hstride);
+  const int D4 = fm_round4(m.sizes[L]);
+  const int Du = m.sizes[0] - m.sizes[L];
+  const long long act =
+      (long long)rt * (7 * D4 + 4 * fm_round4(m.sizes[0]) +
+                       8 * (L - 1) * fm_round4(k2_hidden(m)) + 2 * tc * D4);
+  return lay.total + act + fm_round4((2 * tc + 1) * Du * rt);
 }
 
-__global__ void __launch_bounds__(K2_THREADS)
+// A hidden layer's input cotangent, masked by the ReLU that made the input.
+template <int RT> struct K2MaskEpi {
+  const float* act;    // [n][RT] the layer's input (post-ReLU)
+  float* out;          // [n][RT]
+  __device__ __forceinline__ void operator()(int k0, int n, int r,
+                                             const float (&a)[4],
+                                             float4) const {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int k = k0 + c;
+      if (k < n) out[k * RT + r] = (act[k * RT + r] > 0.0f) ? a[c] : 0.0f;
+    }
+  }
+};
+
+// Layer 0's input cotangent: its y columns go into a and k_{s-1}'s
+// cotangent (gprev, null for stage 1).
+template <int RT> struct K2InputEpi {
+  float* a;
+  float* gprev;
+  float cs;
+  int Du;
+  __device__ __forceinline__ void operator()(int k0, int din, int r,
+                                             const float (&v)[4],
+                                             float4) const {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int k = k0 + c;
+      if (k >= Du && k < din) {
+        const int i = (k - Du) * RT + r;
+        a[i] = __fadd_rn(a[i], v[c]);
+        if (gprev) gprev[i] = __fadd_rn(gprev[i], __fmul_rn(cs, v[c]));
+      }
+    }
+  }
+};
+
+// Features f0 .. f0+3 of the RT twins from a [n][RT] buffer, q[a][r]: one
+// 128-bit load for RT = 1, four for RT = 4.
+template <int RT>
+__device__ __forceinline__ void k2_quad(const float* p, float (&q)[4][RT]) {
+  if (RT == 1) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    q[0][0] = v.x; q[1][0] = v.y; q[2][0] = v.z; q[3][0] = v.w;
+  } else {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      FmTile<RT> t;
+      t.load(p + a * RT);
+#pragma unroll
+      for (int r = 0; r < RT; ++r) q[a][r] = t.v[r];
+    }
+  }
+}
+
+template <int RT, class Shape>
+__global__ void __launch_bounds__(K2_MAX_THREADS)
 k2_rollout_bwd_kernel(const float* __restrict__ traj,
                       const float* __restrict__ u,
                       const float* __restrict__ g, float* __restrict__ dy0,
-                      float* __restrict__ partial, const K2Mlp mlp, int B,
-                      int T, int D, int Du, long long u_twin_stride,
-                      long long P, float dt, float dt2, float dt6, int rows,
-                      int hstride) {
-  extern __shared__ float smem[];
+                      float* __restrict__ partial, const FmMlp mlp,
+                      const FmLayout lay, const FmOps ops, const Shape shape,
+                      int B, int T, long long u_twin_stride, long long P,
+                      float dt, float dt2, float dt6, int tc) {
+  extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  const int L = mlp.num_layers;
-  const int r0 = blockIdx.x * rows;
-  const int nr = min(rows, B - r0);
+  const int L = shape.layers();
+  const int D = shape.width(L);
+  const int in0 = shape.width(0);
+  const int Du = in0 - D;
+  const int r0 = blockIdx.x * RT;
+  const int nr = min(RT, B - r0);
+  int hidden = 0;
+#pragma unroll(Shape::kUnroll)
+  for (int l = 1; l < L; ++l) hidden = max(hidden, shape.width(l));
+  const int D4 = fm_round4(D) * RT;           // floats of one [D][RT] vector
+  const int X4 = fm_round4(in0) * RT;
+  const int H4 = fm_round4(hidden) * RT;
 
-  // Layout: padded weights + biases, then the flat gradient accumulators.
-  int woffs[K2_MAX_LAYERS], goffs[K2_MAX_LAYERS];
-  int off = 0, goff = 0;
-  for (int l = 0; l < L; ++l) {
-    const int din = mlp.sizes[l], dout = mlp.sizes[l + 1];
-    woffs[l] = off;
-    goffs[l] = goff;
-    off += din * (dout | 1) + dout;
-    goff += din * dout + dout;
-  }
-  float* gacc = smem + off;                       // (P,) dW_0, db_0, ...
-  const int in0 = mlp.sizes[0];
-  const int xstride = in0 | 1;
-  float* a = gacc + P;                            // (rows, D) adjoint
-  float* ys = a + rows * D;                       // (rows, D) y_t
-  float* ks = ys + rows * D;                      // (rows, D) stage output
-  float* gk = ks + rows * D;                      // 4 x (rows, D)
-  float* xs = gk + 4 * rows * D;                  // 4 x (rows, xstride)
-  float* hs = xs + 4 * rows * xstride;            // 4 x (L-1) x (rows, hstride)
-  float* d0 = hs + 4 * (L - 1) * rows * hstride;  // (rows, hstride)
-  float* d1 = d0 + rows * hstride;                // (rows, hstride)
+  float* ys = smem + lay.total;               // [D][RT] y_t
+  float* a = ys + D4;                         // [D][RT] adjoint
+  float* ks = a + D4;                         // [D][RT] stage output
+  float* gk = ks + D4;                        // 4 x [D][RT] stage cotangents
+  float* xs = gk + 4 * D4;                    // 4 x [in0][RT] stage inputs
+  float* hs = xs + 4 * X4;                    // 4 x (L-1) x [hidden][RT]
+  float* dn = hs + 4 * (L - 1) * H4;          // 4 x (L-1) x [hidden][RT]
+  float* tbuf = dn + 4 * (L - 1) * H4;        // tc x [D][RT] traj rows
+  float* gbuf = tbuf + tc * D4;               // tc x [D][RT] g rows
+  float* ubuf = gbuf + tc * D4;               // [2 tc + 1][Du][RT] drive
+  const int nact = (int)(ubuf - ys) + fm_round4((2 * tc + 1) * Du * RT);
 
-  for (int l = 0; l < L; ++l) {
-    const int din = mlp.sizes[l], dout = mlp.sizes[l + 1];
-    const int ws = dout | 1;
-    float* W = smem + woffs[l];
-    float* bias = W + din * ws;
-    for (int i = tid; i < din * dout; i += nt) {
-      const int k = i / dout;
-      W[k * ws + (i - k * dout)] = mlp.w[l][i];
-    }
-    for (int i = tid; i < dout; i += nt) bias[i] = mlp.b[l][i];
-  }
-  for (long long i = tid; i < P; i += nt) gacc[i] = 0.0f;
-  for (int i = tid; i < nr * D; i += nt) a[i] = 0.0f;
+  // This thread's gradient tiles: ids tid, tid + nt, ... over all layers.
+  float tacc[K2_MAX_TILES][16];
+#pragma unroll
+  for (int i = 0; i < K2_MAX_TILES; ++i)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) tacc[i][e] = 0.0f;
+
+  fm_load_weights(smem, mlp, lay, ops, true);
+  for (int i = tid; i < nact; i += nt) ys[i] = 0.0f;
   __syncthreads();
 
+  int c0 = T;                                 // first step of the staged chunk
   for (int t = T - 1; t >= 0; --t) {
-    // The adjoint picks up the cotangent of row t+1; load the state y_t.
-    const long long row_t = ((long long)t * B + r0) * D;
-    const long long row_t1 = row_t + (long long)B * D;
-    for (int i = tid; i < nr * D; i += nt) {
-      ys[i] = traj[row_t + i];
-      a[i] = __fadd_rn(a[i], g[row_t1 + i]);
+    if (t < c0) {
+      // Stage steps [c0, t] going down: traj rows c0..t, g rows c0+1..t+1,
+      // drive half-steps 2 c0 .. 2 t + 2.
+      c0 = (t / tc) * tc;
+      const int n = (t + 1 - c0) * D * RT;
+      for (int i = tid; i < n; i += nt) {
+        const int r = i % RT;
+        const int j = (i / RT) % D;
+        const int row = i / (RT * D);
+        float tv = 0.0f, gv = 0.0f;
+        if (r < nr) {
+          const long long o = ((long long)(c0 + row) * B + r0 + r) * D + j;
+          tv = traj[o];
+          gv = g[o + (long long)B * D];
+        }
+        tbuf[row * D4 + j * RT + r] = tv;
+        gbuf[row * D4 + j * RT + r] = gv;
+      }
+      if (Du > 0)
+        fm_stage_drive<RT>(ubuf, u, u_twin_stride, Du, 2 * c0,
+                           2 * (t - c0) + 3, r0, nr);
+      __syncthreads();
+    }
+    // The adjoint picks up the cotangent of row t+1; load the state y_t;
+    // seed the stage cotangents from the RK4 update.
+    for (int i = tid; i < D * RT; i += nt) {
+      ys[i] = tbuf[(t - c0) * D4 + i];
+      const float av = __fadd_rn(a[i], gbuf[(t - c0) * D4 + i]);
+      a[i] = av;
+      const float cst = __fmul_rn(dt6, av);
+      const float c2 = __fmul_rn(2.0f, cst);
+      gk[i] = cst;
+      gk[D4 + i] = c2;
+      gk[2 * D4 + i] = c2;
+      gk[3 * D4 + i] = cst;
     }
     __syncthreads();
 
     // -- forward recompute of the step's four stages (K1's arithmetic) ----
+#pragma unroll 1
     for (int s = 0; s < 4; ++s) {
-      const int h = 2 * t + (s == 0 ? 0 : (s == 3 ? 2 : 1));
+      const float* urow =
+          ubuf + (fm_stage_half_step(t, s) - 2 * c0) * Du * RT;
       const float c = (s == 3) ? dt : dt2;
-      float* xs_s = xs + s * rows * xstride;
-      for (int i = tid; i < nr * in0; i += nt) {
-        const int r = i / in0;
-        const int col = i - r * in0;
+      float* xs_s = xs + s * X4;
+      for (int e = tid; e < in0 * RT; e += nt) {
         float v;
-        if (col < Du) {
-          v = u[(long long)(r0 + r) * u_twin_stride + (long long)h * Du + col];
+        if (e < Du * RT) {
+          v = urow[e];
         } else {
-          const int j = r * D + (col - Du);
-          v = ys[j];
-          if (s > 0) v = __fadd_rn(v, __fmul_rn(c, ks[j]));
+          const int i = e - Du * RT;
+          v = (s == 0) ? ys[i] : fm_stage_y(ys[i], c, ks[i]);
         }
-        xs_s[r * xstride + col] = v;
+        xs_s[e] = v;
       }
       __syncthreads();
-      const float* src = xs_s;
-      int sstride = xstride;
-      for (int l = 0; l < L; ++l) {
-        const int din = mlp.sizes[l], dout = mlp.sizes[l + 1];
-        const int ws = dout | 1;
-        const float* W = smem + woffs[l];
-        const float* bias = W + din * ws;
-        const bool last = (l == L - 1);
-        float* dst = last ? ks : hs + (s * (L - 1) + l) * rows * hstride;
-        const int dstride = last ? D : hstride;
-        for (int i = tid; i < nr * dout; i += nt) {
-          const int r = i / dout;
-          const int j = i - r * dout;
-          const float* x = src + r * sstride;
-          float acc = 0.0f;
-#pragma unroll 4
-          for (int k = 0; k < din; ++k) acc = fmaf(x[k], W[k * ws + j], acc);
-          acc = __fadd_rn(acc, bias[j]);
-          if (!last && acc < 0.0f) acc = 0.0f;
-          dst[r * dstride + j] = acc;
-        }
-        __syncthreads();
-        src = dst;
-        sstride = dstride;
-      }
+      fm_mlp<RT>(shape, smem, xs_s, hs + s * (L - 1) * H4, H4, ~0,
+                 FmDenseEpi<RT>{ks, false});
     }
-
-    // -- pull-back through the RK4 update ----------------------------------
-    for (int i = tid; i < nr * D; i += nt) {
-      const float cst = __fmul_rn(dt6, a[i]);
-      const float c2 = __fmul_rn(2.0f, cst);
-      gk[i] = cst;
-      gk[rows * D + i] = c2;
-      gk[2 * rows * D + i] = c2;
-      gk[3 * rows * D + i] = cst;
-    }
-    __syncthreads();
 
     // -- stages 4, 3, 2, 1 back through the MLP ------------------------------
+#pragma unroll 1
     for (int s = 3; s >= 0; --s) {
-      const float* xs_s = xs + s * rows * xstride;
-      const float cs = (s == 3) ? dt : dt2;     // stage input y + cs k_{s-1}
-      const float* delta = gk + s * rows * D;   // cotangent of this layer's
-      int dstr = D;                             // pre-activation output
-      for (int l = L - 1; l >= 0; --l) {
-        const int din = mlp.sizes[l], dout = mlp.sizes[l + 1];
-        const int ws = dout | 1;
-        const float* W = smem + woffs[l];
-        const float* in = (l == 0) ? xs_s
-                                   : hs + (s * (L - 1) + l - 1) * rows * hstride;
-        const int istr = (l == 0) ? xstride : hstride;
-        float* gW = gacc + goffs[l];
-        float* gb = gW + din * dout;
-        // weight and bias gradients: entry i is owned by one thread
-        for (int i = tid; i < din * dout + dout; i += nt) {
-          float acc = 0.0f;
-          if (i < din * dout) {
-            const int k = i / dout;
-            const int j = i - k * dout;
-            for (int r = 0; r < nr; ++r)
-              acc = fmaf(in[r * istr + k], delta[r * dstr + j], acc);
-            gW[i] = __fadd_rn(gW[i], acc);
-          } else {
-            const int j = i - din * dout;
-            for (int r = 0; r < nr; ++r) acc = __fadd_rn(acc, delta[r * dstr + j]);
-            gb[j] = __fadd_rn(gb[j], acc);
-          }
-        }
-        if (l > 0) {
-          // cotangent of the layer's input, masked by the ReLU that made it
-          float* dn = (delta == d0) ? d1 : d0;
-          for (int i = tid; i < nr * din; i += nt) {
-            const int r = i / din;
-            const int k = i - r * din;
-            float acc = 0.0f;
-            for (int j = 0; j < dout; ++j)
-              acc = fmaf(W[k * ws + j], delta[r * dstr + j], acc);
-            dn[r * hstride + k] = (in[r * istr + k] > 0.0f) ? acc : 0.0f;
-          }
-          __syncthreads();
-          delta = dn;
-          dstr = hstride;
+      const float* delta = gk + s * D4;   // cotangent of the layer's output
+#pragma unroll(Shape::kUnroll)
+      for (int l = L - 1; l >= 1; --l) {
+        float* d_in = dn + (s * (L - 1) + l - 1) * H4;
+        fm_matvec<RT, Shape::kOneRound>(shape.op(smem, L + l), smem, delta,
+                                        shape.split_lanes(),
+                      K2MaskEpi<RT>{hs + (s * (L - 1) + l - 1) * H4, d_in});
+        __syncthreads();
+        delta = d_in;
+      }
+      fm_matvec<RT, Shape::kOneRound>(shape.op(smem, L), smem, delta,
+                                      shape.split_lanes(),
+                    K2InputEpi<RT>{a, s > 0 ? gk + (s - 1) * D4 : nullptr,
+                                   (s == 3) ? dt : dt2, Du});
+      __syncthreads();
+    }
+
+    // -- this step's weight and bias gradients, tile by tile -----------------
+#pragma unroll
+    for (int i = 0; i < K2_MAX_TILES; ++i) {
+      int tile = tid + i * nt;
+      int l = 0;
+#pragma unroll(Shape::kUnroll)
+      for (; l < L; ++l) {
+        const int n = k2_layer_tiles(shape.width(l), shape.width(l + 1));
+        if (tile < n) break;
+        tile -= n;
+      }
+      if (l == L) continue;
+      const int din = shape.width(l), dout = shape.width(l + 1);
+      const int gw = (dout + 3) / 4;
+      const int kq = tile / gw, jq = tile - kq * gw;
+      const bool bias = 4 * kq >= din;
+#pragma unroll
+      for (int s = 3; s >= 0; --s) {
+        const float* in = (l == 0) ? xs + s * X4
+                                   : hs + (s * (L - 1) + l - 1) * H4;
+        const float* del = (l == L - 1) ? gk + s * D4
+                                        : dn + (s * (L - 1) + l) * H4;
+        float d[4][RT];
+        k2_quad<RT>(del + 4 * jq * RT, d);
+        if (bias) {
+#pragma unroll
+          for (int r = 0; r < RT; ++r)
+            if (r < nr)
+#pragma unroll
+              for (int c = 0; c < 4; ++c)
+                tacc[i][c] = __fadd_rn(tacc[i][c], d[c][r]);
         } else {
-          // cotangent of the stage input's y columns: into a and k_{s-1}
-          for (int i = tid; i < nr * D; i += nt) {
-            const int r = i / D;
-            const int k = Du + (i - r * D);
-            float acc = 0.0f;
-            for (int j = 0; j < dout; ++j)
-              acc = fmaf(W[k * ws + j], delta[r * dstr + j], acc);
-            a[i] = __fadd_rn(a[i], acc);
-            if (s > 0) {
-              float* gprev = gk + (s - 1) * rows * D;
-              gprev[i] = __fadd_rn(gprev[i], __fmul_rn(cs, acc));
-            }
-          }
-          __syncthreads();
+          float x[4][RT];
+          k2_quad<RT>(in + 4 * kq * RT, x);
+#pragma unroll
+          for (int r = 0; r < RT; ++r)
+            if (r < nr)
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+#pragma unroll
+                for (int c = 0; c < 4; ++c)
+                  tacc[i][q * 4 + c] = fmaf(x[q][r], d[c][r], tacc[i][q * 4 + c]);
         }
       }
     }
+    __syncthreads();
   }
 
-  // dL/dy0 = a + g[0]; this block's gradient sums to its partial row.
-  for (int i = tid; i < nr * D; i += nt)
-    dy0[(long long)r0 * D + i] = __fadd_rn(a[i], g[(long long)r0 * D + i]);
+  // dL/dy0 = a + g[0]; this thread's gradient tiles to the block's row.
+  for (int i = tid; i < D * RT; i += nt) {
+    const int j = i / RT, r = i % RT;
+    if (r < nr) {
+      const long long o = (long long)(r0 + r) * D + j;
+      dy0[o] = __fadd_rn(a[i], g[o]);
+    }
+  }
   float* prow = partial + (long long)blockIdx.x * P;
-  for (long long i = tid; i < P; i += nt) prow[i] = gacc[i];
+#pragma unroll
+  for (int i = 0; i < K2_MAX_TILES; ++i) {
+    int tile = tid + i * nt;
+    long long off = 0;
+    int l = 0;
+#pragma unroll(Shape::kUnroll)
+    for (; l < L; ++l) {
+      const int n = k2_layer_tiles(shape.width(l), shape.width(l + 1));
+      if (tile < n) break;
+      tile -= n;
+      off += (long long)shape.width(l) * shape.width(l + 1) + shape.width(l + 1);
+    }
+    if (l == L) continue;
+    const int din = shape.width(l), dout = shape.width(l + 1);
+    const int gw = (dout + 3) / 4;
+    const int kq = tile / gw, jq = tile - kq * gw;
+    if (4 * kq >= din) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = 4 * jq + c;
+        if (j < dout) prow[off + (long long)din * dout + j] = tacc[i][c];
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int k = 4 * kq + q, j = 4 * jq + c;
+          if (k < din && j < dout) prow[off + (long long)k * dout + j] = tacc[i][q * 4 + c];
+        }
+    }
+  }
 }
 
 // grads[p] = sum over blocks b = 0, 1, ... of partial[b, p], in that order.
@@ -290,61 +377,102 @@ __global__ void k2_reduce_kernel(const float* __restrict__ partial,
   grads[p] = acc;
 }
 
+template <int RT, class Shape>
+static int k2_launch(const Shape& shape, int blocks, int threads,
+                     long long smem_bytes, cudaStream_t st, const float* traj,
+                     const float* u, const float* g, float* dy0,
+                     float* partial, const FmMlp& mlp, const FmLayout& lay,
+                     const FmOps& ops, int B, int T, long long u_twin_stride,
+                     long long P, float dt, float dt2, float dt6, int tc) {
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        k2_rollout_bwd_kernel<RT, Shape>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  k2_rollout_bwd_kernel<RT, Shape><<<blocks, threads, (size_t)smem_bytes,
+                                     st>>>(traj, u, g, dy0, partial, mlp, lay,
+                                           ops, shape, B, T, u_twin_stride, P,
+                                           dt, dt2, dt6, tc);
+  return (int)cudaGetLastError();
+}
+
+// The Lorenz96 twin and the HP memristor twin, compiled for their widths.
+using K2L96 = FmFixedShape<6, 64, 64, 6>;
+using K2HP = FmFixedShape<2, 14, 14, 1>;
+
 // Launch K2 on `stream`: the reverse sweep, then the fixed-order reduction.
 // Pointers are device pointers except w_ptrs, b_ptrs and sizes, which are
 // host arrays of num_layers, num_layers and num_layers + 1 entries.  u may
 // be null when Du == 0; u_twin_stride is 0 for a drive shared by the fleet
-// and (2T+1)*Du for one drive per twin.  partial holds ceil(B/rows) * P
-// floats of scratch; grads receives P floats.  Returns the cudaError_t of
-// the launches (0 on success); nothing is allocated and nothing
-// synchronises.
+// and (2T+1)*Du for one drive per twin.  twins (1 or 4), threads, tc and
+// smem_bytes are the wrapper's launch_geometry (backward); threads must
+// own every gradient tile.  partial holds ceil(B/twins) * P floats of
+// scratch; grads receives P floats.  Returns the cudaError_t of the
+// launches (0 on success); nothing is allocated and nothing synchronises.
 extern "C" int k2_fused_node_rollout_bwd_f32(
     const void* traj, const void* u, const void* g, void* dy0, void* partial,
     void* grads, const void* w_ptrs, const void* b_ptrs, const void* sizes,
     int num_layers, int B, int T, int D, int Du, long long u_twin_stride,
-    float dt, float dt2, float dt6, int rows, long long smem_bytes,
-    void* stream) {
-  if (num_layers < 1 || num_layers > K2_MAX_LAYERS || B < 1 || T < 0 ||
-      rows < 1)
+    float dt, float dt2, float dt6, int twins, int threads, int tc,
+    long long smem_bytes, void* stream) {
+  if (num_layers < 1 || num_layers > FM_MAX_LAYERS || B < 1 || T < 0 ||
+      (twins != 1 && twins != 4) || threads < 32 || threads % 32 != 0 ||
+      threads > K2_MAX_THREADS || tc < 1)
     return (int)cudaErrorInvalidValue;
-  K2Mlp mlp;
+  FmMlp mlp;
+  FmDynShape dyn;
   const void* const* w = static_cast<const void* const*>(w_ptrs);
   const void* const* b = static_cast<const void* const*>(b_ptrs);
   const int* sz = static_cast<const int*>(sizes);
   mlp.num_layers = num_layers;
-  int hidden = 0;
-  long long P = 0;
+  dyn.L = num_layers;
+  long long P = 0, tiles = 0;
   for (int l = 0; l < num_layers; ++l) {
     mlp.w[l] = static_cast<const float*>(w[l]);
     mlp.b[l] = static_cast<const float*>(b[l]);
-    if (l + 1 < num_layers && sz[l + 1] > hidden) hidden = sz[l + 1];
     P += (long long)sz[l] * sz[l + 1] + sz[l + 1];
+    tiles += k2_layer_tiles(sz[l], sz[l + 1]);
   }
-  for (int l = 0; l <= num_layers; ++l) mlp.sizes[l] = sz[l];
-  if (mlp.sizes[0] != Du + D || mlp.sizes[num_layers] != D)
+  for (int l = 0; l <= FM_MAX_LAYERS; ++l)
+    mlp.sizes[l] = dyn.size[l] = l <= num_layers ? sz[l] : 0;
+  if (mlp.sizes[0] != Du + D || mlp.sizes[num_layers] != D ||
+      tiles > (long long)K2_MAX_TILES * threads)
     return (int)cudaErrorInvalidValue;
-  if (smem_bytes != 4 * k2_smem_floats(mlp, rows))
+  if (smem_bytes != 4 * k2_smem_floats(mlp, twins, tc))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaGetLastError();   // clear any stale error first
-  if (smem_bytes > 48 * 1024) {
-    err = cudaFuncSetAttribute(k2_rollout_bwd_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem_bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int hstride = hidden > 0 ? (hidden | 1) : 0;
-  const int blocks = (B + rows - 1) / rows;
+  const FmLayout lay = fm_layout(mlp, true);
+  const FmOps ops = fm_ops(mlp, lay, true);
+  cudaGetLastError();                      // clear any stale error first
+  const int blocks = (B + twins - 1) / twins;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  k2_rollout_bwd_kernel<<<blocks, K2_THREADS, (size_t)smem_bytes, st>>>(
-      static_cast<const float*>(traj), static_cast<const float*>(u),
-      static_cast<const float*>(g), static_cast<float*>(dy0),
-      static_cast<float*>(partial), mlp, B, T, D, Du, u_twin_stride, P, dt,
-      dt2, dt6, rows, hstride);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const float* tf = static_cast<const float*>(traj);
+  const float* uf = static_cast<const float*>(u);
+  const float* gf = static_cast<const float*>(g);
+  float* dyf = static_cast<float*>(dy0);
+  float* pf = static_cast<float*>(partial);
+  int err;
+#define K2_LAUNCH(RT, SHAPE)                                                 \
+  err = k2_launch<RT>(SHAPE, blocks, threads, smem_bytes, st, tf, uf, gf,    \
+                      dyf, pf, mlp, lay, ops, B, T, u_twin_stride, P, dt,    \
+                      dt2, dt6, tc)
+  if (K2L96::matches(sz, num_layers)) {
+    if (twins == 4) {
+      K2_LAUNCH(4, K2L96{});
+    } else {
+      K2_LAUNCH(1, K2L96{});
+    }
+  } else if (K2HP::matches(sz, num_layers) && twins == 1) {
+    K2_LAUNCH(1, K2HP{});
+  } else if (twins == 4) {
+    K2_LAUNCH(4, dyn);
+  } else {
+    K2_LAUNCH(1, dyn);
+  }
+#undef K2_LAUNCH
+  if (err != cudaSuccess) return err;
   const int rgrid = (int)((P + K2_REDUCE_THREADS - 1) / K2_REDUCE_THREADS);
-  k2_reduce_kernel<<<rgrid, K2_REDUCE_THREADS, 0, st>>>(
-      static_cast<const float*>(partial), static_cast<float*>(grads), blocks,
-      P);
+  k2_reduce_kernel<<<rgrid, K2_REDUCE_THREADS, 0, st>>>(pf,
+      static_cast<float*>(grads), blocks, P);
   return (int)cudaGetLastError();
 }

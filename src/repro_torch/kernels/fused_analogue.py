@@ -32,8 +32,12 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.crossbar_vmm import stored_operand
-from repro_torch.kernels.fused_ode_mlp import (MAX_LAYERS, ROWS_PER_BLOCK,
-                                               SMEM_LIMIT_BYTES)
+from repro_torch.kernels.fused_ode_mlp import MAX_LAYERS, SMEM_LIMIT_BYTES
+
+#: Twins per CUDA block of K4 (1024 twins -> 128 blocks on the H100's 132
+#: SMs).  Each twin's arithmetic is independent, so this does not change
+#: results.
+ROWS_PER_BLOCK = 8
 
 #: Fault scalars the kernel understands (subset optional); produced by
 #: ``FaultModel.kernel_args()`` in :mod:`repro_torch.core.faults`.

@@ -5,7 +5,9 @@ dy/dt = ReLU-MLP([u(t), y]) for a fleet of twins in ONE launch of the
 hand-written Hopper kernel ``csrc/fused_ode_mlp.cu`` (K1): the MLP
 weights sit in shared memory for all 4*T evaluations, and the only
 device-memory traffic is y0 and the drive in, the trajectory out.  The
-kernel's design, and what bounds it, are in the source's header.
+kernel's design, and what bounds it, are in the source's header; its
+launch (twins per block, threads, shared memory) comes from
+:func:`launch_geometry`, which K2 shares.
 
 Device rule: the plain version :func:`repro_torch.kernels.ref.fused_node_rollout_ref`
 runs only for CPU tensors.  CUDA tensors launch the kernel or raise; no
@@ -18,6 +20,7 @@ counterpart: f32 results do not depend on them.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Sequence
 
 import torch
@@ -30,17 +33,45 @@ PRECISIONS = ("f32", "bf16", "bf16_f32acc")
 #: Shared memory a Hopper block may use (227 KB of the SM's 256 KB).
 SMEM_LIMIT_BYTES = 232_448
 
-#: Twins per CUDA block.  Each twin's arithmetic is independent, so this
-#: does not change results; 8 gives the 1024-twin request 128 blocks on
-#: the H100's 132 SMs (64, the JAX batch tile, would fill only 16).
-ROWS_PER_BLOCK = 8
+#: Streaming multiprocessors of the H100 SXM.
+NUM_SMS = 132
 
-#: Layers the kernels' argument structs hold (K1_MAX_LAYERS and
-#: K2_MAX_LAYERS in the sources).
+#: Twins per block once the fleet fills every SM at that many (the
+#: kernels' RT = 4 instantiation); fewer twins get one block each.
+FLEET_TWINS_PER_BLOCK = 4
+
+#: Threads a K1 or K2 block may have (K1_MAX_THREADS / K2_MAX_THREADS in
+#: the sources); a wider product loops over its lanes.
+MAX_THREADS = 512
+
+#: Gradient tiles (4 x 4 entries) one K2 thread holds in registers
+#: (K2_MAX_TILES in ``csrc/fused_ode_mlp_bwd.cu``).
+MAX_TILES_PER_THREAD = 4
+
+#: Time steps of the drive (and, in K2, of the trajectory and its
+#: cotangent) brought into shared memory per load; halved while a block
+#: would not fit.
+TIME_CHUNK = 16
+
+#: Layers the kernels' argument structs hold (FM_MAX_LAYERS in
+#: ``csrc/fused_mlp_eval.cuh``).
 MAX_LAYERS = 8
 
 #: Launches of the CUDA kernel in this process (one per kernel launch).
 LAUNCHES = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """How K1 or K2 is launched for one call: ``blocks`` blocks of
+    ``threads`` threads, each owning ``twins_per_block`` twins, with
+    ``smem_bytes`` of dynamic shared memory and ``time_chunk`` steps of
+    rows staged per load."""
+    twins_per_block: int
+    threads: int
+    blocks: int
+    smem_bytes: int
+    time_chunk: int
 
 
 def resolve_precision(precision: str | None,
@@ -66,30 +97,165 @@ def _require_float(name: str, x: torch.Tensor) -> None:
             f"floating dtype first")
 
 
-def smem_bytes(sizes: Sequence[int], rows: int = ROWS_PER_BLOCK) -> int:
+#: Words of the product-descriptor table at the start of a block's shared
+#: memory (FM_OPS_WORDS in ``csrc/fused_mlp_eval.cuh``).
+_OPS_WORDS = 2 * MAX_LAYERS * 8
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def ksplit(n: int) -> int:
+    """Lanes that split a sum of ``n`` products (``fm_ksplit``): the
+    largest power of two <= 8 leaving each lane >= 8 terms.  It fixes
+    the summation order of every output, so it depends on ``n`` alone."""
+    s = 1
+    while s < 8 and 16 * s <= n:
+        s *= 2
+    return s
+
+
+def _matvec_lanes(n_red: int, n_out: int) -> int:
+    """Threads one product of ``n_red`` terms into ``n_out`` outputs uses
+    (``fm_matvec_lanes``): a team of ``ksplit(n_red)`` lanes per 4
+    outputs, whole warps."""
+    per_warp = 32 // ksplit(n_red)
+    groups = -(-n_out // 4)
+    return 32 * -(-groups // per_warp)
+
+
+def _weight_floats(sizes: Sequence[int], transposed: bool) -> int:
+    """Floats of the shared weight block (``fm_layout``): the table of
+    product descriptors (``FM_OPS_WORDS``), then per layer w_l with rows
+    padded to 4 floats and b_l padded to 4; K2 adds every w_l^T."""
+    pairs = list(zip(sizes[:-1], sizes[1:]))
+    n = _OPS_WORDS + sum(a * _round4(b) + _round4(b) for a, b in pairs)
+    if transposed:
+        n += sum(b * _round4(a) for a, b in pairs)
+    return n
+
+
+def _hidden(sizes: Sequence[int]) -> int:
+    return max(sizes[1:-1], default=0)
+
+
+def gradient_tiles(sizes: Sequence[int]) -> int:
+    """4 x 4 tiles of K2's gradient: per layer ceil(in/4) + 1 (the bias)
+    rows of ceil(out/4)."""
+    return sum((-(-a // 4) + 1) * -(-b // 4)
+               for a, b in zip(sizes[:-1], sizes[1:]))
+
+
+def smem_bytes(sizes: Sequence[int], twins_per_block: int = 1,
+               time_chunk: int = TIME_CHUNK) -> int:
     """Dynamic shared memory of one K1 block for MLP layer widths
-    ``sizes`` (in_0, ..., out_{L-1}): the weights and biases, plus per
-    twin the state, the RK4 sum, the stage output, the MLP input and two
-    hidden buffers, activation rows padded to an odd stride."""
-    params = sum(a * b + b for a, b in zip(sizes[:-1], sizes[1:]))
-    hidden = max(sizes[1:-1], default=0)
-    hstride = (hidden | 1) if hidden else 0
+    ``sizes`` (in_0, ..., out_{L-1}): the weight block, and per twin two
+    stage inputs, two hidden buffers, the state and the RK4 sum (each
+    padded to 4 floats), and ``2 time_chunk + 1`` half-steps of the
+    drive."""
     D = sizes[-1]
-    return 4 * (params + rows * (3 * D + (sizes[0] | 1) + 2 * hstride))
+    du = sizes[0] - D
+    act = twins_per_block * (2 * _round4(sizes[0])
+                             + 2 * _round4(_hidden(sizes)) + 2 * _round4(D))
+    return 4 * (_weight_floats(sizes, False) + act
+                + _round4((2 * time_chunk + 1) * du * twins_per_block))
 
 
-def check_smem_fit(sizes: Sequence[int], rows: int = ROWS_PER_BLOCK) -> int:
-    """Raise a ``ValueError`` when one block's working set exceeds the
-    227 KB a Hopper block may use; returns the bytes otherwise."""
-    need = smem_bytes(sizes, rows)
-    if need > SMEM_LIMIT_BYTES:
+def smem_bytes_k2(sizes: Sequence[int], twins_per_block: int = 1,
+                  time_chunk: int = TIME_CHUNK) -> int:
+    """Dynamic shared memory of one K2 block: the weight block with every
+    w_l^T, and per twin the state, adjoint and stage output, four stage
+    cotangents, four stage inputs, the step's hidden activations and their
+    cotangents for the four stages, ``time_chunk`` rows each of the
+    trajectory and its cotangent, and ``2 time_chunk + 1`` half-steps of
+    the drive."""
+    D4 = _round4(sizes[-1])
+    du = sizes[0] - sizes[-1]
+    L = len(sizes) - 1
+    act = twins_per_block * (7 * D4 + 4 * _round4(sizes[0])
+                             + 8 * (L - 1) * _round4(_hidden(sizes))
+                             + 2 * time_chunk * D4)
+    return 4 * (_weight_floats(sizes, True) + act
+                + _round4((2 * time_chunk + 1) * du * twins_per_block))
+
+
+def _threads(sizes: Sequence[int], backward: bool) -> int:
+    """Threads of a block: every product's lanes (a wider one loops), and
+    in K2 enough threads to own every gradient tile."""
+    pairs = list(zip(sizes[:-1], sizes[1:]))
+    lanes = max(_matvec_lanes(a, b) for a, b in pairs)
+    if backward:
+        lanes = max(lanes, *(_matvec_lanes(b, a) for a, b in pairs))
+        tiles = gradient_tiles(sizes)
+        if tiles > MAX_TILES_PER_THREAD * MAX_THREADS:
+            raise ValueError(
+                f"fused backward kernel: MLP {tuple(sizes)} has {tiles} "
+                f"gradient tiles, over the {MAX_TILES_PER_THREAD} x "
+                f"{MAX_THREADS} a block's threads hold")
+        lanes = max(lanes, 32 * -(-tiles // (32 * MAX_TILES_PER_THREAD)))
+    return min(MAX_THREADS, max(32, lanes))
+
+
+def _over_limit(sizes, need: int, twins: int, backward: bool) -> ValueError:
+    if backward:
+        return ValueError(
+            f"fused backward kernel: MLP {tuple(sizes)} needs {need:,} B of "
+            f"shared memory per block ({twins} twin(s), one time step "
+            f"staged), over the 227 KB ({SMEM_LIMIT_BYTES:,} B) per-block "
+            f"limit of sm_90; the weights and their transposes must stay "
+            f"resident, so this width needs a cluster or a split across "
+            f"blocks")
+    return ValueError(
+        f"fused kernel: MLP {tuple(sizes)} needs {need:,} B of shared "
+        f"memory per block ({twins} twin(s), one time step staged), over "
+        f"the 227 KB ({SMEM_LIMIT_BYTES:,} B) per-block limit of sm_90; the "
+        f"weights must stay resident, so this width needs a cluster or a "
+        f"split across blocks")
+
+
+def launch_geometry(B: int, sizes: Sequence[int], *, backward: bool = False,
+                    twins_per_block: int | None = None) -> Geometry:
+    """The launch of K1 (or, with ``backward``, K2) for ``B`` twins of MLP
+    widths ``sizes``.  One twin per block while ``B`` leaves SMs idle at
+    four (every training shape gets B blocks); ``FLEET_TWINS_PER_BLOCK``
+    twins per block once ``B / 4`` blocks cover the card's SMs, so each
+    weight read from shared memory feeds four twins.  The time chunk is
+    ``TIME_CHUNK`` steps, halved while the block would not fit.
+    ``twins_per_block`` (1 or 4) forces the tile, as the checks that a
+    trajectory does not depend on the geometry do.  Raises a
+    ``ValueError`` when no choice fits the 227 KB a block may use."""
+    if B < 1:
+        raise ValueError(f"launch_geometry: B={B} twins")
+    smem_of = smem_bytes_k2 if backward else smem_bytes
+    if twins_per_block is None:
+        fleet = -(-B // FLEET_TWINS_PER_BLOCK) >= NUM_SMS
+        tiles = (FLEET_TWINS_PER_BLOCK, 1) if fleet else (1,)
+    elif twins_per_block in (1, FLEET_TWINS_PER_BLOCK):
+        tiles = (twins_per_block,)
+    else:
         raise ValueError(
-            f"fused kernel: MLP {tuple(sizes)} needs {need:,} B of shared "
-            f"memory per block ({rows} twins), over the 227 KB "
-            f"({SMEM_LIMIT_BYTES:,} B) per-block limit of sm_90; the "
-            f"weights must stay resident, so this width needs a cluster or "
-            f"a split across blocks")
-    return need
+            f"launch_geometry: twins_per_block={twins_per_block}; the "
+            f"kernels hold 1 or {FLEET_TWINS_PER_BLOCK}")
+    for rt in tiles:
+        tc = TIME_CHUNK
+        while True:
+            need = smem_of(sizes, rt, tc)
+            if need <= SMEM_LIMIT_BYTES:
+                return Geometry(rt, _threads(sizes, backward), -(-B // rt),
+                                need, tc)
+            if tc == 1:
+                break
+            tc //= 2
+    raise _over_limit(sizes, need, tiles[-1], backward)
+
+
+def check_smem_fit(sizes: Sequence[int]) -> int:
+    """Raise a ``ValueError`` when one K1 block (one twin, one time step
+    staged) exceeds the 227 KB a Hopper block may use; returns the bytes
+    of one twin and ``TIME_CHUNK`` steps, or of fewer steps where that is
+    what fits."""
+    return launch_geometry(1, sizes).smem_bytes
 
 
 def pad_fleet_to_tile(y0s: torch.Tensor, uh: torch.Tensor, batch_tile: int):
@@ -125,15 +291,16 @@ def drive_window(u_half: torch.Tensor, start_step: int,
     return u_half[:, lo:hi] if axis == 1 else u_half[lo:hi]
 
 
-def _launch(y0, u_half, weights, biases, dt, per_twin, T, du,
-            sizes, smem):
-    """Launch K1 on the current stream; returns (T+1, B, D) float32."""
+def _launch(y0, u_half, weights, biases, dt, per_twin, T, du, sizes,
+            geom: Geometry):
+    """Launch K1 on the current stream at ``geom``; returns (T+1, B, D)
+    float32."""
     global LAUNCHES
     from repro_torch.kernels import _build
     fn = _build.load("fused_ode_mlp").k1_fused_node_rollout_f32
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] + [ctypes.c_float] * 3
-                   + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
+                   + [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     B, D = y0.shape
     L = len(weights)
@@ -149,14 +316,42 @@ def _launch(y0, u_half, weights, biases, dt, per_twin, T, du,
         err = fn(y0.data_ptr(), u_ptr, out.data_ptr(),
                  ctypes.addressof(w_ptrs), ctypes.addressof(b_ptrs),
                  ctypes.addressof(c_sizes), L, B, T, D, du, u_twin_stride,
-                 dt64, dt64 / 2, dt64 / 6, ROWS_PER_BLOCK, smem, stream)
+                 dt64, dt64 / 2, dt64 / 6, geom.twins_per_block,
+                 geom.threads, geom.time_chunk, geom.smem_bytes, stream)
     if err != 0:
         raise RuntimeError(
             f"fused_node_rollout: CUDA kernel launch failed with "
             f"cudaError_t {err} (B={B}, T={T}, sizes={tuple(sizes)}, "
-            f"smem={smem} B)")
+            f"{geom})")
     LAUNCHES += 1
     return out
+
+
+def _rollout_args(y0, u_half, weights, biases):
+    """Validate a rollout's inputs; returns ``(y0, u_half, per_twin, T,
+    du, sizes)`` with a zero-width per-twin drive folded to a shared one."""
+    _require_float("y0", y0)
+    _require_float("u_half", u_half)
+    for li, (w, b) in enumerate(zip(weights, biases)):
+        _require_float(f"weights[{li}]", w)
+        _require_float(f"biases[{li}]", b)
+    B, D = y0.shape
+    per_twin = u_half.ndim == 3
+    if per_twin and u_half.shape[0] != B:
+        raise ValueError(
+            f"per-twin drive batch {u_half.shape[0]} != y0 batch {B}")
+    if per_twin and u_half.shape[-1] == 0:
+        per_twin, u_half = False, u_half[0]
+    T = (u_half.shape[1 if per_twin else 0] - 1) // 2
+    du = u_half.shape[-1]
+    if B == 0:
+        raise ValueError("fused_node_rollout: empty fleet (y0 has 0 rows)")
+    sizes = [weights[0].shape[0]] + [w.shape[1] for w in weights]
+    if sizes[0] != du + D or sizes[-1] != D:
+        raise ValueError(
+            f"fused_node_rollout: MLP {tuple(sizes)} does not map "
+            f"[u (Du={du}), y (D={D})] to dy/dt (D={D})")
+    return y0, u_half, per_twin, T, du, sizes
 
 
 def fused_node_rollout(
@@ -177,34 +372,16 @@ def fused_node_rollout(
     (:func:`pad_fleet_to_tile` pads a fleet up to it).  Floating inputs
     are cast to float32; a non-floating input raises a ``ValueError``
     naming it.  CPU tensors take the plain version, CUDA tensors the
-    kernel; any other placement raises.
+    kernel at :func:`launch_geometry`; any other placement raises.
     """
     resolve_precision(precision)
-    _require_float("y0", y0)
-    _require_float("u_half", u_half)
-    for li, (w, b) in enumerate(zip(weights, biases)):
-        _require_float(f"weights[{li}]", w)
-        _require_float(f"biases[{li}]", b)
-    B, D = y0.shape
-    per_twin = u_half.ndim == 3
-    if per_twin and u_half.shape[0] != B:
-        raise ValueError(
-            f"per-twin drive batch {u_half.shape[0]} != y0 batch {B}")
-    if per_twin and u_half.shape[-1] == 0:
-        per_twin, u_half = False, u_half[0]
-    T = (u_half.shape[1 if per_twin else 0] - 1) // 2
-    du = u_half.shape[-1]
-    if B == 0:
-        raise ValueError("fused_node_rollout: empty fleet (y0 has 0 rows)")
+    y0, u_half, per_twin, T, du, sizes = _rollout_args(y0, u_half, weights,
+                                                       biases)
+    B = y0.shape[0]
     bt = min(batch_tile, B)
     if B % bt:
         raise ValueError(f"batch {B} not divisible by tile {bt}")
-    sizes = [weights[0].shape[0]] + [w.shape[1] for w in weights]
-    if sizes[0] != du + D or sizes[-1] != D:
-        raise ValueError(
-            f"fused_node_rollout: MLP {tuple(sizes)} does not map "
-            f"[u (Du={du}), y (D={D})] to dy/dt (D={D})")
-    smem = check_smem_fit(sizes)
+    geom = launch_geometry(B, sizes)
 
     L = len(weights)
     device, (y0, u_half, *wb) = placed_f32(
@@ -214,7 +391,26 @@ def fused_node_rollout(
         return ref.fused_node_rollout_ref(y0, u_half, weights, biases,
                                           float(dt))
     return _launch(y0, u_half, weights, biases, dt, per_twin, T, du, sizes,
-                   smem)
+                   geom)
+
+
+def fused_node_rollout_at(geom: Geometry, y0: torch.Tensor,
+                          u_half: torch.Tensor,
+                          weights: Sequence[torch.Tensor],
+                          biases: Sequence[torch.Tensor],
+                          dt: float) -> torch.Tensor:
+    """K1 on CUDA tensors at an explicit ``geom`` (from
+    :func:`launch_geometry`, e.g. with ``twins_per_block=1``): for checks
+    that a trajectory does not depend on the launch geometry."""
+    y0, u_half, per_twin, T, du, sizes = _rollout_args(y0, u_half, weights,
+                                                       biases)
+    L = len(weights)
+    device, (y0, u_half, *wb) = placed_f32(
+        "fused_node_rollout_at", [y0, u_half, *weights, *biases], L)
+    if device.type != "cuda":
+        raise ValueError("fused_node_rollout_at: the kernel runs on CUDA")
+    return _launch(y0, u_half, wb[:L], wb[L:], dt, per_twin, T, du, sizes,
+                   geom)
 
 
 def placed_f32(caller: str, tensors: Sequence[torch.Tensor],

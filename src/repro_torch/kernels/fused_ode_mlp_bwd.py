@@ -4,10 +4,13 @@
 :func:`fused_node_rollout_bwd` pulls the cotangent of a K1 trajectory
 back to ``(dL/dy0, dL/dW, dL/db)`` in one call of the hand-written Hopper
 kernel ``csrc/fused_ode_mlp_bwd.cu`` (K2): each block walks its twins'
-steps in reverse with the weights and its gradient accumulators resident
-in shared memory, reading every step's state straight from the forward
-trajectory, and a second small kernel sums the blocks' partial gradients
-in block order (no atomics, so a repeated call is bitwise identical).
+steps in reverse with the weights resident in shared memory and its
+threads' gradient tiles in registers, reading every step's state straight
+from the forward trajectory, and a second small kernel sums the blocks'
+partial gradients in block order (no atomics, so a repeated call is
+bitwise identical).  The launch geometry is K1's
+(:func:`repro_torch.kernels.fused_ode_mlp.launch_geometry` with
+``backward=True``).
 The kernel's design, and what bounds it, are in the source's header.
 
 :class:`FusedNodeRollout` is the differentiable rollout: its forward
@@ -29,58 +32,37 @@ import torch
 from repro_torch.kernels import fused_ode_mlp as _k1
 from repro_torch.kernels import ref
 
-#: Twins per CUDA block (as K1).  The weight-gradient summation order
-#: depends on it, so results agree with the plain version to a tolerance.
-ROWS_PER_BLOCK = _k1.ROWS_PER_BLOCK
-
 #: K2 calls in this process: one per launch of the reverse-sweep kernel
 #: (each is followed by one launch of its fixed-order reduction).
 LAUNCHES = 0
 
 
-def smem_bytes_bwd(sizes: Sequence[int], rows: int = ROWS_PER_BLOCK) -> int:
+def smem_bytes_bwd(sizes: Sequence[int], twins_per_block: int = 1) -> int:
     """Dynamic shared memory of one K2 block for MLP layer widths
-    ``sizes``: the weights (rows padded to an odd stride) and biases, the
-    gradient accumulators, and per twin the adjoint, the state, the stage
-    output, four stage cotangents, four stage inputs, the step's
-    4 * (L-1) hidden activations and two hidden-width backward buffers.
-    Raises a ``ValueError`` when that exceeds the 227 KB a Hopper block
-    may use."""
-    pairs = list(zip(sizes[:-1], sizes[1:]))
-    wpad = sum(a * (b | 1) + b for a, b in pairs)
-    params = sum(a * b + b for a, b in pairs)
-    hidden = max(sizes[1:-1], default=0)
-    hstride = (hidden | 1) if hidden else 0
-    L, D = len(pairs), sizes[-1]
-    per_twin = 7 * D + 4 * (sizes[0] | 1) + 4 * (L - 1) * hstride + 2 * hstride
-    need = 4 * (wpad + params + rows * per_twin)
-    if need > _k1.SMEM_LIMIT_BYTES:
-        raise ValueError(
-            f"fused backward kernel: MLP {tuple(sizes)} needs {need:,} B of "
-            f"shared memory per block ({rows} twins), over the 227 KB "
-            f"({_k1.SMEM_LIMIT_BYTES:,} B) per-block limit of sm_90; the "
-            f"weights and their gradient accumulators must stay resident, "
-            f"so this width needs a cluster or a split across blocks")
-    return need
+    ``sizes`` (:func:`repro_torch.kernels.fused_ode_mlp.smem_bytes_k2` at
+    the time chunk the geometry picks).  Raises a ``ValueError`` when it
+    exceeds the 227 KB a Hopper block may use."""
+    return _k1.launch_geometry(1, sizes, backward=True,
+                               twins_per_block=twins_per_block).smem_bytes
 
 
 def _launch(traj, u_half, g, weights, biases, dt, per_twin, T, du, sizes,
-            smem):
-    """Launch K2 on the current stream; returns (dy0, flat grads (P,))."""
+            geom):
+    """Launch K2 on the current stream at ``geom``; returns (dy0, flat
+    grads (P,))."""
     global LAUNCHES
     from repro_torch.kernels import _build
     fn = _build.load("fused_ode_mlp_bwd").k2_fused_node_rollout_bwd_f32
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] + [ctypes.c_float] * 3
-                   + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
+                   + [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     B, D = traj.shape[1], traj.shape[2]
     L = len(weights)
     P = sum(a * b + b for a, b in zip(sizes[:-1], sizes[1:]))
-    blocks = -(-B // ROWS_PER_BLOCK)
     dev = traj.device
     dy0 = torch.empty((B, D), dtype=torch.float32, device=dev)
-    partial = torch.empty((blocks, P), dtype=torch.float32, device=dev)
+    partial = torch.empty((geom.blocks, P), dtype=torch.float32, device=dev)
     grads = torch.empty((P,), dtype=torch.float32, device=dev)
     w_ptrs = (ctypes.c_void_p * L)(*[w.data_ptr() for w in weights])
     b_ptrs = (ctypes.c_void_p * L)(*[b.data_ptr() for b in biases])
@@ -94,12 +76,13 @@ def _launch(traj, u_half, g, weights, biases, dt, per_twin, T, du, sizes,
                  partial.data_ptr(), grads.data_ptr(),
                  ctypes.addressof(w_ptrs), ctypes.addressof(b_ptrs),
                  ctypes.addressof(c_sizes), L, B, T, D, du, u_twin_stride,
-                 dt64, dt64 / 2, dt64 / 6, ROWS_PER_BLOCK, smem, stream)
+                 dt64, dt64 / 2, dt64 / 6, geom.twins_per_block,
+                 geom.threads, geom.time_chunk, geom.smem_bytes, stream)
     if err != 0:
         raise RuntimeError(
             f"fused_node_rollout_bwd: CUDA kernel launch failed with "
             f"cudaError_t {err} (B={B}, T={T}, sizes={tuple(sizes)}, "
-            f"smem={smem} B)")
+            f"{geom})")
     LAUNCHES += 1
     return dy0, grads
 
@@ -134,6 +117,26 @@ def fused_node_rollout_bwd(
     the plain version, CUDA tensors the kernel; any other placement
     raises.
     """
+    traj, u_half, g, per_twin, T, du, sizes = _bwd_args(traj, u_half,
+                                                        weights, biases, g)
+    geom = _k1.launch_geometry(traj.shape[1], sizes, backward=True)
+
+    L = len(weights)
+    device, (traj, u_half, g, *wb) = _k1.placed_f32(
+        "fused_node_rollout_bwd", [traj, u_half, g, *weights, *biases], L)
+    weights, biases = wb[:L], wb[L:]
+    if device.type == "cpu":
+        return ref.fused_node_rollout_bwd_ref(traj, u_half, weights, biases,
+                                              g, float(dt))
+    dy0, flat = _launch(traj, u_half, g, weights, biases, dt, per_twin, T,
+                        du, sizes, geom)
+    dws, dbs = _split_grads(flat, sizes)
+    return dy0, dws, dbs
+
+
+def _bwd_args(traj, u_half, weights, biases, g):
+    """Validate a VJP's inputs; returns ``(traj, u_half, g, per_twin, T,
+    du, sizes)`` with a zero-width per-twin drive folded to a shared one."""
     for name, x in [("traj", traj), ("u_half", u_half), ("g", g),
                     *[(f"weights[{i}]", w) for i, w in enumerate(weights)],
                     *[(f"biases[{i}]", b) for i, b in enumerate(biases)]]:
@@ -160,17 +163,27 @@ def fused_node_rollout_bwd(
         raise ValueError(
             f"fused_node_rollout_bwd: MLP {tuple(sizes)} does not map "
             f"[u (Du={du}), y (D={D})] to dy/dt (D={D})")
-    smem = smem_bytes_bwd(sizes)
+    return traj, u_half, g, per_twin, T, du, sizes
 
+
+def fused_node_rollout_bwd_at(geom, traj: torch.Tensor,
+                              u_half: torch.Tensor,
+                              weights: Sequence[torch.Tensor],
+                              biases: Sequence[torch.Tensor],
+                              g: torch.Tensor, dt: float) -> tuple:
+    """K2 on CUDA tensors at an explicit ``geom`` (from
+    :func:`repro_torch.kernels.fused_ode_mlp.launch_geometry` with
+    ``backward=True``, e.g. ``twins_per_block=1``): for checks that dy0
+    does not depend on the launch geometry."""
+    traj, u_half, g, per_twin, T, du, sizes = _bwd_args(traj, u_half,
+                                                        weights, biases, g)
     L = len(weights)
     device, (traj, u_half, g, *wb) = _k1.placed_f32(
-        "fused_node_rollout_bwd", [traj, u_half, g, *weights, *biases], L)
-    weights, biases = wb[:L], wb[L:]
-    if device.type == "cpu":
-        return ref.fused_node_rollout_bwd_ref(traj, u_half, weights, biases,
-                                              g, float(dt))
-    dy0, flat = _launch(traj, u_half, g, weights, biases, dt, per_twin, T,
-                        du, sizes, smem)
+        "fused_node_rollout_bwd_at", [traj, u_half, g, *weights, *biases], L)
+    if device.type != "cuda":
+        raise ValueError("fused_node_rollout_bwd_at: the kernel runs on CUDA")
+    dy0, flat = _launch(traj, u_half, g, wb[:L], wb[L:], dt, per_twin, T,
+                        du, sizes, geom)
     dws, dbs = _split_grads(flat, sizes)
     return dy0, dws, dbs
 

@@ -230,9 +230,14 @@ def test_precision_policies():
 
 
 def test_shared_memory_fit_check():
-    # the Lorenz96 twin: ~24 KB per block, under the 48 KB static limit
+    # the Lorenz96 twin, one twin per block: the 128-word product table,
+    # w_l (rows padded to 4 floats) and b_l, then two stage inputs, two
+    # hidden buffers, the state and the RK4 sum, each padded to 4 floats;
+    # ~21 KB, under the 48 KB static limit
     need = tk.check_smem_fit((6, 64, 64, 6))
-    assert need == tk.smem_bytes((6, 64, 64, 6)) == 4 * (4998 + 8 * (18 + 7 + 130))
+    weights = 6 * 64 + 64 + 64 * 64 + 64 + 64 * 8 + 8
+    assert need == tk.smem_bytes((6, 64, 64, 6)) == 4 * (
+        128 + weights + (2 * 8 + 2 * 64 + 2 * 8))
     assert need < 48 * 1024
     # the scorecard's 6->512->512->6 (~1.07 MB of weights) cannot stay resident
     with pytest.raises(ValueError, match="227 KB"):
@@ -245,6 +250,81 @@ def test_shared_memory_fit_check():
     with pytest.raises(ValueError, match="227 KB"):
         tk.fused_node_rollout(torch.zeros(2, 6), torch.zeros(3, 0), ws, bs,
                               0.01)
+
+
+#: (B, sizes) of every K1 launch on the main paths: the Lorenz96 fleet
+#: request, HP training (9 segments of 50), Lorenz96 training at the CI
+#: and paper windows (14 and 29 segments of 60) and P4's 8 of 200.
+MAIN_PATH_SHAPES = [(1024, (6, 64, 64, 6)), (9, (2, 14, 14, 1)),
+                    (14, (6, 64, 64, 6)), (29, (6, 64, 64, 6)),
+                    (8, (6, 64, 64, 6))]
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("B,sizes", MAIN_PATH_SHAPES)
+def test_geometry_covers_the_card(B, sizes, backward):
+    geom = tk.launch_geometry(B, sizes, backward=backward)
+    assert geom.blocks >= min(B, tk.NUM_SMS)
+    assert geom.blocks * geom.twins_per_block >= B
+    assert geom.threads % 32 == 0 and 32 <= geom.threads <= tk.MAX_THREADS
+    # the block has a lane for every product and (K2) holds every
+    # gradient tile
+    pairs = list(zip(sizes[:-1], sizes[1:]))
+    lanes = [tk._matvec_lanes(a, b) for a, b in pairs]
+    if backward:
+        lanes += [tk._matvec_lanes(b, a) for a, b in pairs]
+        assert (tk.gradient_tiles(sizes)
+                <= tk.MAX_TILES_PER_THREAD * geom.threads)
+    assert max(lanes) <= geom.threads
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_fleet_geometry_lets_two_blocks_share_an_sm(backward):
+    geom = tk.launch_geometry(1024, (6, 64, 64, 6), backward=backward)
+    assert geom.twins_per_block == tk.FLEET_TWINS_PER_BLOCK
+    # an H100 SM holds 2048 threads and 228 KB of shared memory, 1 KB of
+    # it reserved per resident block
+    assert 2 * geom.threads <= 2048
+    assert 2 * (geom.smem_bytes + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("sizes", [(2, 14, 14, 1), (6, 64, 64, 6),
+                                   (6, 128, 128, 6)])
+def test_accepted_widths_fit_a_block(sizes, backward):
+    for B in (1, 9, 256, 1024):
+        geom = tk.launch_geometry(B, sizes, backward=backward)
+        assert geom.smem_bytes <= tk.SMEM_LIMIT_BYTES
+    # chip_smoke.py phase 3's wide case still needs the raised allowance
+    if sizes == (6, 128, 128, 6):
+        assert tk.launch_geometry(256, sizes).smem_bytes > 48 * 1024
+
+
+@pytest.mark.parametrize("sizes,backward", [
+    ((6, 226, 226, 6), False), ((2, 230, 230, 1), False),
+    ((6, 144, 144, 6), True), ((2, 149, 149, 1), True)])
+def test_widest_widths_stay_accepted(sizes, backward):
+    """The widest square MLPs the one-layout-per-8-twins kernels took
+    (their shared-memory formulas) still launch, at any fleet size."""
+    for B in (1, 1024):
+        assert (tk.launch_geometry(B, sizes, backward=backward).smem_bytes
+                <= tk.SMEM_LIMIT_BYTES)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_scorecard_width_is_still_refused(backward):
+    with pytest.raises(ValueError, match="227 KB"):
+        tk.launch_geometry(1024, (6, 512, 512, 6), backward=backward)
+
+
+def test_forced_geometry_and_sum_split():
+    one = tk.launch_geometry(1024, (6, 64, 64, 6), twins_per_block=1)
+    assert (one.twins_per_block, one.blocks) == (1, 1024)
+    with pytest.raises(ValueError, match="1 or 4"):
+        tk.launch_geometry(16, (6, 64, 64, 6), twins_per_block=2)
+    # the summation split depends on the sum's length alone
+    assert [tk.ksplit(n) for n in (1, 6, 14, 16, 32, 64, 128, 512)] == [
+        1, 1, 1, 2, 4, 8, 8, 8]
 
 
 def test_mlp_shape_must_map_state():

@@ -248,9 +248,31 @@ def test_smem_bytes_bwd_fits_training_widths_and_refuses_wider():
     l96 = tk2.smem_bytes_bwd((6, 64, 64, 6))
     wide = tk2.smem_bytes_bwd((6, 128, 128, 6))
     assert hp < l96 < wide <= tk2._k1.SMEM_LIMIT_BYTES
-    assert l96 > 48 * 1024          # needs the raised dynamic allowance
+    # the fleet's four-twin block needs the raised dynamic allowance
+    assert tk2.smem_bytes_bwd((6, 64, 64, 6), twins_per_block=4) > 48 * 1024
     with pytest.raises(ValueError, match="227 KB"):
         tk2.smem_bytes_bwd((6, 512, 512, 6))
+
+
+@pytest.mark.parametrize("B", [9, 14, 29, 8, 1024])
+def test_bwd_geometry_matches_forward_tiling(B):
+    """K2 tiles the fleet as K1 does, so its blocks cover the same twins,
+    and its threads hold every 4 x 4 gradient tile."""
+    sizes = (2, 14, 14, 1) if B == 9 else (6, 64, 64, 6)
+    fwd = tk2._k1.launch_geometry(B, sizes)
+    bwd = tk2._k1.launch_geometry(B, sizes, backward=True)
+    assert (bwd.twins_per_block, bwd.blocks) == (fwd.twins_per_block,
+                                                 fwd.blocks)
+    assert bwd.smem_bytes == tk2._k1.smem_bytes_k2(
+        sizes, bwd.twins_per_block, bwd.time_chunk)
+    assert (tk2._k1.gradient_tiles(sizes)
+            <= tk2._k1.MAX_TILES_PER_THREAD * bwd.threads)
+
+
+def test_gradient_tiles_cover_the_parameters():
+    for sizes in [(2, 14, 14, 1), (6, 64, 64, 6), (3, 2), (6, 128, 128, 6)]:
+        P = sum(a * b + b for a, b in zip(sizes[:-1], sizes[1:]))
+        assert 16 * tk2._k1.gradient_tiles(sizes) >= P
 
 
 def test_bwd_rejects_bad_shapes_and_devices():
