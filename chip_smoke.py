@@ -18,9 +18,12 @@ result line:
    ``cuobjdump --dump-sass``, the tensor-core ``HMMA`` instructions of
    each kernel function in it: the bf16 K8 (``k8_flash_mma_kernel``) and
    K7's GEMM (``k7_gemm_kernel``) must have some, the float32 K8
-   (``k8_flash_kernel``) none; and for K1 and K2 the ``FFMA`` and ``LDS``
+   (``k8_flash_kernel``) none; for K1, K2 and K4 the ``FFMA`` and ``LDS``
    instructions of each kernel function and of its densest phase between
-   two barriers, with their ratios;
+   two barriers, with their ratios; for K9 the ``MUFU`` (expf), ``FFMA``
+   and ``LDS`` per step of a chunk's unrolled steps and the ``LDGSTS``
+   (cp.async) of each function, which must have both; K4's read-noise
+   instantiations must have ``LDGSTS``;
 3. K1 vs its plain version on the card, at the serving path's shapes,
    in two drive modes, and at a width whose weights need more than 48 KB
    of shared memory; error relative to each trajectory's peak <= 1e-4;
@@ -59,10 +62,18 @@ result line:
    reads, the same with uint8 storage, read noise 0.02, 1% stuck cells
    and drift, the HP shape with per-twin drives and read noise, and the
    HP shape at P1's settings (shared drive, programming and read noise)
-   for one twin and for 100 (<= 1e-4 of the peak); two calls bitwise
-   equal; float64 conductances bitwise the float32 ones; the noisy
-   rollout split at step 120 and resumed with ``step_offset=120``
-   bitwise equal to the unsplit one;
+   for one twin and for 100, P1's quantisation-only rollout, and at
+   run-time widths the noisy faulty uint8 case at 6->128->128->6 and
+   6->64->64->64->6 and a clean float case with drift at 6->96->96->6
+   (<= 1e-4 of the peak); two calls bitwise equal; each trajectory bitwise
+   identical at one twin per block and at four; float64 conductances
+   bitwise the float32 ones; the noisy rollout split at step 120 and
+   resumed with ``step_offset=120`` bitwise equal to the unsplit one, and
+   so is the same rollout run in time chunks of 64 steps; the read-noise
+   pre-pass bitwise equal to its plain version
+   (``ref.fused_analogue_noisy_pairs_ref``) at the fleet's uint8 stuck
+   arrays from step 0 and from a step whose salts pass 2^31, and at P1's
+   float arrays;
 11. K7 (crossbar VMM) against its plain version at M=1024, K=513, N=512
    and at the ragged (100, 70, 50): float and uint8 storage, clean reads,
    read noise, stuck cells (<= 1e-4 of the peak), each case repeated
@@ -70,20 +81,24 @@ result line:
    (``crossbar_vmm.effective_g``) bitwise equal to
    ``ref.crossbar_effective_g``; float64 conductances bitwise the float32
    ones;
-12. the analogue paths, each with the K1, K3, K4 and K7 counts zeroed just
-   before and read just after: P1, both analogue gates of
-   ``tests/test_twins.py`` for the HP twin of phase 7 on
-   ``analogue_fused_cuda`` (one K4 launch per rollout) and on
-   ``analogue``; P2, the Lorenz96 fleet served by ``serve_fleet`` on
-   ``analogue_fused_cuda``, 2 batches of 1024 x 200 (exactly 2 K4
-   launches; the clean unquantised spec within 1e-4 of ``fused_cuda``;
-   with the noisy faulty spec two serves bitwise equal); P3,
+12. the analogue paths, each with the K1, K3, K4 (rollout and read-noise
+   pre-pass) and K7 counts zeroed just before and read just after: P1,
+   both analogue gates of ``tests/test_twins.py`` for the HP twin of
+   phase 7 on ``analogue_fused_cuda`` (one K4 launch per rollout, one
+   pre-pass for the noisy one) and on ``analogue``; P2, the Lorenz96
+   fleet served by ``serve_fleet`` on ``analogue_fused_cuda``, 2 batches
+   of 1024 x 200 (exactly 2 K4 launches and no pre-pass; the clean
+   unquantised spec within 1e-4 of ``fused_cuda``; with the noisy faulty
+   spec two serves bitwise equal, one pre-pass per batch); P3,
    ``AnalogueBackend`` with uint8 storage at the scorecard width
    6->512->512->6 rolling out 1024 twins x 50 steps (exactly 200 K7
    GEMM and 200 read-pass launches, within 1e-4 of the same path on K7's
    plain version);
 13. K3, K4 and K7 timing with CUDA events: kernel, plain version, the
    card's bound, and for K7 one ``torch.matmul`` on the pre-combined pair;
+   K4 at the fleet request clean and noisy faulty and at P1's HP shapes
+   (one twin clean and noisy, 100 twins noisy), a noisy rollout's
+   pre-pass also alone;
 14. K5 (soft-DTW forward with R, and hard DTW) and K6 (the E-matrix
    backward) against their plain versions at seven (B, n, m) shapes, the
    two Lorenz96 training shapes (29, 61, 61) and (8, 201, 201) among
@@ -112,7 +127,8 @@ result line:
    element within 2^-8 |want| + 2e-5 of the peak of the plain version's
    float32 output before its cast), on the model's (B, S, H, d) layout; K9 at JAX's three test shapes and
    (B, S, DI, N) = (2, 4096, 8192, 16) (<= 1e-5 for y and the final
-   state); repeats bitwise;
+   state); repeats bitwise; whether the final state is bitwise the plain
+   version's (printed, not a gate);
 18. P5, Jamba v0.1 served at full width with its depth cut from 32
    layers to 8 (one period: 7 Mamba mixers, 1 GQA, 4 MoE): in float32
    at batch 1, ``make_prefill_step`` on (1, 4097) tokens through the
@@ -125,8 +141,9 @@ result line:
    of ``init_cache``'s shapes) and ``greedy_generate`` of 16 tokens from
    a 16-token prompt (no K8 or K9 launch, finite logits);
 19. K8 and K9 timing at P5's shapes with CUDA events (kernel, plain
-   version, the card's bound, and for K8
-   ``scaled_dot_product_attention`` and the achieved TFLOP/s), P5's prefill tokens/s and decode
+   version, the card's bound, for K8 ``scaled_dot_product_attention``
+   and the achieved TFLOP/s, for K9 the three bounds: bytes, FP32 operations and expf at the special-function
+   rate), P5's prefill tokens/s and decode
    ms per token, and a ``torch.profiler`` trace of one bf16 prefill (K8
    and K9's share of device time, the top five kernels, idle share).
 
@@ -186,7 +203,10 @@ SEED = 0
 
 # The H100 SXM's published peaks (NVIDIA data sheet, 700 W): FP32 without
 # tensor cores, and device-memory bandwidth.  The bound uses them whatever
-# the power limit printed beside it.
+# the power limit printed beside it.  The FP32 peak is its 132 SMs x 128
+# FP32 lanes x 2 operations at the 1.98 GHz boost clock.
+SM_COUNT = 132
+SM_CLOCK = 1.98e9
 FP32_PEAK = 67.0e12
 HBM_BW = 3.35e12
 #: Its dense BF16 tensor-core peak (same data sheet): the bound of K8's
@@ -203,7 +223,7 @@ OPS_PER_NORMAL = 31
 OPS_PER_NOISY_PAIR = 2 * OPS_PER_NORMAL + 7
 NORMAL_ATOL = 1e-6  # K3 normals, kernel vs plain (precise logf/cosf)
 #: Spin of ``torch.cuda._sleep`` ahead of a short kernel's timed calls
-#: (~11 ms at the H100's 1.755 GHz boost clock; longer than the host
+#: (~10 ms at the H100's 1.98 GHz boost clock; longer than the host
 #: takes to enqueue 50 wrapper calls).
 QUEUE_AHEAD_CYCLES = 20_000_000
 
@@ -332,6 +352,33 @@ def k4_plain(staged, y0, u, dt, read_noise, noise_seed, step_offset=0):
         noise_seed=noise_seed, step_offset=step_offset)
 
 
+def k4_at(geom, staged, y0, u, dt, read_noise, noise_seed):
+    """K4 at a forced launch geometry on the staged arrays."""
+    return fused_analogue.fused_analogue_rollout_at(
+        geom, staged["gps"], staged["gms"], staged["scales"], y0, u, dt,
+        g_step=staged["g_step"], g_min=staged["g_min"], g_max=staged["g_max"],
+        v_clamp=staged["v_clamp"], read_noise=read_noise,
+        noise_seed=noise_seed, fault=staged.get("fault"))
+
+
+def noise_pass_work(staged, T):
+    """(FLOP, bytes) of K4's read-noise pre-pass over T steps: a noisy pair
+    element per array cell and evaluation, the arrays read once and the
+    pairs written once in the kernels' padded layout."""
+    cells = sum(g.numel() for g in staged["gps"])
+    sizes = [staged["gps"][0].shape[0] - 1] + [g.shape[1]
+                                               for g in staged["gps"]]
+    written = 4 * 4 * T * fused_analogue.noise_eval_floats(sizes)
+    return (4 * T * cells * OPS_PER_NOISY_PAIR,
+            tensor_bytes(*staged["gps"], *staged["gms"]) + written)
+
+
+def noise_pass_kwargs(staged, read_noise):
+    return dict(read_noise=read_noise, noise_seed=SEED,
+                g_step=staged["g_step"], g_min=staged["g_min"],
+                g_max=staged["g_max"], fault=fault_args(staged))
+
+
 #: Scalar operations of one soft-DTW cell, expf and logf counted as one
 #: operation each at the FP32 rate: K5, two minima, three differences,
 #: three scalings, three expf, two sums, logf, a product and two
@@ -368,17 +415,20 @@ def real_cells(r):
 
 
 #: SASS opcodes counted per kernel function by :func:`sass_counts`.
-SASS_OPCODES = ("HMMA", "FFMA", "LDS")
+SASS_OPCODES = ("HMMA", "FFMA", "LDS", "MUFU", "LDGSTS")
+#: Opcodes counted in a function's densest barrier-to-barrier phase.
+DENSE_OPCODES = ("FFMA", "LDS", "MUFU")
 
 
 def sass_counts(lib: Path) -> dict:
     """{kernel function (mangled name): {opcode: instructions}} for the
     opcodes of ``SASS_OPCODES`` (tensor-core products, float32 FMAs,
-    shared-memory loads of any width) in the SASS of one built kernel
-    library, read with ``cuobjdump --dump-sass``; ``"dense"`` holds the
-    FFMA and LDS of the stretch between two block barriers with the most
-    FFMAs (in K1 the hidden layer's product, in K2 the gradient-tile
-    phase)."""
+    shared-memory loads of any width, special-function instructions,
+    cp.async copies) in the SASS of one built kernel library, read with
+    ``cuobjdump --dump-sass``; ``"dense"`` holds the ``DENSE_OPCODES`` of
+    the stretch between two block barriers with the most FFMAs (in K1 and
+    K4 the hidden layer's product, in K2 the gradient-tile phase, in K9 a
+    chunk's 32 steps)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "--dump-sass", str(lib)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
@@ -387,7 +437,7 @@ def sass_counts(lib: Path) -> dict:
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
             counts[fn] = dict.fromkeys(SASS_OPCODES, 0)
-            counts[fn]["dense"] = seg = {"FFMA": 0, "LDS": 0}
+            counts[fn]["dense"] = seg = dict.fromkeys(DENSE_OPCODES, 0)
             continue
         m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
                       line)
@@ -399,7 +449,7 @@ def sass_counts(lib: Path) -> dict:
         if op == "BAR":
             if seg["FFMA"] > counts[fn]["dense"]["FFMA"]:
                 counts[fn]["dense"] = seg
-            seg = {"FFMA": 0, "LDS": 0}
+            seg = dict.fromkeys(DENSE_OPCODES, 0)
         elif op in seg:
             seg[op] += 1
     return counts
@@ -408,7 +458,7 @@ def sass_counts(lib: Path) -> dict:
 def cuda_ms(fn, reps: int, warmup: int = 2, queue_ahead: bool = False
             ) -> float:
     """Mean ms per call between CUDA events around ``reps`` calls.  With
-    ``queue_ahead`` the card first runs a ~11 ms spin kernel, so the host
+    ``queue_ahead`` the card first runs a ~10 ms spin kernel, so the host
     has enqueued the calls before the start event fires: the events then
     time the launches back to back, without the Python wrapper's cost
     (which bounds a kernel of tens of microseconds otherwise)."""
@@ -457,9 +507,15 @@ UNEMBED_TOL = 1e-4
 #: Float32 operations of one causal (q, kv) pair's softmax besides the
 #: products: scale, mask, max, subtract, exp, sum.
 K8_SOFTMAX_OPS = 6
-#: Float32 operations of one (step, channel, state) of the scan: dt*A, exp,
-#: (dt x)*B, the decay product, the sum, h*C and its sum.
-K9_OPS_PER_STATE = 7
+#: Float32 operations of one (step, channel, state) of the scan besides its
+#: exp: dt*A, (dt x)*B, the decay product, the sum, h*C and its sum.
+K9_OPS_PER_STATE = 6
+#: The H100 SXM's special-function rate (16 results a clock per SM, at the
+#: clock of FP32_PEAK): the bound of the scan's expf, one each.
+SFU_RATE = 16 * SM_COUNT * SM_CLOCK
+#: Steps of one K9 chunk (K9_TC in ``csrc/ssm_scan.cu``): its densest SASS
+#: phase holds this many unrolled steps.
+K9_CHUNK = 32
 
 
 def k8_inputs(gen, b, h, hkv, s, d, dtype, dev):
@@ -509,17 +565,24 @@ def k7_work(M, K, N, noisy, moved):
 
 
 def k9_work(bsz, s, di, n):
-    """(bound_ms, bound_by, GFLOP, MB) of one K9 call: dt, x, B, C and A read
-    and y and the final state written once, float32."""
+    """(bound_ms, bound_by, GFLOP, MB, times) of one K9 call: dt, x, B, C
+    and A read and y and the final state written once, float32; the FP32
+    operations at the FP32 peak; each state's expf at the SFU rate.
+    ``times`` holds the three (bytes, FP32, SFU) in ms; bound_by is
+    "bytes", or "operations" for either of the other two."""
     flops = bsz * s * di * (K9_OPS_PER_STATE * n + 1)
     moved = 4 * (3 * bsz * s * di + 2 * bsz * s * n + di * n + bsz * di * n)
-    b_ms, by = bound(flops, moved)
-    return b_ms, by, flops / 1e9, moved / 1e6
+    times = {"bytes": moved / HBM_BW * 1e3, "fp32": flops / FP32_PEAK * 1e3,
+             "sfu": bsz * s * di * n / SFU_RATE * 1e3}
+    by = max(times, key=times.get)
+    return (times[by], "bytes" if by == "bytes" else "operations",
+            flops / 1e9, moved / 1e6, times)
 
 
-def lm_slice(dev, smi, hmma):
+def lm_slice(dev, smi, hmma, sass9):
     """Phases 17-19; returns the K8 and K9 entries of the kernel record
-    (``hmma``: K8's SASS HMMA counts by kernel function, phase 2)."""
+    (``hmma``: K8's SASS HMMA counts by kernel function, ``sass9`` K9's
+    SASS counts, phase 2)."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     # -- 17. K8 and K9 vs their plain versions -----------------------------------
@@ -566,9 +629,15 @@ def lm_slice(dev, smi, hmma):
         ha, hrel = rel_err(hf, hr)
         k9_errs[bsz, s, di, n] = (max(ya, ha), max(yrel, hrel))
         same = torch.equal(y, y2) and torch.equal(hf, h2)
+        # an observation, not a gate: each state is the plain version's
+        # arithmetic, so the final state matches it bit for bit where the
+        # card's exp is expf
+        k9_errs["h_bitwise", bsz, s, di, n] = torch.equal(hf, hr)
         print(f"K9 vs plain (B, S, DI, N) = {(bsz, s, di, n)}: y max abs err "
               f"{ya:.3e}, of peak {yrel:.3e}; h_final {ha:.3e}, of peak "
-              f"{hrel:.3e} (limit {K9_TOL:g}); repeat bitwise {same}")
+              f"{hrel:.3e} (limit {K9_TOL:g}); repeat bitwise {same}; "
+              f"h_final bitwise the plain version's "
+              f"{k9_errs['h_bitwise', bsz, s, di, n]}")
         check(max(yrel, hrel) <= K9_TOL, f"K9 {(bsz, s, di, n)} disagrees "
                                          f"with its plain version")
         check(same, f"K9 {(bsz, s, di, n)}: repeats differ")
@@ -768,11 +837,12 @@ def lm_slice(dev, smi, hmma):
     args = k9_inputs(gen, bsz, s, di, n, dev)
     k9_ms = cuda_ms(lambda: ssm_scan.ssm_scan(*args), reps=5)
     k9_plain = cuda_ms(lambda: ref.ssm_scan_ref(*args), reps=1, warmup=1)
-    k9_bound, k9_by, k9_gf, k9_mb = k9_work(bsz, s, di, n)
+    k9_bound, k9_by, k9_gf, k9_mb, k9_t = k9_work(bsz, s, di, n)
     print(f"[{smi}] K9 ssm_scan (B, S, DI, N) = {(bsz, s, di, n)}: kernel_ms "
           f"{k9_ms:.4f}, plain_ms {k9_plain:.4f}, bound_ms {k9_bound:.4f} "
-          f"({k9_by}: {k9_gf:.2f} GFLOP, {k9_mb:.1f} MB), library_ms n/a (no "
-          f"single PyTorch call computes the scan)")
+          f"({k9_by}: bytes {k9_t['bytes']:.4f}, FP32 {k9_t['fp32']:.4f}, expf at the "
+          f"SFU rate {k9_t['sfu']:.4f}; {k9_gf:.2f} GFLOP, {k9_mb:.1f} MB), "
+          f"library_ms n/a (no single PyTorch call computes the scan)")
     del args
 
     batch = {"tokens": pipe.batch_at(1)["tokens"].to(dev)}
@@ -845,11 +915,15 @@ def lm_slice(dev, smi, hmma):
         "shape": "B=2 S=4096 DI=8192 N=16 (Jamba prefill)",
         "max_abs_err": k9_err[0],
         "max_rel_err_of_peak": k9_err[1],
+        "h_final_bitwise_plain": k9_errs[("h_bitwise", *K9_SHAPES[-1])],
         "ms": k9_ms,
         "plain_ms": k9_plain,
         "bound_ms": k9_bound,
         "bound_by": k9_by,
+        "bound_ms_by": k9_t,
         "library_ms": None,
+        "sass": {fn: {k: c[k] for k in ("MUFU", "FFMA", "LDGSTS", "dense")}
+                 for fn, c in sass9.items()},
     }]
 
 
@@ -891,15 +965,32 @@ def main() -> int:
     for src, counts in hmma.items():
         print(f"SASS HMMA {src}: " + "; ".join(
             f"{fn} {n}" for fn, n in counts.items()))
-    # K1 and K2: float32 FMAs per shared-memory load, in the whole function
-    # and in its densest barrier-to-barrier phase
-    for src in ("fused_ode_mlp", "fused_ode_mlp_bwd"):
+    # K1, K2 and K4: float32 FMAs per shared-memory load, in the whole
+    # function and in its densest barrier-to-barrier phase
+    for src in ("fused_ode_mlp", "fused_ode_mlp_bwd", "fused_analogue"):
         print(f"SASS FFMA/LDS {src}: " + "; ".join(
             f"{fn} FFMA {c['FFMA']} LDS {c['LDS']} ratio "
             f"{c['FFMA'] / max(c['LDS'], 1):.2f}, densest phase FFMA "
             f"{c['dense']['FFMA']} LDS {c['dense']['LDS']} ratio "
             f"{c['dense']['FFMA'] / max(c['dense']['LDS'], 1):.2f}"
             for fn, c in sass[src].items()))
+    # K9: per step of a chunk's 32 unrolled steps (its densest phase), the
+    # special-function (expf), FFMA and shared-memory loads of one lane; the
+    # cp.async copies of the staging (LDGSTS) in the whole function
+    for fn, c in sass["ssm_scan"].items():
+        d = c["dense"]
+        print(f"SASS ssm_scan {fn}: per step MUFU {d['MUFU'] / K9_CHUNK:.2f}, "
+              f"FFMA {d['FFMA'] / K9_CHUNK:.2f}, LDS {d['LDS'] / K9_CHUNK:.2f}; "
+              f"whole function MUFU {c['MUFU']} FFMA {c['FFMA']} LDGSTS "
+              f"{c['LDGSTS']}")
+        check(d["MUFU"] > 0 and c["LDGSTS"] > 0,
+              f"SASS: {fn} has no expf in its steps or no cp.async staging")
+    # K4's read-noise instantiations stream the noisy pairs by cp.async
+    k4_copies = [c["LDGSTS"] for fn, c in sass["fused_analogue"].items()
+                 if "k4_rollout_kernel" in fn]
+    check(sum(n > 0 for n in k4_copies) * 2 == len(k4_copies),
+          f"SASS: K4 rollout LDGSTS counts {k4_copies}; want half of them "
+          f"(the read-noise instantiations) > 0")
     for src, kernel, tensor_cores in (
             ("flash_attention", "k8_flash_mma_kernel", True),
             ("flash_attention", "k8_flash_kernel", False),
@@ -1278,6 +1369,13 @@ def main() -> int:
     hp_params = hp_twin.init(torch.Generator().manual_seed(SEED), device=dev)
     for p in hp_params:
         p["b"] = (0.1 * torch.randn(p["b"].shape, generator=gen)).to(dev)
+    wide4 = make_autonomous_twin(6, hidden=128)
+    wide4_params = wide4.init(torch.Generator().manual_seed(SEED), device=dev)
+    deep4 = make_autonomous_twin(6, hidden=64, n_hidden_layers=3)
+    deep4_params = deep4.init(torch.Generator().manual_seed(SEED), device=dev)
+    wide96 = make_autonomous_twin(6, hidden=96)
+    wide96_params = wide96.init(torch.Generator().manual_seed(SEED),
+                                device=dev)
     p1_noisy = AnalogueSpec(prog_noise=0.0436, read_noise=0.02)
     noisy_faulty = dict(
         spec=AnalogueSpec(prog_noise=0.0, read_noise=0.02), storage="uint8",
@@ -1293,13 +1391,31 @@ def main() -> int:
                                           0.0025),
         "hp_per_twin_noise": (hp_twin, hp_params, dict(spec=AnalogueSpec(
             read_noise=0.02)), 64, 500, "per_twin", 1e-3),
-        # P1's settings: one twin (a partial 8-twin block), the shared
-        # drive (Du = 1, twin stride 0), float storage, programming and
-        # read noise; then a fleet that is not a multiple of 8
+        # P1's settings: one twin, the shared drive (Du = 1, twin stride
+        # 0), float storage, programming and read noise; the same twin
+        # quantised without noise (P1's first rollout); then a fleet that
+        # is not a multiple of 4
         "hp_p1_B1_shared_noise": (hp_twin, hp_params, dict(spec=p1_noisy),
                                   1, 500, "shared", 1e-3),
+        "hp_p1_B1_shared_clean": (hp_twin, hp_params, dict(
+            spec=AnalogueSpec(prog_noise=0.0)), 1, 500, "shared", 1e-3),
         "hp_p1_B100_shared_noise": (hp_twin, hp_params, dict(spec=p1_noisy),
                                     100, 500, "shared", 1e-3),
+        # run-time widths (the 6->128 layer split by twin, 128->128 not) at
+        # one twin per block and, forced below, at four
+        "wide_h128_uint8_noise_stuck_drift": (wide4, wide4_params,
+                                              noisy_faulty, 256, 50, "none",
+                                              0.0025),
+        # run-time widths with hidden-to-hidden layers, clean and noisy, at
+        # one and four twins per block: the configuration in which a
+        # change to the layout of K1's last-layer epilogue once put K1 off
+        # (ROADMAP queue 3); K4's epilogues sit on the same header
+        "deep_h64x3_uint8_noise_stuck_drift": (deep4, deep4_params,
+                                               noisy_faulty, 256, 50, "none",
+                                               0.0025),
+        "wide_h96_float_drift": (wide96, wide96_params, dict(
+            spec=AnalogueSpec(), faults=make_fault_model("drift", seed=SEED)),
+            256, 50, "none", 0.0025),
     }
     k4_errs, k4_inputs = {}, {}
     for case, (tw, prm, kw, B, T, mode, dt) in k4_cases.items():
@@ -1319,12 +1435,21 @@ def main() -> int:
         a, r = rel_err(got, want)
         k4_errs[case] = (a, r)
         k4_inputs[case] = (staged, y0, u, dt, sigma, T)
-        need = fused_analogue.smem_bytes_analogue(tw.field.sizes, sigma > 0)
-        print(f"K4 vs plain [{case}] B={B} T={T} sizes={tw.field.sizes} "
-              f"smem={need} B: max abs err {a:.3e}, of peak {r:.3e} (limit "
-              f"{TOL:g}); repeat bitwise identical: {torch.equal(got, again)}")
+        chosen = fused_analogue.launch_geometry(B, tw.field.sizes, sigma > 0)
+        print(f"K4 vs plain [{case}] B={B} T={T} sizes={tw.field.sizes} at "
+              f"{geometry_str(chosen)}: max abs err {a:.3e}, of peak {r:.3e} "
+              f"(limit {TOL:g}); repeat bitwise identical: "
+              f"{torch.equal(got, again)}")
         check(r <= TOL, f"K4 {case}: kernel disagrees with its plain version")
         check(torch.equal(got, again), f"K4 {case}: two calls differ")
+        # the same twins at the other tile: a twin's trajectory does not
+        # depend on the launch geometry
+        forced = fused_analogue.launch_geometry(
+            B, tw.field.sizes, sigma > 0, twins_per_block=other_tile(chosen))
+        same = torch.equal(k4_at(forced, staged, y0, u, dt, sigma, SEED), got)
+        print(f"  K4 [{case}] at {geometry_str(forced)}: bitwise identical: "
+              f"{same}")
+        check(same, f"K4 {case}: the trajectory depends on the geometry")
     # float64 conductances are handed to the kernel as float32
     staged, y0, u, dt, sigma, T = k4_inputs["hp_p1_B1_shared_noise"]
     f64 = dict(staged, gps=[g.double() for g in staged["gps"]],
@@ -1350,6 +1475,49 @@ def main() -> int:
     print(f"K4 split at step {k} and resumed with step_offset={k}: bitwise "
           f"equal to the unsplit rollout: {torch.equal(resumed, full)}")
     check(torch.equal(resumed, full), "K4 split-and-resume differs")
+    # the same rollout in time chunks of 64 steps (pre-pass + rollout each)
+    sizes4 = [staged["gps"][0].shape[0] - 1] + [g.shape[1]
+                                                for g in staged["gps"]]
+    chunk_bytes = fused_analogue.NOISE_CHUNK_BYTES
+    fused_analogue.NOISE_CHUNK_BYTES = \
+        16 * fused_analogue.noise_eval_floats(sizes4) * 64
+    try:
+        before = (fused_analogue.LAUNCHES, fused_analogue.NOISE_LAUNCHES)
+        chunked = ops.fused_analogue_rollout(staged, y0, u, dt,
+                                             read_noise=sigma, noise_seed=SEED)
+        chunk_launches = (fused_analogue.LAUNCHES - before[0],
+                          fused_analogue.NOISE_LAUNCHES - before[1])
+    finally:
+        fused_analogue.NOISE_CHUNK_BYTES = chunk_bytes
+    torch.cuda.synchronize()
+    print(f"K4 in time chunks of 64 steps ({chunk_launches[0]} rollout and "
+          f"{chunk_launches[1]} pre-pass launches): bitwise equal to one "
+          f"chunk: {torch.equal(chunked, full)}")
+    check(torch.equal(chunked, full) and chunk_launches == (4, 4),
+          "K4 chunked rollout differs")
+    # the read-noise pre-pass against its plain version, bitwise: the fleet's
+    # uint8 stuck-cell arrays over the whole request, from step 0 and from a
+    # step whose salts pass 2^31; P1's float arrays over 20 steps
+    pre_cases = [("fleet_uint8_noise_stuck_drift", 0, None),
+                 ("fleet_uint8_noise_stuck_drift", 90_000_000, None),
+                 ("hp_p1_B100_shared_noise", 7, 20)]
+    np_err = 0.0
+    for case, offset, steps in pre_cases:
+        staged, y0, u, dt, sigma, T = k4_inputs[case]
+        steps = steps or T
+        kw = noise_pass_kwargs(staged, sigma)
+        got = fused_analogue.noisy_pairs(staged["gps"], staged["gms"], steps,
+                                         step_offset=offset, **kw)
+        want = ref.fused_analogue_noisy_pairs_ref(
+            staged["gps"], staged["gms"], steps, step_offset=offset, **kw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a_, b_) for a_, b_ in zip(got, want))
+        np_err = max(np_err, *(float((a_ - b_).abs().max())
+                               for a_, b_ in zip(got, want)))
+        print(f"K4 read-noise pre-pass vs plain [{case}] {steps} steps from "
+              f"step {offset}: bitwise equal {same}")
+        check(same, f"K4 pre-pass {case} at step {offset} differs from its "
+                    f"plain version")
 
     # -- 11. K7 vs plain version ---------------------------------------------------
     spec = AnalogueSpec()
@@ -1426,6 +1594,7 @@ def main() -> int:
     # -- 12. the analogue paths ----------------------------------------------------
     counters = {"K1": (fused_ode_mlp, "LAUNCHES"), "K3": (noise, "LAUNCHES"),
                 "K4": (fused_analogue, "LAUNCHES"),
+                "K4_noise": (fused_analogue, "NOISE_LAUNCHES"),
                 "K7": (crossbar_vmm, "LAUNCHES"),
                 "K7_read": (crossbar_vmm, "READ_LAUNCHES")}
 
@@ -1469,10 +1638,10 @@ def main() -> int:
                     quant = out[:, 0]
                 else:
                     noisy = out[:, 0]
-        counts = read_counts(
-            f"P1 {substrate}",
-            {"K4": 2 if substrate == "analogue_fused_cuda" else 0, "K1": 0,
-             "K7": 0})
+        fused = substrate == "analogue_fused_cuda"
+        counts = read_counts(f"P1 {substrate}", {
+            "K4": 2 if fused else 0, "K4_noise": 1 if fused else 0, "K1": 0,
+            "K7": 0})
         path_counts[f"P1_{substrate}"] = counts
         q_mre = float(mre(quant, m["pred"]))
         n_mre = float(mre(noisy, m["true"]))
@@ -1519,7 +1688,7 @@ def main() -> int:
         outs, secs = serve(clean_be, ckpt)
         path_counts["P2_serve_clean"] = read_counts(
             "P2 serve_fleet analogue_fused_cuda (clean)",
-            {"K4": n_batches, "K1": 0, "K7": 0})
+            {"K4": n_batches, "K4_noise": 0, "K1": 0, "K7": 0})
         digital, _ = serve(FusedCudaBackend(batch_tile=cfg.batch_tile), ckpt)
         for i, (o, d, sec) in enumerate(zip(outs, digital, secs)):
             check(tuple(o.shape) == (cfg.fleet_size, cfg.horizon + 1,
@@ -1536,8 +1705,9 @@ def main() -> int:
         serves = [serve(faulty_be, ckpt) for _ in range(2)]
         path_counts["P2_serve_noisy_faulty_x2"] = read_counts(
             "P2 serve_fleet analogue_fused_cuda (uint8, read noise 0.02, 1% "
-            "stuck, drift), served twice", {"K4": 2 * n_batches, "K1": 0,
-                                            "K7": 0})
+            "stuck, drift), served twice", {"K4": 2 * n_batches,
+                                            "K4_noise": 2 * n_batches,
+                                            "K1": 0, "K7": 0})
         check(path_counts["P2_serve_noisy_faulty_x2"]["K3"] > 0,
               "P2: programming the stuck cells launched no K3 fill")
         for i, (a_, b_) in enumerate(zip(serves[0][0], serves[1][0])):
@@ -1563,7 +1733,7 @@ def main() -> int:
         p3 = wide_fleet.rollout_batch(wide_params, y0_wide, ts_wide)
     path_counts["P3_analogue_scorecard_width"] = read_counts(
         "P3 AnalogueBackend(uint8) 6->512->512->6, 1024 twins x 50 steps",
-        {"K7": 200, "K7_read": 200, "K4": 0, "K1": 0})
+        {"K7": 200, "K7_read": 200, "K4": 0, "K4_noise": 0, "K1": 0})
     p3_sec = time.perf_counter() - t_p
     real_k7 = crossbar_vmm.crossbar_matmul
     crossbar_vmm.crossbar_matmul = (
@@ -1583,21 +1753,56 @@ def main() -> int:
     check(p3_err[1] <= TOL, "P3 disagrees with its plain path")
 
     # -- 13. K3, K4 and K7 timing -----------------------------------------------------
+    # K4 at the fleet request (P2) and at P1's HP shapes; a noisy rollout is
+    # a pre-pass and a rollout launch, both inside kernel_ms, the pre-pass
+    # also alone
     k4_times = {}
-    for case in ("fleet_float_clean", "fleet_uint8_noise_stuck_drift"):
+    for case in ("fleet_float_clean", "fleet_uint8_noise_stuck_drift",
+                 "hp_p1_B1_shared_clean", "hp_p1_B1_shared_noise",
+                 "hp_p1_B100_shared_noise"):
         staged, y0, u, dt, sigma, T = k4_inputs[case]
+        B = y0.shape[0]
         k_ms = cuda_ms(lambda: ops.fused_analogue_rollout(
-            staged, y0, u, dt, read_noise=sigma, noise_seed=SEED), reps=10)
+            staged, y0, u, dt, batch_tile=B, read_noise=sigma,
+            noise_seed=SEED), reps=10)
         p_ms = cuda_ms(lambda: k4_plain(staged, y0, u, dt, sigma, SEED),
                        reps=2, warmup=1)
         flops, moved = k4_work(staged, y0, u, T, sigma > 0)
         b_ms, b_by = bound(flops, moved)
-        k4_times[case] = (k_ms, p_ms, b_ms, b_by)
-        print(f"[{smi}] K4 fused_analogue_rollout [{case}] B=1024 T={T} "
-              f"sizes=(6, 64, 64, 6): kernel_ms {k_ms:.4f}, plain_ms "
-              f"{p_ms:.4f}, bound_ms {b_ms:.4f} ({b_by}: {flops / 1e9:.3f} "
-              f"GFLOP, {moved / 1e6:.3f} MB), launches per request 1, "
-              f"library_ms n/a (no single PyTorch call computes the rollout)")
+        row = dict(B=B, T=T, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                   bound_by=b_by)
+        sizes4 = [staged["gps"][0].shape[0] - 1] + [g.shape[1]
+                                                    for g in staged["gps"]]
+        geom = fused_analogue.launch_geometry(B, sizes4, sigma > 0)
+        extra = ""
+        if sigma > 0:
+            kw = noise_pass_kwargs(staged, sigma)
+            row["noise_pass_ms"] = cuda_ms(lambda: fused_analogue.noisy_pairs(
+                staged["gps"], staged["gms"], T, **kw), reps=10,
+                queue_ahead=True)
+            extra = f" (the pre-pass alone {row['noise_pass_ms']:.4f})"
+        k4_times[case] = row
+        print(f"[{smi}] K4 fused_analogue_rollout [{case}] B={B} T={T} "
+              f"sizes={tuple(sizes4)} at {geometry_str(geom)}: kernel_ms "
+              f"{k_ms:.4f}{extra}, plain_ms {p_ms:.4f}, bound_ms {b_ms:.6f} "
+              f"({b_by}: {flops / 1e9:.3f} GFLOP, {moved / 1e6:.3f} MB), "
+              f"launches per rollout "
+              f"{'2 (pre-pass + rollout)' if sigma > 0 else '1'}, "
+              f"library_ms n/a (no single PyTorch call computes the "
+              f"rollout)")
+    # the pre-pass alone at the fleet request, against its plain version
+    staged, y0, u, dt, sigma, T = k4_inputs["fleet_uint8_noise_stuck_drift"]
+    kw = noise_pass_kwargs(staged, sigma)
+    np_flops, np_moved = noise_pass_work(staged, T)
+    np_bound, np_by = bound(np_flops, np_moved)
+    np_plain = cuda_ms(lambda: ref.fused_analogue_noisy_pairs_ref(
+        staged["gps"], staged["gms"], T, **kw), reps=1, warmup=1)
+    np_row = dict(ms=k4_times["fleet_uint8_noise_stuck_drift"]["noise_pass_ms"],
+                  plain_ms=np_plain, bound_ms=np_bound, bound_by=np_by)
+    print(f"[{smi}] K4 read-noise pre-pass [fleet_uint8_noise_stuck_drift] "
+          f"T={T}: kernel_ms {np_row['ms']:.4f}, plain_ms {np_plain:.4f}, "
+          f"bound_ms {np_bound:.5f} ({np_by}: {np_flops / 1e9:.3f} GFLOP, "
+          f"{np_moved / 1e6:.3f} MB), library_ms n/a")
     M, K, N = K7_SHAPES[0]
     k7_args = dict(inv_scale=1.0, g_step=spec.g_step)
     k7_call = functools.partial(crossbar_vmm.crossbar_matmul, x7, ip, im,
@@ -1881,7 +2086,7 @@ def main() -> int:
               "share not measured)")
 
     # -- 17-19. the LM serving slice: K8, K9 and P5 (Jamba at full width) ------
-    lm_entries = lm_slice(dev, smi, hmma["flash_attention"])
+    lm_entries = lm_slice(dev, smi, hmma["flash_attention"], sass["ssm_scan"])
 
     k1_paths = {"serve_fleet": launches, "train_hp_twin": hp_counts[0],
                 "hp_40_steps_fused_cuda": hp40_counts["fused_cuda"][0],
@@ -1903,8 +2108,8 @@ def main() -> int:
 
     k2_row = k2_times["l96_train_autonomous"]
     k2_fleet = k2_times["fleet_l96"]
-    c4_ms, c4_plain, c4_bound, c4_by = k4_times["fleet_float_clean"]
-    n4_ms, n4_plain, n4_bound, n4_by = k4_times["fleet_uint8_noise_stuck_drift"]
+    c4 = k4_times["fleet_float_clean"]
+    n4 = k4_times["fleet_uint8_noise_stuck_drift"]
     record = {"kernels": [{
         "name": "fused_node_rollout",
         "route": "cuda",
@@ -1969,16 +2174,34 @@ def main() -> int:
         "shape": "fleet_float_clean B=1024 T=200 6-64-64-6",
         "max_abs_err": k4_errs["fleet_float_clean"][0],
         "max_rel_err_of_peak": k4_errs["fleet_float_clean"][1],
-        "ms": c4_ms,
-        "plain_ms": c4_plain,
-        "bound_ms": c4_bound,
-        "bound_by": c4_by,
+        "ms": c4["ms"],
+        "plain_ms": c4["plain_ms"],
+        "bound_ms": c4["bound_ms"],
+        "bound_by": c4["bound_by"],
         "library_ms": None,
+        "noise_launches": sum(by_path("K4_noise").values()),
         "noisy_shape": {"case": "fleet_uint8_noise_stuck_drift",
-                        "ms": n4_ms, "plain_ms": n4_plain,
-                        "bound_ms": n4_bound, "bound_by": n4_by,
+                        "ms": n4["ms"], "plain_ms": n4["plain_ms"],
+                        "bound_ms": n4["bound_ms"],
+                        "bound_by": n4["bound_by"],
                         "max_rel_err_of_peak":
                             k4_errs["fleet_uint8_noise_stuck_drift"][1]},
+        "shapes": k4_times,
+        "sass": ffma_lds("fused_analogue"),
+    }, {
+        "name": "fused_analogue_noise_pass",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_analogue.cu",
+        "replaces": "src/repro/kernels/fused_analogue.py:208",
+        "launches": sum(by_path("K4_noise").values()),
+        "launches_by_path": by_path("K4_noise"),
+        "shape": "fleet_uint8_noise_stuck_drift T=200 6-64-64-6",
+        "max_abs_err": np_err,
+        "ms": np_row["ms"],
+        "plain_ms": np_row["plain_ms"],
+        "bound_ms": np_row["bound_ms"],
+        "bound_by": np_row["bound_by"],
+        "library_ms": None,
     }, {
         "name": "crossbar_matmul",
         "route": "cuda",

@@ -412,14 +412,34 @@ template <int RT> struct FmDenseEpi {
   }
 };
 
-// The MLP on one stage input x ([in_0][RT]), layer l being op l: hidden layer l writes hidden + (l & hid_mask) * hid_step (K1
-// ping-pongs two buffers with mask 1, K2 keeps every layer with mask ~0),
-// the last layer writes kout.  Each layer ends in a block barrier.
-template <int RT, class Shape, class LastEpi>
+// The epilogue of hidden layer l writing dst: K1's and K2's dense one; K4
+// (fused_analogue.cu) passes its own, which also scales, follows drift and
+// clamps.
+template <int RT> struct FmDenseHidden {
+  __device__ __forceinline__ FmDenseEpi<RT> operator()(int, float* dst) const {
+    return FmDenseEpi<RT>{dst, true};
+  }
+};
+
+// Nothing to do before a stage's last barrier (K4 waits there for the next
+// evaluation's noisy pairs).
+struct FmNoHook {
+  __device__ __forceinline__ void operator()() const {}
+};
+
+// The MLP on one stage input x ([in_0][RT]), layer l being op l: hidden
+// layer l writes hidden + (l & hid_mask) * hid_step through hidden_epi(l,
+// dst) (K1 and K4 ping-pong two buffers with mask 1, K2 keeps every layer
+// with mask ~0), the last layer writes through last_epi.  Each layer ends
+// in a block barrier; hook() runs just before the last one.
+template <int RT, class Shape, class LastEpi, class Hidden = FmDenseHidden<RT>,
+          class Hook = FmNoHook>
 __device__ __forceinline__ void fm_mlp(const Shape& shape, const float* smem,
                                        const float* x, float* hidden,
                                        int hid_step, int hid_mask,
-                                       const LastEpi& last_epi) {
+                                       const LastEpi& last_epi,
+                                       const Hidden& hidden_epi = Hidden(),
+                                       const Hook& hook = Hook()) {
   const float* src = x;
   const int L = shape.layers();
   const int split = shape.split_lanes();
@@ -427,12 +447,13 @@ __device__ __forceinline__ void fm_mlp(const Shape& shape, const float* smem,
   for (int l = 0; l < L - 1; ++l) {
     float* dst = hidden + (l & hid_mask) * hid_step;
     fm_matvec<RT, Shape::kOneRound>(shape.op(smem, l), smem, src, split,
-                                    FmDenseEpi<RT>{dst, true});
+                                    hidden_epi(l, dst));
     __syncthreads();
     src = dst;
   }
   fm_matvec<RT, Shape::kOneRound>(shape.op(smem, L - 1), smem, src, split,
                                   last_epi);
+  hook();
   __syncthreads();
 }
 

@@ -1,20 +1,26 @@
 """Weights-stationary fused analogue neural-ODE solve (port of ``repro/kernels/fused_analogue.py``).
 
 :func:`fused_analogue_rollout` runs the whole RK4 trajectory of a fleet
-through memristor crossbar pairs in ONE launch of the hand-written Hopper
-kernel ``csrc/fused_analogue.cu`` (K4), the crossbar read semantics of
+through memristor crossbar pairs on the hand-written Hopper kernel
+``csrc/fused_analogue.cu`` (K4), the crossbar read semantics of
 :func:`repro_torch.core.analogue.analogue_mlp_apply` inside the kernel:
 
 * each layer is a differential pair (G+, G-) of (K+1, N) arrays, float32
   conductances or uint8 6-bit level indices, the bias as the last row,
-  resident in shared memory for the whole solve, with a per-layer
-  ``1/scale`` and an optional clamp;
-* noise-free, each pair is combined once into effective weights, so the
-  inner loop is K1's; with ``read_noise > 0`` every evaluation re-draws
-  the read noise of both halves from the counter stream (K3), salted by
-  (global step, RK4 stage, layer, pair), so a noisy rollout replays
-  bitwise from ``noise_seed`` and, through ``step_offset``, a split
-  rollout replays the unsplit one;
+  with a per-layer ``1/scale`` and an optional clamp;
+* noise-free, each pair is combined once per block into effective
+  weights, and every evaluation is K1's (``csrc/fused_mlp_eval.cuh``) at
+  K1's launch geometry (:func:`launch_geometry`);
+* with ``read_noise > 0`` every evaluation reads a fresh noisy pair drawn
+  from the counter stream (K3), salted by (global step, RK4 stage,
+  layer, pair).  The noise is the same for every twin, so a pre-pass
+  kernel draws each evaluation's pair once for the fleet
+  (``NOISE_LAUNCHES``; plain version
+  :func:`repro_torch.kernels.ref.fused_analogue_noisy_pairs_ref`) and
+  the rollout streams it into shared memory one evaluation ahead: two
+  launches per noisy rollout of up to :func:`noise_chunk_steps` steps.
+  A noisy rollout replays bitwise from ``noise_seed`` and, through
+  ``step_offset``, a split rollout replays the unsplit one;
 * device faults in-kernel: stuck cells at their global ids (bitwise the
   program-time masks of :mod:`repro_torch.core.faults`) and live drift.
 
@@ -26,18 +32,14 @@ CPU tensors; CUDA tensors launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Sequence
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import fused_ode_mlp, ref
 from repro_torch.kernels.crossbar_vmm import stored_operand
-from repro_torch.kernels.fused_ode_mlp import MAX_LAYERS, SMEM_LIMIT_BYTES
-
-#: Twins per CUDA block of K4 (1024 twins -> 128 blocks on the H100's 132
-#: SMs).  Each twin's arithmetic is independent, so this does not change
-#: results.
-ROWS_PER_BLOCK = 8
+from repro_torch.kernels.fused_ode_mlp import MAX_LAYERS, Geometry
 
 #: Fault scalars the kernel understands (subset optional); produced by
 #: ``FaultModel.kernel_args()`` in :mod:`repro_torch.core.faults`.
@@ -46,11 +48,20 @@ FAULT_DEFAULTS = {
     "salt_base": 0, "drift_nu": 0.0, "drift_tau": 1.0, "drift_n0": 0,
 }
 
-#: Static shared memory of a K4 block (its per-layer 1/scale array).
-_STATIC_SMEM = 4 * MAX_LAYERS
+#: Device memory of one time chunk's noisy pairs: under half the H100's
+#: 50 MB L2, so the pre-pass's writes are still there when the rollout
+#: reads them (the 1024 x 200 Lorenz96 request's 16.4 MB is one chunk).
+NOISE_CHUNK_BYTES = 24 * 2 ** 20
 
-#: Launches of the CUDA kernel in this process (one per kernel launch).
+#: Evaluations one pre-pass launch covers at most (its grid's y extent).
+_MAX_CHUNK_EVALS = 65535
+
+#: Launches of the rollout kernel in this process (one per rollout, or
+#: per time chunk of a noisy rollout longer than one chunk).
 LAUNCHES = 0
+
+#: Launches of the read-noise pre-pass (one per noisy rollout chunk).
+NOISE_LAUNCHES = 0
 
 
 class _K4Read(ctypes.Structure):
@@ -69,100 +80,101 @@ class _K4Read(ctypes.Structure):
                 ("step_offset", ctypes.c_longlong)]
 
 
-def smem_bytes_analogue(sizes: Sequence[int], noisy: bool,
-                        rows: int = ROWS_PER_BLOCK) -> int:
-    """Dynamic shared memory of one K4 block for MLP widths ``sizes``: the
-    resident arrays (combined W per layer noise-free; G+ and G- per layer
-    plus a scratch of the largest layer with read noise) and K1's
-    activation buffers."""
-    n = [(a + 1) * b for a, b in zip(sizes[:-1], sizes[1:])]
-    arrays = 2 * sum(n) + max(n) if noisy else sum(n)
-    hidden = max(sizes[1:-1], default=0)
-    hstride = (hidden | 1) if hidden else 0
-    D = sizes[-1]
-    return 4 * (arrays + rows * (3 * D + (sizes[0] | 1) + 2 * hstride))
+def launch_geometry(B: int, sizes: Sequence[int], noisy: bool, *,
+                    twins_per_block: int | None = None) -> Geometry:
+    """K4's launch for ``B`` twins of MLP widths ``sizes``: K1's
+    (:func:`repro_torch.kernels.fused_ode_mlp.launch_geometry`), with a
+    second weight block for the double-buffered noisy pairs under read
+    noise.  ``twins_per_block`` (1 or 4) forces the tile.  Raises a
+    ``ValueError`` when no choice fits the 227 KB a block may use."""
+    return fused_ode_mlp.launch_geometry(
+        B, sizes, twins_per_block=twins_per_block,
+        weight_blocks=2 if noisy else 1, what="fused_analogue_rollout")
 
 
-def check_smem_fit(sizes: Sequence[int], noisy: bool,
-                   rows: int = ROWS_PER_BLOCK) -> int:
-    """Raise a ``ValueError`` when one K4 block's working set exceeds the
-    227 KB a Hopper block may use; returns the dynamic bytes otherwise."""
-    need = smem_bytes_analogue(sizes, noisy, rows)
-    if need + _STATIC_SMEM > SMEM_LIMIT_BYTES:
-        mode = "noisy (G+, G- and a scratch)" if noisy else "noise-free"
-        raise ValueError(
-            f"fused_analogue_rollout: MLP {tuple(sizes)} needs {need:,} B of "
-            f"shared memory per block ({rows} twins, {mode} reads), over the "
-            f"227 KB ({SMEM_LIMIT_BYTES:,} B) per-block limit of sm_90; the "
-            f"arrays must stay resident, so this width needs a cluster or a "
-            f"split across blocks")
-    return need
+def check_smem_fit(sizes: Sequence[int], noisy: bool) -> int:
+    """Raise a ``ValueError`` when one K4 block (one twin) exceeds the
+    227 KB a Hopper block may use; returns its dynamic bytes otherwise."""
+    return launch_geometry(1, sizes, noisy).smem_bytes
 
 
-def _launch(y0, u_half, scales, gps, gms, rd: _K4Read, per_twin, T, du,
-            sizes, smem):
-    """Launch K4 on the current stream; returns (T+1, B, D) float32."""
-    global LAUNCHES
-    from repro_torch.kernels import _build
-    fn = _build.load("fused_analogue").k4_fused_analogue_rollout_f32
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int]
-                   + [ctypes.c_void_p] + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    B, D = y0.shape
-    L = len(gps)
-    out = torch.empty((T + 1, B, D), dtype=torch.float32, device=y0.device)
-    gp_ptrs = (ctypes.c_void_p * L)(*[g.data_ptr() for g in gps])
-    gm_ptrs = (ctypes.c_void_p * L)(*[g.data_ptr() for g in gms])
-    c_sizes = (ctypes.c_int * (L + 1))(*sizes)
-    u_ptr = u_half.data_ptr() if du > 0 else None
-    u_twin_stride = (2 * T + 1) * du if per_twin else 0
-    with torch.cuda.device(y0.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(y0.data_ptr(), u_ptr, out.data_ptr(), scales.data_ptr(),
-                 ctypes.addressof(gp_ptrs), ctypes.addressof(gm_ptrs),
-                 ctypes.addressof(c_sizes), L, ctypes.addressof(rd), B, T, D,
-                 du, u_twin_stride, ROWS_PER_BLOCK, smem, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"fused_analogue_rollout: CUDA kernel launch failed with "
-            f"cudaError_t {err} (B={B}, T={T}, sizes={tuple(sizes)}, "
-            f"smem={smem} B)")
-    LAUNCHES += 1
-    return out
+def noise_eval_floats(sizes: Sequence[int]) -> int:
+    """Floats of one evaluation's noisy pairs in the kernels' weight layout
+    (rows padded to 4 floats, then the bias row; no op table)."""
+    return fused_ode_mlp.weight_floats(sizes, False) - fused_ode_mlp.OPS_WORDS
 
 
-def fused_analogue_rollout(
-    gps: Sequence[torch.Tensor],  # per layer (K_l + 1, N_l): conductances
-    gms: Sequence[torch.Tensor],  # (f32) or uint8 level indices; bias row last
-    scales: torch.Tensor,         # (L,) per-tensor programming scales
-    y0: torch.Tensor,             # (B, D)
-    u_half: torch.Tensor,         # (2T+1, Du) shared or (B, 2T+1, Du)
-    dt: float,
-    *,
-    g_step: float | None = None,  # set => uint8 level-index storage
-    g_min: float = 0.0,           # conductance floor (noisy quantised reads)
-    g_max: float = 0.0,           # conductance ceiling (stuck overrides)
-    v_clamp: float | None = None,
-    read_noise: float = 0.0,
-    noise_seed: int = 0,
-    step_offset: int = 0,         # global step index of y0 (resume replay)
-    fault: dict | None = None,    # FaultModel.kernel_args(); None = healthy
-    batch_tile: int = 64,
-) -> torch.Tensor:
-    """Full-trajectory analogue RK4 solve; returns (T+1, B, D) float32.
+def noise_chunk_steps(sizes: Sequence[int]) -> int:
+    """RK4 steps of one noisy time chunk: as many as keep its 4 evaluations
+    a step within ``NOISE_CHUNK_BYTES`` (at least one)."""
+    per_step = 4 * 4 * noise_eval_floats(sizes)
+    return max(1, min(NOISE_CHUNK_BYTES // per_step, _MAX_CHUNK_EVALS // 4))
 
-    Same drive contract as K1 (half-step drive, shared or per twin, Du may
-    be 0; B must divide by ``batch_tile``).  ``fault`` injects stuck cells
-    and live read-disturb drift in the kernel.  ``step_offset`` declares
-    the global RK4 step of ``y0``: a rollout resumed at step k with
-    ``step_offset=k`` continues the same noise salts and drift exponents,
-    so split-and-resume is bitwise the unsplit rollout.  Raises
-    ``ValueError`` for noisy uint8 reads without ``g_min > 0``, stuck
-    cells without ``g_max > g_min``, unknown fault keys, and shapes the
-    kernel does not take.
-    """
+
+def _layer_offsets(sizes: Sequence[int]) -> list[int]:
+    """Where each layer's (in + 1) rows start in one evaluation's pairs."""
+    offs, off = [], 0
+    for a, b in zip(sizes[:-1], sizes[1:]):
+        offs.append(off)
+        off += (a + 1) * fused_ode_mlp._round4(b)
+    return offs
+
+
+@dataclasses.dataclass
+class _Call:
+    """A validated call: float32 contiguous tensors on one device and the
+    scalars of the read."""
+    gps: list
+    gms: list
+    scales: torch.Tensor
+    y0: torch.Tensor
+    u_half: torch.Tensor
+    dt: float
+    fault: dict
+    g_step: float | None
+    g_min: float
+    g_max: float
+    v_clamp: float | None
+    read_noise: float
+    noise_seed: int
+    step_offset: int
+    per_twin: bool
+    T: int
+    du: int
+    sizes: list
+    device: torch.device
+
+    def read(self, step_offset: int) -> _K4Read:
+        """The kernels' ``K4Read`` with ``y0`` at global step
+        ``step_offset``."""
+        dt64, fa, mask = float(self.dt), self.fault, ref.U32_MASK
+        return _K4Read(
+            dt=dt64, dt2=dt64 / 2, dt6=dt64 / 6,
+            u8=int(self.g_step is not None),
+            g_step=float(self.g_step or 0.0), g_min=float(self.g_min),
+            g_max=float(self.g_max), has_clamp=int(self.v_clamp is not None),
+            v_clamp=float(self.v_clamp or 0.0),
+            read_noise=float(self.read_noise),
+            noise_seed=int(self.noise_seed) & mask,
+            stuck_rate=float(fa["stuck_rate"]),
+            stuck_on_frac=float(fa["stuck_on_frac"]),
+            fault_seed=int(fa["fault_seed"]) & mask,
+            salt_base=int(fa["salt_base"]), drift_nu=float(fa["drift_nu"]),
+            drift_tau=float(fa["drift_tau"]), drift_n0=int(fa["drift_n0"]),
+            step_offset=int(step_offset))
+
+    def arrays(self):
+        """(G+ pointers, G- pointers, sizes) as the C entry points take
+        them."""
+        L = len(self.gps)
+        return ((ctypes.c_void_p * L)(*[g.data_ptr() for g in self.gps]),
+                (ctypes.c_void_p * L)(*[g.data_ptr() for g in self.gms]),
+                (ctypes.c_int * (L + 1))(*self.sizes))
+
+
+def _validate(gps, gms, scales, y0, u_half, dt, *, g_step, g_min, g_max,
+              v_clamp, read_noise, noise_seed, step_offset, fault,
+              batch_tile) -> _Call:
     if read_noise > 0.0 and g_step is not None and g_min <= 0.0:
         raise ValueError(
             "fused_analogue_rollout: noisy quantised reads need the "
@@ -225,7 +237,7 @@ def fused_analogue_rollout(
         raise ValueError(
             f"fused_analogue_rollout: MLP {tuple(sizes)} does not map "
             f"[u (Du={du}), y (D={D})] to dy/dt (D={D})")
-    smem = check_smem_fit(sizes, read_noise > 0.0)
+    check_smem_fit(sizes, read_noise > 0.0)
 
     devices = {x.device for x in [y0, u_half, scales, *gps, *gms]}
     if len(devices) != 1:
@@ -233,37 +245,187 @@ def fused_analogue_rollout(
             f"fused_analogue_rollout: inputs lie on several devices "
             f"{sorted(str(d) for d in devices)}; put them on one")
     device = devices.pop()
-    y0 = y0.to(torch.float32).contiguous()
-    u_half = u_half.to(torch.float32).contiguous()
-    scales = scales.to(torch.float32).contiguous()
-    gps = [stored_operand(g) for g in gps]
-    gms = [stored_operand(g) for g in gms]
-    if device.type == "cpu":
-        return ref.fused_analogue_rollout_ref(
-            gps, gms, scales, y0, u_half, float(dt), fault=fa, g_step=g_step,
-            g_min=g_min, g_max=g_max, v_clamp=v_clamp, read_noise=read_noise,
-            noise_seed=noise_seed, step_offset=step_offset)
-    if device.type != "cuda":
+    if device.type not in ("cpu", "cuda"):
         raise ValueError(
             f"fused_analogue_rollout: tensors on {device} — the kernel runs "
             f"on CUDA and its plain version on the CPU")
-    if L > MAX_LAYERS:
+    if device.type == "cuda" and L > MAX_LAYERS:
         raise ValueError(
             f"fused_analogue_rollout: {L} layers, the kernel takes at most "
             f"{MAX_LAYERS}")
-    dt64 = float(dt)
-    mask = ref.U32_MASK
-    rd = _K4Read(dt=dt64, dt2=dt64 / 2, dt6=dt64 / 6, u8=int(quant),
-                 g_step=float(g_step or 0.0), g_min=float(g_min),
-                 g_max=float(g_max), has_clamp=int(v_clamp is not None),
-                 v_clamp=float(v_clamp or 0.0), read_noise=float(read_noise),
-                 noise_seed=int(noise_seed) & mask,
-                 stuck_rate=float(fa["stuck_rate"]),
-                 stuck_on_frac=float(fa["stuck_on_frac"]),
-                 fault_seed=int(fa["fault_seed"]) & mask,
-                 salt_base=int(fa["salt_base"]),
-                 drift_nu=float(fa["drift_nu"]),
-                 drift_tau=float(fa["drift_tau"]),
-                 drift_n0=int(fa["drift_n0"]), step_offset=int(step_offset))
-    return _launch(y0, u_half, scales, gps, gms, rd, per_twin, T, du, sizes,
-                   smem)
+    return _Call(
+        gps=[stored_operand(g) for g in gps],
+        gms=[stored_operand(g) for g in gms],
+        scales=scales.to(torch.float32).contiguous(),
+        y0=y0.to(torch.float32).contiguous(),
+        u_half=u_half.to(torch.float32).contiguous(), dt=float(dt),
+        fault=fa, g_step=g_step, g_min=g_min, g_max=g_max, v_clamp=v_clamp,
+        read_noise=read_noise, noise_seed=noise_seed,
+        step_offset=step_offset, per_twin=per_twin, T=T, du=du, sizes=sizes,
+        device=device)
+
+
+def _noise_pass(c: _Call, rd: _K4Read, steps: int) -> torch.Tensor:
+    """Launch the pre-pass: the noisy pairs of ``steps`` steps from global
+    step ``rd.step_offset``, (4 steps, noise_eval_floats) float32."""
+    global NOISE_LAUNCHES
+    from repro_torch.kernels import _build
+    fn = _build.load("fused_analogue").k4_noise_pass_f32
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    ev = noise_eval_floats(c.sizes)
+    noise = torch.empty((4 * steps, ev), dtype=torch.float32, device=c.device)
+    gp_ptrs, gm_ptrs, c_sizes = c.arrays()
+    with torch.cuda.device(c.device):
+        err = fn(ctypes.addressof(gp_ptrs), ctypes.addressof(gm_ptrs),
+                 ctypes.addressof(c_sizes), len(c.gps), ctypes.addressof(rd),
+                 4 * steps, ev, noise.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"fused_analogue_rollout: the read-noise pre-pass failed to "
+            f"launch with cudaError_t {err} (sizes={tuple(c.sizes)}, "
+            f"{steps} steps)")
+    NOISE_LAUNCHES += 1
+    return noise
+
+
+def _rollout(c: _Call, geom: Geometry) -> torch.Tensor:
+    """K4 on the current stream at ``geom``: one launch, or under read
+    noise a pre-pass and a launch per time chunk; (T+1, B, D) float32."""
+    global LAUNCHES
+    from repro_torch.kernels import _build
+    fn = _build.load("fused_analogue").k4_fused_analogue_rollout_f32
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] + [ctypes.c_int] * 3
+                   + [ctypes.c_longlong, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    B, D = c.y0.shape
+    T, du = c.T, c.du
+    out = torch.empty((T + 1, B, D), dtype=torch.float32, device=c.device)
+    gp_ptrs, gm_ptrs, c_sizes = c.arrays()
+    noisy = c.read_noise > 0.0
+    chunk = noise_chunk_steps(c.sizes) if noisy else max(T, 1)
+    u_twin_stride = (2 * T + 1) * du if c.per_twin else 0
+    t0 = 0
+    while True:
+        steps = min(chunk, T - t0)
+        rd = c.read(c.step_offset + t0)
+        noise = _noise_pass(c, rd, steps) if noisy and steps > 0 else None
+        y0 = c.y0 if t0 == 0 else out[t0]
+        u_ptr = c.u_half.data_ptr() + 4 * 2 * t0 * du if du > 0 else None
+        with torch.cuda.device(c.device):
+            err = fn(y0.data_ptr(), u_ptr, out[t0].data_ptr(),
+                     c.scales.data_ptr(), ctypes.addressof(gp_ptrs),
+                     ctypes.addressof(gm_ptrs), ctypes.addressof(c_sizes),
+                     len(c.gps), ctypes.addressof(rd),
+                     None if noise is None else noise.data_ptr(), B, steps,
+                     D, du, u_twin_stride, geom.twins_per_block,
+                     geom.threads, geom.time_chunk, geom.smem_bytes,
+                     torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(
+                f"fused_analogue_rollout: CUDA kernel launch failed with "
+                f"cudaError_t {err} (B={B}, T={T}, sizes={tuple(c.sizes)}, "
+                f"{geom})")
+        LAUNCHES += 1
+        t0 += steps
+        if t0 >= T:
+            return out
+
+
+def fused_analogue_rollout(
+    gps: Sequence[torch.Tensor],  # per layer (K_l + 1, N_l): conductances
+    gms: Sequence[torch.Tensor],  # (f32) or uint8 level indices; bias row last
+    scales: torch.Tensor,         # (L,) per-tensor programming scales
+    y0: torch.Tensor,             # (B, D)
+    u_half: torch.Tensor,         # (2T+1, Du) shared or (B, 2T+1, Du)
+    dt: float,
+    *,
+    g_step: float | None = None,  # set => uint8 level-index storage
+    g_min: float = 0.0,           # conductance floor (noisy quantised reads)
+    g_max: float = 0.0,           # conductance ceiling (stuck overrides)
+    v_clamp: float | None = None,
+    read_noise: float = 0.0,
+    noise_seed: int = 0,
+    step_offset: int = 0,         # global step index of y0 (resume replay)
+    fault: dict | None = None,    # FaultModel.kernel_args(); None = healthy
+    batch_tile: int = 64,
+) -> torch.Tensor:
+    """Full-trajectory analogue RK4 solve; returns (T+1, B, D) float32.
+
+    Same drive contract as K1 (half-step drive, shared or per twin, Du may
+    be 0; B must divide by ``batch_tile``).  ``fault`` injects stuck cells
+    and live read-disturb drift in the kernel.  ``step_offset`` declares
+    the global RK4 step of ``y0``: a rollout resumed at step k with
+    ``step_offset=k`` continues the same noise salts and drift exponents,
+    so split-and-resume is bitwise the unsplit rollout.  Raises
+    ``ValueError`` for noisy uint8 reads without ``g_min > 0``, stuck
+    cells without ``g_max > g_min``, unknown fault keys, and shapes the
+    kernel does not take.
+    """
+    c = _validate(gps, gms, scales, y0, u_half, dt, g_step=g_step,
+                  g_min=g_min, g_max=g_max, v_clamp=v_clamp,
+                  read_noise=read_noise, noise_seed=noise_seed,
+                  step_offset=step_offset, fault=fault,
+                  batch_tile=batch_tile)
+    if c.device.type == "cpu":
+        return ref.fused_analogue_rollout_ref(
+            c.gps, c.gms, c.scales, c.y0, c.u_half, c.dt, fault=c.fault,
+            g_step=g_step, g_min=g_min, g_max=g_max, v_clamp=v_clamp,
+            read_noise=read_noise, noise_seed=noise_seed,
+            step_offset=step_offset)
+    return _rollout(c, launch_geometry(c.y0.shape[0], c.sizes,
+                                       read_noise > 0.0))
+
+
+def fused_analogue_rollout_at(geom: Geometry, gps, gms, scales, y0, u_half,
+                              dt: float, **kw) -> torch.Tensor:
+    """K4 on CUDA tensors at an explicit ``geom`` (from
+    :func:`launch_geometry`, e.g. with ``twins_per_block=1``), keywords as
+    :func:`fused_analogue_rollout`'s: for checks that a trajectory does
+    not depend on the launch geometry."""
+    c = _validate(gps, gms, scales, y0, u_half, dt,
+                  **dict(dict(g_step=None, g_min=0.0, g_max=0.0, v_clamp=None,
+                              read_noise=0.0, noise_seed=0, step_offset=0,
+                              fault=None, batch_tile=y0.shape[0]), **kw))
+    if c.device.type != "cuda":
+        raise ValueError("fused_analogue_rollout_at: the kernel runs on CUDA")
+    return _rollout(c, geom)
+
+
+def noisy_pairs(gps: Sequence[torch.Tensor], gms: Sequence[torch.Tensor],
+                T: int, *, read_noise: float, noise_seed: int,
+                step_offset: int = 0, g_step: float | None = None,
+                g_min: float = 0.0, g_max: float = 0.0,
+                fault: dict | None = None) -> list[torch.Tensor]:
+    """The noisy pairs S that the evaluations of a T-step noisy rollout
+    read, per layer (T, 4, in_l + 1, out_l) float32: on CUDA one launch of
+    K4's pre-pass, unpacked from its layout; on the CPU the plain version
+    :func:`repro_torch.kernels.ref.fused_analogue_noisy_pairs_ref`."""
+    if not read_noise > 0.0 or T < 1:
+        raise ValueError(f"noisy_pairs: read_noise={read_noise}, T={T}; "
+                         f"want read noise over at least one step")
+    # shape-only stand-ins for the rollout's other inputs (no kernel runs)
+    dev = gps[0].device
+    sizes = [gps[0].shape[0] - 1] + [g.shape[1] for g in gps]
+    c = _validate(gps, gms, torch.empty(len(gps), device=dev),
+                  torch.empty((1, sizes[-1]), device=dev),
+                  torch.empty((2 * T + 1, sizes[0] - sizes[-1]), device=dev),
+                  0.0, g_step=g_step, g_min=g_min, g_max=g_max, v_clamp=None,
+                  read_noise=read_noise, noise_seed=noise_seed,
+                  step_offset=step_offset, fault=fault, batch_tile=1)
+    if c.device.type == "cpu":
+        return ref.fused_analogue_noisy_pairs_ref(
+            c.gps, c.gms, T, fault=c.fault, g_step=g_step, g_min=g_min,
+            g_max=g_max, read_noise=read_noise, noise_seed=noise_seed,
+            step_offset=step_offset)
+    noise = _noise_pass(c, c.read(step_offset), T).view(T, 4, -1)
+    out = []
+    for off, a, b in zip(_layer_offsets(sizes), sizes[:-1], sizes[1:]):
+        w = fused_ode_mlp._round4(b)
+        out.append(noise[..., off:off + (a + 1) * w].view(T, 4, a + 1, w)
+                   [..., :b])
+    return out

@@ -99,7 +99,7 @@ def _require_float(name: str, x: torch.Tensor) -> None:
 
 #: Words of the product-descriptor table at the start of a block's shared
 #: memory (FM_OPS_WORDS in ``csrc/fused_mlp_eval.cuh``).
-_OPS_WORDS = 2 * MAX_LAYERS * 8
+OPS_WORDS = 2 * MAX_LAYERS * 8
 
 
 def _round4(n: int) -> int:
@@ -125,12 +125,12 @@ def _matvec_lanes(n_red: int, n_out: int) -> int:
     return 32 * -(-groups // per_warp)
 
 
-def _weight_floats(sizes: Sequence[int], transposed: bool) -> int:
+def weight_floats(sizes: Sequence[int], transposed: bool) -> int:
     """Floats of the shared weight block (``fm_layout``): the table of
     product descriptors (``FM_OPS_WORDS``), then per layer w_l with rows
     padded to 4 floats and b_l padded to 4; K2 adds every w_l^T."""
     pairs = list(zip(sizes[:-1], sizes[1:]))
-    n = _OPS_WORDS + sum(a * _round4(b) + _round4(b) for a, b in pairs)
+    n = OPS_WORDS + sum(a * _round4(b) + _round4(b) for a, b in pairs)
     if transposed:
         n += sum(b * _round4(a) for a, b in pairs)
     return n
@@ -158,7 +158,7 @@ def smem_bytes(sizes: Sequence[int], twins_per_block: int = 1,
     du = sizes[0] - D
     act = twins_per_block * (2 * _round4(sizes[0])
                              + 2 * _round4(_hidden(sizes)) + 2 * _round4(D))
-    return 4 * (_weight_floats(sizes, False) + act
+    return 4 * (weight_floats(sizes, False) + act
                 + _round4((2 * time_chunk + 1) * du * twins_per_block))
 
 
@@ -176,7 +176,7 @@ def smem_bytes_k2(sizes: Sequence[int], twins_per_block: int = 1,
     act = twins_per_block * (7 * D4 + 4 * _round4(sizes[0])
                              + 8 * (L - 1) * _round4(_hidden(sizes))
                              + 2 * time_chunk * D4)
-    return 4 * (_weight_floats(sizes, True) + act
+    return 4 * (weight_floats(sizes, True) + act
                 + _round4((2 * time_chunk + 1) * du * twins_per_block))
 
 
@@ -197,7 +197,8 @@ def _threads(sizes: Sequence[int], backward: bool) -> int:
     return min(MAX_THREADS, max(32, lanes))
 
 
-def _over_limit(sizes, need: int, twins: int, backward: bool) -> ValueError:
+def _over_limit(sizes, need: int, twins: int, backward: bool,
+                what: str) -> ValueError:
     if backward:
         return ValueError(
             f"fused backward kernel: MLP {tuple(sizes)} needs {need:,} B of "
@@ -207,7 +208,7 @@ def _over_limit(sizes, need: int, twins: int, backward: bool) -> ValueError:
             f"resident, so this width needs a cluster or a split across "
             f"blocks")
     return ValueError(
-        f"fused kernel: MLP {tuple(sizes)} needs {need:,} B of shared "
+        f"{what}: MLP {tuple(sizes)} needs {need:,} B of shared "
         f"memory per block ({twins} twin(s), one time step staged), over "
         f"the 227 KB ({SMEM_LIMIT_BYTES:,} B) per-block limit of sm_90; the "
         f"weights must stay resident, so this width needs a cluster or a "
@@ -215,7 +216,8 @@ def _over_limit(sizes, need: int, twins: int, backward: bool) -> ValueError:
 
 
 def launch_geometry(B: int, sizes: Sequence[int], *, backward: bool = False,
-                    twins_per_block: int | None = None) -> Geometry:
+                    twins_per_block: int | None = None, weight_blocks: int = 1,
+                    what: str = "fused kernel") -> Geometry:
     """The launch of K1 (or, with ``backward``, K2) for ``B`` twins of MLP
     widths ``sizes``.  One twin per block while ``B`` leaves SMs idle at
     four (every training shape gets B blocks); ``FLEET_TWINS_PER_BLOCK``
@@ -223,8 +225,10 @@ def launch_geometry(B: int, sizes: Sequence[int], *, backward: bool = False,
     weight read from shared memory feeds four twins.  The time chunk is
     ``TIME_CHUNK`` steps, halved while the block would not fit.
     ``twins_per_block`` (1 or 4) forces the tile, as the checks that a
-    trajectory does not depend on the geometry do.  Raises a
-    ``ValueError`` when no choice fits the 227 KB a block may use."""
+    trajectory does not depend on the geometry do.  ``weight_blocks`` = 2
+    adds a second weight block (K4's double buffer under read noise);
+    ``what`` names the kernel in the error.  Raises a ``ValueError`` when
+    no choice fits the 227 KB a block may use."""
     if B < 1:
         raise ValueError(f"launch_geometry: B={B} twins")
     smem_of = smem_bytes_k2 if backward else smem_bytes
@@ -240,14 +244,15 @@ def launch_geometry(B: int, sizes: Sequence[int], *, backward: bool = False,
     for rt in tiles:
         tc = TIME_CHUNK
         while True:
-            need = smem_of(sizes, rt, tc)
+            need = smem_of(sizes, rt, tc) + 4 * (weight_blocks - 1) * \
+                weight_floats(sizes, backward)
             if need <= SMEM_LIMIT_BYTES:
                 return Geometry(rt, _threads(sizes, backward), -(-B // rt),
                                 need, tc)
             if tc == 1:
                 break
             tc //= 2
-    raise _over_limit(sizes, need, tiles[-1], backward)
+    raise _over_limit(sizes, need, tiles[-1], backward, what)
 
 
 def check_smem_fit(sizes: Sequence[int]) -> int:

@@ -291,6 +291,66 @@ def crossbar_matmul_ref(x: torch.Tensor, gp: torch.Tensor, gm: torch.Tensor,
 # fused analogue RK4 rollout (K4)
 # ---------------------------------------------------------------------------
 
+def analogue_read_pairs_ref(gps: Sequence[torch.Tensor],
+                            gms: Sequence[torch.Tensor], *, fault: dict,
+                            g_step: Optional[float] = None,
+                            g_min: float = 0.0, g_max: float = 0.0):
+    """Each layer's pair as a noisy read sees it before the noise: absolute
+    float32 conductances (uint8 level indices decoded as ``g_min + idx *
+    g_step``) with the stuck cells of ``fault`` pinned at their global
+    ids.  Returns (G+ per layer, G- per layer)."""
+    def absolute(g):
+        g = g.to(F32)
+        return g_min + g * g_step if g_step is not None else g
+
+    def pin(g, li, pair):
+        return pin_stuck_ref(g, fault["fault_seed"],
+                             fault["salt_base"] + 2 * li + pair,
+                             fault["stuck_rate"], fault["stuck_on_frac"],
+                             g_max, g_min)
+
+    gps_a = [absolute(g) for g in gps]
+    gms_a = [absolute(g) for g in gms]
+    if fault["stuck_rate"] > 0.0:
+        gps_a = [pin(g, li, 0) for li, g in enumerate(gps_a)]
+        gms_a = [pin(g, li, 1) for li, g in enumerate(gms_a)]
+    return gps_a, gms_a
+
+
+def noisy_pair_ref(gp: torch.Tensor, gm: torch.Tensor, read_noise: float,
+                   noise_seed: int, salt: int) -> torch.Tensor:
+    """One noisy read of a pair of absolute arrays: ``G+ (1 + s e+) - G-
+    (1 + s e-)``, e+ drawn at ``salt`` and e- at ``salt + 1`` over the
+    row-major flat ids of the whole array."""
+    shape = tuple(gp.shape)
+    ep = counter_normal_ref(noise_seed, salt, shape, gp.device)
+    em = counter_normal_ref(noise_seed, salt + 1, shape, gp.device)
+    return gp * (1.0 + read_noise * ep) - gm * (1.0 + read_noise * em)
+
+
+def fused_analogue_noisy_pairs_ref(gps: Sequence[torch.Tensor],
+                                   gms: Sequence[torch.Tensor], T: int, *,
+                                   fault: dict,
+                                   g_step: Optional[float] = None,
+                                   g_min: float = 0.0, g_max: float = 0.0,
+                                   read_noise: float, noise_seed: int,
+                                   step_offset: int = 0) -> list:
+    """The plain version of K4's read-noise pre-pass
+    (``k4_noise_kernel``): the noisy pair S that every evaluation of a
+    T-step noisy rollout reads, per layer a (T, 4, in_l + 1, out_l)
+    float32 tensor, S[t, stage] salted ``(step_offset + t) * 8L + stage *
+    2L + 2 l`` as :func:`fused_analogue_rollout_ref` salts it."""
+    gps_a, gms_a = analogue_read_pairs_ref(gps, gms, fault=fault,
+                                           g_step=g_step, g_min=g_min,
+                                           g_max=g_max)
+    L = len(gps_a)
+    return [torch.stack([noisy_pair_ref(
+        gps_a[li], gms_a[li], read_noise, noise_seed,
+        (step_offset + t) * 8 * L + s * 2 * L + 2 * li)
+        for t in range(T) for s in range(4)]).reshape(
+            T, 4, *gps_a[li].shape) for li in range(L)]
+
+
 def fused_analogue_rollout_ref(gps: Sequence[torch.Tensor],
                                gms: Sequence[torch.Tensor],
                                scales: torch.Tensor, y0: torch.Tensor,
@@ -312,11 +372,11 @@ def fused_analogue_rollout_ref(gps: Sequence[torch.Tensor],
     Noise-free, each pair is combined once into ``W = (G+ - G-)[*g_step]
     * (1/scale)`` and a layer is ``x @ W[:-1] + W[-1]``; with read noise
     every evaluation re-draws ``G+ (1 + s e+) - G- (1 + s e-)`` over the
-    whole absolute array, salted ``(step_offset + t) * 8L + stage * 2L +
-    2 * layer (+1 for G-)``, and a layer is ``(x @ g[:-1] + g[-1]) /
-    scale``.  Then the drift factor ``exp(-nu * log1p(n / tau))`` with
-    ``n = drift_n0 + 4 * (step_offset + t)``, then the clamp, then ReLU
-    between layers.
+    whole absolute array (:func:`noisy_pair_ref`), salted ``(step_offset
+    + t) * 8L + stage * 2L + 2 * layer (+1 for G-)``, and a layer is
+    ``(x @ g[:-1] + g[-1]) / scale``.  Then the drift factor ``exp(-nu *
+    log1p(n / tau))`` with ``n = drift_n0 + 4 * (step_offset + t)``, then
+    the clamp, then ReLU between layers.
     """
     L = len(gps)
     device = y0.device
@@ -324,27 +384,15 @@ def fused_analogue_rollout_ref(gps: Sequence[torch.Tensor],
     stuck = fault["stuck_rate"] > 0.0
     noisy = read_noise > 0.0
 
-    def absolute(g):
-        g = g.to(F32)
-        return g_min + g * g_step if g_step is not None else g
-
-    def pin(g, li, pair):
-        return pin_stuck_ref(g, fault["fault_seed"],
-                             fault["salt_base"] + 2 * li + pair,
-                             fault["stuck_rate"], fault["stuck_on_frac"],
-                             g_max, g_min)
-
-    if noisy:
-        gps_a = [absolute(g) for g in gps]
-        gms_a = [absolute(g) for g in gms]
-        if stuck:
-            gps_a = [pin(g, li, 0) for li, g in enumerate(gps_a)]
-            gms_a = [pin(g, li, 1) for li, g in enumerate(gms_a)]
-    else:
+    if noisy or stuck:
+        gps_a, gms_a = analogue_read_pairs_ref(gps, gms, fault=fault,
+                                               g_step=g_step, g_min=g_min,
+                                               g_max=g_max)
+    if not noisy:
         ws, bs = [], []
         for li in range(L):
             if stuck:
-                g = pin(absolute(gps[li]), li, 0) - pin(absolute(gms[li]), li, 1)
+                g = gps_a[li] - gms_a[li]
             else:
                 g = gps[li].to(F32) - gms[li].to(F32)
                 if g_step is not None:
@@ -355,11 +403,8 @@ def fused_analogue_rollout_ref(gps: Sequence[torch.Tensor],
 
     def layer_out(x, li, salt, dfac):
         if noisy:
-            shape = tuple(gps_a[li].shape)
-            ep = counter_normal_ref(noise_seed, salt, shape, device)
-            em = counter_normal_ref(noise_seed, salt + 1, shape, device)
-            g = (gps_a[li] * (1.0 + read_noise * ep)
-                 - gms_a[li] * (1.0 + read_noise * em))
+            g = noisy_pair_ref(gps_a[li], gms_a[li], read_noise, noise_seed,
+                               salt)
             y = (x @ g[:-1] + g[-1]) * inv[li]
         else:
             y = x @ ws[li] + bs[li]

@@ -4,14 +4,17 @@
 ``src/repro/kernels/legacy/ssm_scan.py:51 ssm_scan``: Mamba's recurrence
 h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t, y_t = <h_t, C_t> over the
 whole sequence, in one launch of the hand-written Hopper kernel
-``csrc/ssm_scan.cu``.  One thread per (batch row, channel) keeps its
-N <= 16 states in registers from the first step to the last, and each
-block stages a chunk of 32 steps of dt, x, B and C in shared memory; the
-kernel's design, and what bounds it, are in the source's header.  It
-computes in the plain version's order (precise expf, no contracted
-FMAs, the sum over n in order), so it agrees with
-:func:`repro_torch.kernels.ref.ssm_scan_ref` to a few ulp; the stated
-tolerance is 1e-5 of the peak of y and of the final state.
+``csrc/ssm_scan.cu``.  Each (batch row, channel) is a team of 4 lanes,
+each holding N / 4 of its N <= 16 states in registers from the
+first step to the last; a block of 64 channels stages chunks of 32 steps
+of dt, x, B and C in shared memory by double-buffered cp.async, and y
+leaves in whole rows.  The kernel's design, and what bounds it, are in
+the source's header.  Each state is computed in the plain version's
+order (precise expf, no contracted FMAs), so the final state matches
+:func:`repro_torch.kernels.ref.ssm_scan_ref` to the bit where the card's
+exp is expf; y sums a lane's states in order and the team in a fixed
+butterfly.  The stated tolerance is 1e-5 of the peak of y and of the
+final state.
 
 Device rule: the plain version runs only for CPU tensors; CUDA tensors
 launch the kernel or raise.  Float32 only, as the TPU kernel.

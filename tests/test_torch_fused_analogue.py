@@ -8,8 +8,12 @@ modes, the noise-free path and read noise 0.02 (the counter stream is
 bitwise, the normals within ~5e-7), stuck cells plus drift, shared /
 per-twin / autonomous drives, and ``step_offset``.  Inside the port a
 split-and-resume noisy rollout is bitwise the unsplit one and two calls
-are bitwise equal.  The CUDA kernel is held against the plain version
-on the card by ``chip_smoke.py``.
+are bitwise equal.  The plain version of K4's read-noise pre-pass is
+bitwise the noisy pairs the plain rollout reads, and within the
+Box-Muller bound of pairs built from JAX's ``counter_normal``; K4's launch
+geometry is K1's with a second weight block under read noise.  The CUDA
+kernels are held against the plain versions on the card by
+``chip_smoke.py``.
 """
 import numpy as np
 import pytest
@@ -25,7 +29,9 @@ from repro.kernels import fused_analogue as jk4  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.interop import progs_from_numpy  # noqa: E402
 from repro_torch.kernels import fused_analogue as tk4  # noqa: E402
+from repro_torch.kernels import fused_ode_mlp as tk1  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
 
 TOL = 1e-5
 G_MIN, G_MAX = 20e-6, 100e-6
@@ -194,15 +200,168 @@ def test_gradients_are_zero():
 
 
 def test_shared_memory_check():
-    assert tk4.smem_bytes_analogue((6, 64, 64, 6), True) == 4 * (
-        2 * (7 * 64 + 65 * 64 + 65 * 6) + 65 * 64 + 8 * (18 + 7 + 2 * 65))
-    tk4.check_smem_fit((6, 64, 64, 6), True)
+    # K1's block (op table, padded weight rows, activations, drive), with
+    # a second weight block under read noise for the double-buffered pairs
+    l96 = (6, 64, 64, 6)
+    assert tk4.check_smem_fit(l96, False) == tk1.smem_bytes(l96)
+    assert tk4.check_smem_fit(l96, True) == tk1.smem_bytes(l96) + 4 * (
+        tk1.OPS_WORDS + 7 * 64 + 65 * 64 + 65 * 8)
     tk4.check_smem_fit((6, 128, 128, 6), True)
     tk4.check_smem_fit((6, 160, 160, 6), False)
+    # the raw G+ and G- no longer stay resident beside the noisy scratch
+    tk4.check_smem_fit((6, 160, 160, 6), True)
     with pytest.raises(ValueError, match="227 KB"):
-        tk4.check_smem_fit((6, 160, 160, 6), True)
+        tk4.check_smem_fit((6, 176, 176, 6), True)
     with pytest.raises(ValueError, match="227 KB"):
         tk4.check_smem_fit((6, 512, 512, 6), False)
+
+
+@pytest.mark.parametrize("sizes,B,noisy,twins,blocks,threads", [
+    (HP, 1, False, 1, 1, 32),
+    (HP, 1, True, 1, 1, 32),
+    (HP, 100, True, 1, 100, 32),
+    ((6, 64, 64, 6), 64, False, 1, 64, 128),
+    ((6, 64, 64, 6), 1024, False, 4, 256, 128),
+    ((6, 64, 64, 6), 1024, True, 4, 256, 128),
+])
+def test_launch_geometry_is_k1s_with_a_second_weight_block(
+        sizes, B, noisy, twins, blocks, threads):
+    """One twin per block at the HP shapes of P1, four at the fleet; the
+    threads K1 gives the widest product; the shared memory K1's block plus,
+    under read noise, the second weight block the pairs stream into."""
+    g = tk4.launch_geometry(B, sizes, noisy)
+    k1 = tk1.launch_geometry(B, sizes)
+    assert (g.twins_per_block, g.blocks, g.threads) == (twins, blocks,
+                                                        threads)
+    assert (g.twins_per_block, g.blocks, g.threads, g.time_chunk) == (
+        k1.twins_per_block, k1.blocks, k1.threads, k1.time_chunk)
+    extra = 4 * tk1.weight_floats(sizes, False) if noisy else 0
+    assert g.smem_bytes == k1.smem_bytes + extra
+    assert tk4.noise_eval_floats(sizes) == tk1.weight_floats(
+        sizes, False) - tk1.OPS_WORDS
+    forced = tk4.launch_geometry(B, sizes, noisy, twins_per_block=4)
+    assert forced.blocks == -(-B // 4)
+
+
+@pytest.mark.parametrize("noisy", [False, True])
+def test_launch_geometry_refuses_the_512_width(noisy):
+    with pytest.raises(ValueError, match="227 KB"):
+        tk4.launch_geometry(1024, (6, 512, 512, 6), noisy)
+    _, tst = staged_arrays((6, 512, 512, 6), "float")
+    with pytest.raises(ValueError, match="fused_analogue_rollout.*227 KB"):
+        tk4.fused_analogue_rollout(
+            tst["gps"], tst["gms"], tst["scales"], torch.zeros((4, 6)),
+            torch.zeros((3, 0)), 0.01, read_noise=0.02 if noisy else 0.0)
+
+
+def test_noise_chunk_rule(monkeypatch):
+    """A noisy time chunk holds at most NOISE_CHUNK_BYTES of pairs: the
+    Lorenz96 fleet request's 200 steps are one chunk, P1's HP rollouts
+    too."""
+    per_step = 16 * tk4.noise_eval_floats((6, 64, 64, 6))
+    assert per_step == 82_048
+    assert tk4.noise_chunk_steps((6, 64, 64, 6)) == \
+        tk4.NOISE_CHUNK_BYTES // per_step >= 200
+    assert tk4.noise_chunk_steps(HP) >= 1000
+    assert tk4.noise_chunk_steps((6, 512, 512, 6)) == 5
+    monkeypatch.setattr(tk4, "NOISE_CHUNK_BYTES", per_step - 1)
+    assert tk4.noise_chunk_steps((6, 64, 64, 6)) == 1
+
+
+def _recorded_pairs(monkeypatch, storage, T, step_offset, fault):
+    """{salt: S} of every noisy pair fused_analogue_rollout_ref reads."""
+    _, tst = staged_arrays(HP, storage)
+    y0, u = inputs(HP, 2, T, "shared")
+    seen = {}
+    pair = tref.noisy_pair_ref
+
+    def spy(gp, gm, read_noise, noise_seed, salt):
+        seen[salt] = pair(gp, gm, read_noise, noise_seed, salt)
+        return seen[salt]
+
+    monkeypatch.setattr(tref, "noisy_pair_ref", spy)
+    tk4.fused_analogue_rollout(
+        tst["gps"], tst["gms"], tst["scales"], t(y0), t(u), 0.01,
+        g_step=tst["g_step"], g_min=G_MIN, g_max=G_MAX, read_noise=0.02,
+        noise_seed=11, step_offset=step_offset, fault=fault, batch_tile=2)
+    monkeypatch.setattr(tref, "noisy_pair_ref", pair)
+    return tst, seen
+
+
+@pytest.mark.parametrize("storage,step_offset,fault", [
+    ("float", 0, None), ("uint8", 37, FAULT), ("uint8", 90_000_000, FAULT)])
+def test_noise_pass_plain_is_the_rollouts_noisy_pairs(monkeypatch, storage,
+                                                      step_offset, fault):
+    """K4's pre-pass plain version is bitwise the S that the plain rollout
+    reads at every (step, stage, layer), stuck cells and uint8 decoding
+    included; the wrapper's CPU path is that plain version."""
+    T = 3
+    tst, seen = _recorded_pairs(monkeypatch, storage, T, step_offset, fault)
+    kw = dict(read_noise=0.02, noise_seed=11, step_offset=step_offset,
+              g_step=tst["g_step"], g_min=G_MIN, g_max=G_MAX)
+    pairs = tref.fused_analogue_noisy_pairs_ref(
+        tst["gps"], tst["gms"], T, fault=dict(tk4.FAULT_DEFAULTS,
+                                              **(fault or {})), **kw)
+    L = len(pairs)
+    assert len(seen) == 4 * T * L
+    for li, p in enumerate(pairs):
+        assert p.shape == (T, 4, *tst["gps"][li].shape)
+        for ti in range(T):
+            for st in range(4):
+                salt = (step_offset + ti) * 8 * L + st * 2 * L + 2 * li
+                assert torch.equal(p[ti, st], seen[salt])
+    got = tk4.noisy_pairs(tst["gps"], tst["gms"], T, fault=fault, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, pairs))
+
+
+@pytest.mark.parametrize("step_offset", [0, 3, 90_000_000, 200_000_000])
+def test_noise_pass_plain_agrees_with_jax_counter_normal(step_offset):
+    """The pre-pass plain version against S built from JAX's
+    ``counter_normal`` at the same salts (taken mod 2^32; the salts pass
+    2^31 from step 90,000,000 and wrap from 200,000,000), in float32 in
+    the same order: the normals differ by at most the Box-Muller bound
+    of 1e-6, so S by at most that times read_noise times the
+    conductances, plus an ulp of each rounding."""
+    from repro.kernels import noise as jnoise
+    jst, tst = staged_arrays(HP, "float")
+    T, s = 2, 0.02
+    pairs = tk4.noisy_pairs(tst["gps"], tst["gms"], T, read_noise=s,
+                            noise_seed=5, step_offset=step_offset)
+    L = len(pairs)
+    f32 = np.float32
+    for li, p in enumerate(pairs):
+        a = np.asarray(jst["gps"][li], np.float32)
+        b = np.asarray(jst["gms"][li], np.float32)
+        for ti in range(T):
+            for st in range(4):
+                salt = (step_offset + ti) * 8 * L + st * 2 * L + 2 * li
+                ep, em = (np.asarray(jnoise.counter_normal(
+                    5, (salt + k) & 0xFFFF_FFFF, a.shape)) for k in (0, 1))
+                want = (a * (f32(1) + f32(s) * ep)
+                        - b * (f32(1) + f32(s) * em))
+                got = p[ti, st].numpy()
+                tol = ((np.abs(a) + np.abs(b)) * (s * 1e-6 + 2.0 ** -22)
+                       + 2.0 ** -23 * np.abs(want))
+                assert (np.abs(got - want) <= tol).all()
+
+
+def test_noisy_pairs_argument_errors():
+    _, tst = staged_arrays(HP, "float")
+    with pytest.raises(ValueError, match="read noise"):
+        tk4.noisy_pairs(tst["gps"], tst["gms"], 3, read_noise=0.0,
+                        noise_seed=1)
+    with pytest.raises(ValueError, match="read noise"):
+        tk4.noisy_pairs(tst["gps"], tst["gms"], 0, read_noise=0.02,
+                        noise_seed=1)
+
+
+def test_forced_geometry_needs_the_card():
+    _, tst = staged_arrays(HP, "float")
+    y0, u = inputs(HP, 4, 5, "shared")
+    geom = tk4.launch_geometry(4, HP, False, twins_per_block=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk4.fused_analogue_rollout_at(geom, tst["gps"], tst["gms"],
+                                      tst["scales"], t(y0), t(u), 0.01)
 
 
 @pytest.mark.parametrize("change,match", [
