@@ -100,12 +100,15 @@ result line:
    (one twin clean and noisy, 100 twins noisy), a noisy rollout's
    pre-pass also alone;
 14. K5 (soft-DTW forward with R, and hard DTW) and K6 (the E-matrix
-   backward) against their plain versions at seven (B, n, m) shapes, the
-   two Lorenz96 training shapes (29, 61, 61) and (8, 201, 201) among
-   them, at gamma 0.1 and 0.7 (<= 1e-4 of the peak; repeats bitwise);
-   ``ops.soft_dtw``'s value and gradient against autograd through the
-   reference DP ``losses.soft_dtw_batch`` at (2, 40, 60, d=2), gamma 0.5
-   (<= 1e-4 of the peak);
+   backward) on row-major costs, through ``softdtw_rowmajor(_bwd)`` and
+   through the diagonal-layout adapters ``softdtw_wavefront(_bwd)``,
+   bitwise equal to their plain versions (answer, R, hard answer, E) at
+   seven (B, n, m) shapes, the two Lorenz96 training shapes (29, 61, 61)
+   and (8, 201, 201) among them, at the row limit (2, 4096, 33) and with
+   planted in-matrix costs at or above BIG_CUT, gamma 0.1 and 0.7;
+   repeats bitwise; ``ops.soft_dtw``'s value and gradient against
+   autograd through the reference DP ``losses.soft_dtw_batch`` at (2, 40,
+   60, d=2), gamma 0.5 (<= 1e-4 of the peak);
 15. the soft-DTW training path P4: from phase 7's Lorenz96 weights on the
    paper's 1800-point training window, ``train_twin(loss=CONFIG.loss,
    gamma=0.1, backend="fused_cuda")`` for 40 steps at segment length 60
@@ -115,11 +118,18 @@ result line:
    same 10 steps at length 60 on fused_cuda and on digital (loss
    histories <= 1e-3 rel, no K5/K6 on digital); ``l96_lyapunov_info()``
    with its wall time;
-16. K5 and K6 timing with CUDA events at the two training shapes: kernel,
-   plain version, the card's bound, the chain length n+m-1, the kernels'
-   share of a P4 step, the wall time of the whole soft-DTW term (forward
-   and backward) per call, and a ``torch.profiler`` trace of 5 P4 steps
-   (device busy share, the kernels by device time);
+16. K5 and K6 timing with CUDA events at the two training shapes:
+   kernel, plain version, the bytes bound and the chain bound (n+m-1
+   steps of each kernel's dependent step, timed on one warp by a probe
+   built from ``csrc/softdtw.cu``'s own cell, with its SASS opcodes a
+   step; the same library first holds the kernels' ``sdtw_log`` against
+   logf at every float of [1, 3] and fails on any difference), the
+   kernels' share of a P4 step, the whole soft-DTW term (forward and
+   backward) per call on the host clock and its device kernels per call
+   in a profiler trace beside an estimate of the count with the
+   diagonal layout and the gather of E that the first port ran around
+   the same kernels, and a ``torch.profiler`` trace of 5 P4 steps (device busy share, the
+   kernels by device time);
 17. K8 (causal GQA flash attention) and K9 (the selective-SSM scan)
    against their plain versions: K8 at the JAX package's three test
    shapes, the Jamba prefill's (B, H, Hkv, S, d) = (2, 32, 8, 4096,
@@ -152,6 +162,7 @@ last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import json
@@ -402,16 +413,285 @@ def sdtw_work(B, n, m, bwd: bool):
     return cells * K5_OPS_PER_CELL, 8 * cells + 4 * B
 
 
-def sdtw_case(gen, B, n, m, dev):
-    """Seeded series pair -> the diagonal-layout cost slab on ``dev``."""
-    x = torch.randn((B, n, 2), generator=gen).to(dev)
-    y = torch.randn((B, m, 2), generator=gen).to(dev)
-    return ops._diag_layout_batch(_pairwise_dist(x, y))
+#: Phase 14's two more cases as (B, n, m, planted): the row limit MAX_ROWS
+#: against a short second series (four bands of 1024 rows), and costs with
+#: in-matrix cells at or above BIG_CUT (invalid cells).
+SDTW_EXTRA = [(2, softdtw.MAX_ROWS, 33, False), (2, 50, 70, True)]
+#: The probe of one wavefront step's dependent chain: each kernel's own cell
+#: (``csrc/softdtw.cu`` is included) in a loop of SDTW_CHAIN_STEPS dependent
+#: steps on one warp, timed with CUDA events.  K5: the shuffle that brings
+#: the row above's R, then the soft minimum and the sum with the cost.  K6:
+#: the shuffle that brings the row above's E, then the three children's
+#: products and the two sums; the child weights do not depend on E and are
+#: hoisted (in the kernel they are computed a step ahead, beside the chain).
+SDTW_CHAIN_STEPS = 1 << 20
+#: Floats of [1, 3] (bit patterns 0x3f800000 to 0x40400000), each of which
+#: the probe library's ``sdtw_log_check`` holds ``sdtw_log`` against logf.
+SDTW_LOG_FLOATS = 0x40400000 - 0x3f800000 + 1
+SDTW_CHAIN_SRC = r"""
+#include "SOFTDTW_CU"
+__global__ void sdtw_chain_k5(const float* in, float* out, int steps) {
+  // lane-dependent start values, so that the shuffle is not folded away
+  float myr = in[0] + 1e-3f * threadIdx.x, nb_prev = myr;
+  const float d = in[1], gamma = in[2], inv_g = in[3];
+  for (int s = 0; s < steps; ++s) {
+    const float nb = __shfl_up_sync(SDTW_FULL, myr, 1);
+    float r = __fadd_rn(d, sdtw_softmin(myr, nb, nb_prev, gamma, inv_g));
+    if (d >= SDTW_BIG_CUT) r = SDTW_BIG;
+    nb_prev = nb;
+    myr = r;
+  }
+  out[threadIdx.x] = myr;
+}
+__global__ void sdtw_chain_k6(const float* in, float* out, int steps) {
+  float mye = in[0] + 1e-3f * threadIdx.x, ae_prev = mye;
+  const float inv_g = in[1], r = in[2], cd = in[3];
+  const float w_dn = expf(__fmul_rn((in[4] - r) - in[5], inv_g));
+  const float w_rt = expf(__fmul_rn((in[6] - r) - in[7], inv_g));
+  const float w_dg = expf(__fmul_rn((in[8] - r) - in[9], inv_g));
+  const bool ok_dn = in[5] < SDTW_BIG_CUT, ok_rt = in[7] < SDTW_BIG_CUT,
+             ok_dg = in[9] < SDTW_BIG_CUT;
+  for (int s = 0; s < steps; ++s) {
+    const float ae = __shfl_up_sync(SDTW_FULL, mye, 1);
+    float e = __fadd_rn(__fadd_rn(ok_dn ? __fmul_rn(ae, w_dn) : 0.f,
+                                  ok_rt ? __fmul_rn(mye, w_rt) : 0.f),
+                        ok_dg ? __fmul_rn(ae_prev, w_dg) : 0.f);
+    if (!(cd < SDTW_BIG_CUT)) e = 0.f;
+    ae_prev = ae;
+    mye = e;
+  }
+  out[threadIdx.x] = mye;
+}
+// sdtw_log against logf at every float of [1, 3], the range of the soft
+// minimum's sum: K5 keeps the plain version's bits only where they agree.
+__global__ void sdtw_log_check(unsigned* bad) {
+  for (unsigned b = 0x3f800000u + blockIdx.x * blockDim.x + threadIdx.x;
+       b <= 0x40400000u; b += gridDim.x * blockDim.x) {
+    const float x = __uint_as_float(b);
+    if (__float_as_uint(sdtw_log(x)) != __float_as_uint(logf(x)))
+      atomicAdd(bad, 1u);
+  }
+}
+extern "C" int sdtw_log_check_run(unsigned* bad, void* stream) {
+  sdtw_log_check<<<1056, 256, 0, static_cast<cudaStream_t>(stream)>>>(bad);
+  return (int)cudaGetLastError();
+}
+extern "C" int sdtw_chain_run(int k6, const float* in, float* out, int steps,
+                              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k6)
+    sdtw_chain_k6<<<1, 32, 0, s>>>(in, out, steps);
+  else
+    sdtw_chain_k5<<<1, 32, 0, s>>>(in, out, steps);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def sdtw_chain_build():
+    """Start nvcc on the chain probe (beside the kernels' build); returns
+    (library path, process)."""
+    out = ROOT / "build" / "sdtw_chain"
+    out.mkdir(parents=True, exist_ok=True)
+    src = out / "sdtw_chain.cu"
+    src.write_text(SDTW_CHAIN_SRC.replace(
+        "SOFTDTW_CU", str(_build.CSRC / "softdtw.cu")))
+    lib = out / "libsdtw_chain.so"
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    return lib, subprocess.Popen(
+        [nvcc, *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def sdtw_chain(lib: Path, proc, dev) -> dict:
+    """Time of one dependent step of K5 and K6 on one warp (CUDA events over
+    SDTW_CHAIN_STEPS steps; in SM cycles at SM_CLOCK), and the SASS
+    opcodes of one step of each probe: its loop body (from a backward
+    branch's target to the branch) over the shuffles in it, one a step.
+    First, fails unless ``sdtw_log`` is logf's bits at every float of
+    [1, 3] (``log_mismatches``)."""
+    log, _ = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"chain probe build failed:\n{log}")
+    so = ctypes.CDLL(str(lib))
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    bad = torch.zeros(1, dtype=torch.int32, device=dev)
+    err = so.sdtw_log_check_run(
+        ctypes.c_void_p(bad.data_ptr()),
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    check(err == 0, f"sdtw_log check: cudaError_t {err}")
+    out = {"log_mismatches": int(bad.item())}
+    print(f"sdtw_log vs logf at all {SDTW_LOG_FLOATS} floats of [1, 3]: "
+          f"{out['log_mismatches']} differ")
+    check(out["log_mismatches"] == 0,
+          "sdtw_log differs from logf: K5 is no longer its plain version")
+    for kind, args in (("K5", [1.0, 0.5, 0.1, 10.0]),
+                       ("K6", [1.0, 1.0, 2.3, 0.5, 2.0, 0.5, 2.1, 0.4, 1.9,
+                               0.6])):
+        x = torch.tensor(args, dtype=torch.float32, device=dev)
+        y = torch.zeros(32, device=dev)
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+        def run(steps):
+            err = so.sdtw_chain_run(int(kind == "K6"),
+                                    ctypes.c_void_p(x.data_ptr()),
+                                    ctypes.c_void_p(y.data_ptr()), steps,
+                                    stream)
+            check(err == 0, f"chain probe {kind}: cudaError_t {err}")
+        run(1024)
+        t = cuda_ms(lambda: run(SDTW_CHAIN_STEPS), reps=3, warmup=1)
+        step_s = t / 1e3 / SDTW_CHAIN_STEPS
+        # the probe's loop: the longest backward branch of its function
+        fn_sass = sass.split(f"sdtw_chain_{kind.lower()}", 1)[1]
+        fn_sass = fn_sass.split("Function :", 1)[0]
+        code = []
+        for line in fn_sass.splitlines():
+            mo = re.search(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                           r"([A-Z0-9_.]+)([^;]*)", line)
+            if mo:
+                code.append((int(mo.group(1), 16), mo.group(3),
+                             mo.group(4)))
+        loop = (0, 0)
+        for addr, op, rest in code:
+            tgt = re.search(r"0x([0-9a-f]+)", rest)
+            if op == "BRA" and tgt and int(tgt.group(1), 16) < addr:
+                lo = int(tgt.group(1), 16)
+                if addr - lo > loop[1] - loop[0]:
+                    loop = (lo, addr)
+        body = {}
+        for addr, op, _ in code:
+            if loop[0] <= addr <= loop[1]:
+                body[op] = body.get(op, 0) + 1
+        per = max(body.get("SHFL.UP", 1), 1)
+        out[kind] = {"cycles_per_step": step_s * SM_CLOCK,
+                     "ms_per_step": step_s * 1e3,
+                     "sass_per_step": {op: k / per for op, k in body.items()}}
+    return out
 
 
 def real_cells(r):
     """R with its BIG sentinel cells zeroed, for an error of the peak."""
     return torch.where(r < ref.BIG_CUT, r, torch.zeros_like(r))
+
+
+def sdtw_costs(gen, B, n, m, dev, planted=False):
+    """Seeded series pair -> the (B, n, m) row-major pairwise costs on
+    ``dev``; ``planted`` sets one in-matrix cost above BIG_CUT and one at
+    it (both invalid cells)."""
+    x = torch.randn((B, n, 2), generator=gen).to(dev)
+    y = torch.randn((B, m, 2), generator=gen).to(dev)
+    D = _pairwise_dist(x, y).contiguous()
+    if planted:
+        D[0, n // 2, m // 3] = 2 * ref.BIG
+        D[B - 1, n - 1, m // 2] = ref.BIG_CUT
+    return D
+
+
+def sdtw_check(gen, dev) -> dict:
+    """Phase 14: K5 (answer, R, hard answer) and K6 (E) through the
+    row-major entry points and through the diagonal-layout adapters against
+    their plain versions, bitwise, at every ``SDTW_SHAPES`` and
+    ``SDTW_EXTRA`` case and gamma 0.1 and 0.7; repeats bitwise.  Returns
+    ({(B, n, m, gamma): {name: (max abs err, err of the peak)}},
+    {(B, n, m, gamma): {name: bitwise equal to the plain version}})."""
+    errs, equal = {}, {}
+    for B, n, m, planted in ([(*sh, False) for sh in SDTW_SHAPES]
+                             + SDTW_EXTRA):
+        for gamma in (0.1, 0.7):
+            D = sdtw_costs(gen, B, n, m, dev, planted)
+            dd = ref.diag_layout(D).contiguous()
+            ans, R = softdtw.softdtw_rowmajor(D, gamma=gamma, return_r=True)
+            E = softdtw.softdtw_rowmajor_bwd(D, R, gamma=gamma)
+            ans2, R2 = softdtw.softdtw_rowmajor(D, gamma=gamma, return_r=True)
+            E2 = softdtw.softdtw_rowmajor_bwd(D, R, gamma=gamma)
+            d_ans, d_r = softdtw.softdtw_wavefront(dd, n, m, gamma=gamma,
+                                                   return_r=True)
+            got = {"K5": ans, "K5 R": R,
+                   "K5 hard": softdtw.softdtw_rowmajor(D, hard=True),
+                   "K6": E, "diag K5": d_ans, "diag K5 R": d_r,
+                   "diag K5 hard": softdtw.softdtw_wavefront(dd, n, m,
+                                                             hard=True),
+                   "diag K6": softdtw.softdtw_wavefront_bwd(dd, d_r, n, m,
+                                                            gamma=gamma)}
+            p_ans, p_r = ref.softdtw_rowmajor_ref(D, gamma=gamma,
+                                                  return_r=True)
+            pd_ans, pd_r = ref.softdtw_wavefront_ref(dd, n, m, gamma=gamma,
+                                                     return_r=True)
+            want = {"K5": p_ans, "K5 R": p_r,
+                    "K5 hard": ref.softdtw_rowmajor_ref(D, hard=True),
+                    "K6": ref.softdtw_rowmajor_bwd_ref(D, p_r, gamma=gamma),
+                    "diag K5": pd_ans, "diag K5 R": pd_r,
+                    "diag K5 hard": ref.softdtw_wavefront_ref(dd, n, m,
+                                                              hard=True),
+                    "diag K6": ref.softdtw_wavefront_bwd_ref(dd, pd_r, n, m,
+                                                             gamma=gamma)}
+            torch.cuda.synchronize()
+            case = f"({B}, {n}, {m}){' planted' if planted else ''}"
+            errs[B, n, m, gamma] = {}
+            for k, x in got.items():
+                real = real_cells(x) if k.endswith(" R") else x
+                check(bool(torch.isfinite(real).all()),
+                      f"{k} {case} gamma {gamma}: non-finite")
+                errs[B, n, m, gamma][k] = rel_err(
+                    real, real_cells(want[k]) if k.endswith(" R") else want[k])
+            same = equal[B, n, m, gamma] = {
+                k: torch.equal(got[k], want[k]) for k in got}
+            repeats = (torch.equal(ans, ans2) and torch.equal(R, R2)
+                       and torch.equal(E, E2))
+            print(f"K5/K6 vs plain {case} gamma {gamma}: " + ", ".join(
+                f"{k} {e[1]:.3e}" for k, e in errs[B, n, m, gamma].items())
+                + f" of the peak; bitwise equal to the plain versions: "
+                f"{all(same.values())}; repeats bitwise: {repeats}")
+            check(all(same.values()), f"K5/K6 {case} gamma {gamma}: not "
+                  f"bitwise the plain version in {[k for k, v in same.items() if not v]}")
+            check(repeats, f"K5/K6 {case} gamma {gamma}: two calls differ")
+    return errs, equal
+
+
+def sdtw_times(gen, dev, smi, chain) -> dict:
+    """Phase 16's kernel timing at the two Lorenz96 training shapes: K5
+    (with R) and K6 on the row-major costs, CUDA-event means queued ahead
+    (kernel) and back to back with the wrapper (per call), the plain
+    versions, the bytes bound and the chain bound.  Returns {(B, n, m):
+    {"K5": row, "K6": row}}."""
+    times = {}
+    for B, n, m in ((29, 61, 61), (8, 201, 201)):
+        D = sdtw_costs(gen, B, n, m, dev)
+        _, R = softdtw.softdtw_rowmajor(D, gamma=0.1, return_r=True)
+        rows = {}
+        for kname, bwd in (("K5", False), ("K6", True)):
+            def call():
+                if bwd:
+                    return softdtw.softdtw_rowmajor_bwd(D, R, gamma=0.1)
+                return softdtw.softdtw_rowmajor(D, gamma=0.1, return_r=True)
+
+            def plain():
+                if bwd:
+                    return ref.softdtw_rowmajor_bwd_ref(D, R, gamma=0.1)
+                return ref.softdtw_rowmajor_ref(D, gamma=0.1, return_r=True)
+            k_ms = cuda_ms(call, reps=50, queue_ahead=True)
+            call_ms = cuda_ms(call, reps=50)
+            p_ms = cuda_ms(plain, reps=3, warmup=1)
+            flops, moved = sdtw_work(B, n, m, bwd)
+            b_ms, b_by = bound(flops, moved)
+            chain_ms = (n + m - 1) * chain[kname]["ms_per_step"]
+            rows[kname] = {"ms": k_ms, "call_ms": call_ms, "plain_ms": p_ms,
+                           "bound_ms": b_ms, "bound_by": b_by,
+                           "chain_bound_ms": chain_ms}
+            wrapper = ("softdtw_rowmajor_bwd" if bwd
+                       else "softdtw_rowmajor (with R)")
+            print(f"[{smi}] {kname} {wrapper} (B, n, m) = ({B}, {n}, {m}), "
+                  f"{softdtw.band_warps(n)} warps: kernel_ms {k_ms:.4f} (per call with the "
+                  f"wrapper {call_ms:.4f}), plain_ms {p_ms:.4f}, bound_ms "
+                  f"{b_ms:.6f} ({b_by}: {flops / 1e6:.3f} MFLOP, "
+                  f"{moved / 1e6:.3f} MB), chain_bound_ms {chain_ms:.4f} "
+                  f"(n+m-1 = {n + m - 1} steps x "
+                  f"{chain[kname]['cycles_per_step']:.1f} cycles at "
+                  f"{SM_CLOCK / 1e9:g} GHz); library_ms n/a (no single "
+                  f"PyTorch call computes soft-DTW)")
+        times[B, n, m] = rows
+    return times
 
 
 #: SASS opcodes counted per kernel function by :func:`sass_counts`.
@@ -952,6 +1232,7 @@ def main() -> int:
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
+    chain_lib, chain_proc = sdtw_chain_build()   # beside the kernels
     libs = _build.build()
     print(f"build: {len(libs)} kernel source(s) in "
           f"{time.perf_counter() - t0:.2f} s")
@@ -1850,47 +2131,7 @@ def main() -> int:
           f"library_ms n/a")
 
     # -- 14. K5 and K6 vs plain versions ---------------------------------------
-    sdtw_errs, sdtw_inputs = {}, {}
-    for B, n, m in SDTW_SHAPES:
-        for gamma in (0.1, 0.7):
-            dd = sdtw_case(gen, B, n, m, dev)
-            ans, rd = softdtw.softdtw_wavefront(dd, n, m, gamma=gamma,
-                                                return_r=True)
-            ans2, rd2 = softdtw.softdtw_wavefront(dd, n, m, gamma=gamma,
-                                                  return_r=True)
-            hard = softdtw.softdtw_wavefront(dd, n, m, hard=True)
-            e_dd = softdtw.softdtw_wavefront_bwd(dd, rd, n, m, gamma=gamma)
-            e_dd2 = softdtw.softdtw_wavefront_bwd(dd, rd, n, m, gamma=gamma)
-            ans_p, rd_p = ref.softdtw_wavefront_ref(dd, n, m, gamma=gamma,
-                                                    return_r=True)
-            hard_p = ref.softdtw_wavefront_ref(dd, n, m, hard=True)
-            e_p = ref.softdtw_wavefront_bwd_ref(dd, rd, n, m, gamma=gamma)
-            torch.cuda.synchronize()
-            for kname, x in (("K5", ans), ("K5 R", real_cells(rd)),
-                            ("K5 hard", hard), ("K6", e_dd)):
-                check(bool(torch.isfinite(x).all()),
-                      f"{kname} ({B}, {n}, {m}) gamma {gamma}: non-finite")
-            errs5 = [rel_err(ans, ans_p), rel_err(real_cells(rd),
-                                                  real_cells(rd_p))]
-            err5 = max(errs5, key=lambda e: e[1])
-            err5h = rel_err(hard, hard_p)
-            err6 = rel_err(e_dd, e_p)
-            bitwise = (torch.equal(ans, ans2) and torch.equal(rd, rd2)
-                       and torch.equal(e_dd, e_dd2))
-            same = (torch.equal(ans, ans_p) and torch.equal(rd, rd_p)
-                    and torch.equal(hard, hard_p) and torch.equal(e_dd, e_p))
-            sdtw_errs[B, n, m, gamma] = {"K5": err5, "K5 hard": err5h,
-                                         "K6": err6}
-            sdtw_inputs[B, n, m, gamma] = (dd, rd)
-            print(f"K5/K6 vs plain (B, n, m) = ({B}, {n}, {m}) gamma "
-                  f"{gamma}: K5 value {errs5[0][1]:.3e}, R {errs5[1][1]:.3e}"
-                  f", hard {err5h[1]:.3e}, K6 E {err6[1]:.3e} of the peak "
-                  f"(limit {TOL:g}); repeats bitwise identical: {bitwise}; "
-                  f"bitwise equal to the plain versions: {same}")
-            for kname, (_, r) in sdtw_errs[B, n, m, gamma].items():
-                check(r <= TOL, f"{kname} ({B}, {n}, {m}) gamma {gamma}: "
-                                f"kernel disagrees with its plain version")
-            check(bitwise, f"K5/K6 ({B}, {n}, {m}): two calls differ")
+    sdtw_errs, sdtw_equal = sdtw_check(gen, dev)
     # the autograd Function (K5 forward, K6 backward) against autograd
     # through the reference DP
     gx = torch.Generator().manual_seed(SEED + 14)
@@ -1996,39 +2237,29 @@ def main() -> int:
     check(lyap["mle"] > 0, "L96 maximal Lyapunov exponent not positive")
 
     # -- 16. K5 and K6 timing --------------------------------------------------------
-    sdtw_times = {}
+    chain = sdtw_chain(chain_lib, chain_proc, dev)
+    for kname in ("K5", "K6"):
+        c = chain[kname]
+        print(f"[{smi}] {kname} chain: {c['ms_per_step'] * 1e6:.2f} ns = "
+              f"{c['cycles_per_step']:.1f} SM cycles at {SM_CLOCK / 1e9:g} "
+              f"GHz a dependent step on one warp (chain probe, "
+              f"{SDTW_CHAIN_STEPS} "
+              f"steps, CUDA events); SASS a step of the probe's loop: "
+              + ", ".join(f"{op} {k:g}"
+                          for op, k in sorted(c["sass_per_step"].items())))
+    sdtw_timed = sdtw_times(gen, dev, smi, chain)
     for (B, n, m), seg in (((29, 61, 61), 60), ((8, 201, 201), 200)):
-        dd, rd = sdtw_inputs[B, n, m, 0.1]
-        rows = {}
-        for kname, call, plain, bwd in (
-                ("K5", lambda: softdtw.softdtw_wavefront(
-                    dd, n, m, gamma=0.1, return_r=True),
-                 lambda: ref.softdtw_wavefront_ref(dd, n, m, gamma=0.1,
-                                                   return_r=True), False),
-                ("K6", lambda: softdtw.softdtw_wavefront_bwd(
-                    dd, rd, n, m, gamma=0.1),
-                 lambda: ref.softdtw_wavefront_bwd_ref(dd, rd, n, m,
-                                                       gamma=0.1), True)):
-            k_ms = cuda_ms(call, reps=50, queue_ahead=True)
-            call_ms = cuda_ms(call, reps=50)
-            p_ms = cuda_ms(plain, reps=3, warmup=1)
-            flops, moved = sdtw_work(B, n, m, bwd)
-            b_ms, b_by = bound(flops, moved)
-            rows[kname] = (k_ms, call_ms, p_ms, b_ms, b_by)
-            wrapper = ("softdtw_wavefront_bwd" if bwd
-                       else "softdtw_wavefront (with R)")
-            print(f"[{smi}] {kname} {wrapper} "
-                  f"(B, n, m) = ({B}, {n}, {m}), chain n+m-1 = {n + m - 1} "
-                  f"diagonals: kernel_ms {k_ms:.4f} (per call with the "
-                  f"wrapper {call_ms:.4f}), plain_ms {p_ms:.4f}, bound_ms "
-                  f"{b_ms:.6f} ({b_by}: {flops / 1e6:.3f} MFLOP, "
-                  f"{moved / 1e6:.3f} MB), launches per fused P4 step 1, "
-                  f"library_ms n/a (no single PyTorch call computes "
-                  f"soft-DTW)")
+        rows = sdtw_timed[B, n, m]
         # the whole soft-DTW term of a step, forward and backward, on
         # predictions and targets of the P4 shape: host clock around 20
-        # calls ended by a device sync (the glue around K5 and K6: the
-        # pairwise cost and its backward, the layout, the gather of E)
+        # calls ended by a device sync, and the device kernels of one call
+        # in a profiler trace of 5 (the pairwise cost and its backward, K5,
+        # K6, the scaling); beside them an estimate of the first port's
+        # count: this term's plus the kernels of the layout glue it ran
+        # around the same kernels (the diagonal layout of D and the gather
+        # of E, traced alone), which this port no longer runs.  The first
+        # port's term itself is measured by launch/kernel_timing.py on its
+        # tree.
         preds = torch.randn((B, n, 6), generator=gen).to(dev)
         targets = torch.randn((B, n, 6), generator=gen).to(dev)
         leaf = preds.clone().requires_grad_()
@@ -2036,20 +2267,53 @@ def main() -> int:
         def sdtw_term():
             torch.mean(ops.soft_dtw(leaf, targets, 0.1)).backward()
 
+        def glue():
+            D = _pairwise_dist(preds, targets)
+            ref.undiag_layout(ref.diag_layout(D).contiguous(), n, m)
+
         sdtw_term()
+        glue()
         torch.cuda.synchronize()
         t_t = time.perf_counter()
         for _ in range(20):
             sdtw_term()
         torch.cuda.synchronize()
         term_ms = (time.perf_counter() - t_t) / 20 * 1e3
+        counts = {}
+        for name, fn in (("term", sdtw_term), ("glue", glue)):
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof_t:
+                for _ in range(5):
+                    fn()
+                torch.cuda.synchronize()
+            counts[name] = sum(
+                1 for ev in prof_t.events()
+                if ev.device_type == torch.autograd.DeviceType.CUDA) / 5
+        # the glue's pairwise cost is not part of the parent's extra work
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof_c:
+            for _ in range(5):
+                _pairwise_dist(preds, targets)
+            torch.cuda.synchronize()
+        cost_kernels = sum(
+            1 for ev in prof_c.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA) / 5
+        glue_estimate = counts["term"] + counts["glue"] - cost_kernels
         step_ms = p4[seg][1] / p4_steps * 1e3
-        k56 = rows["K5"][0] + rows["K6"][0]
+        k56 = rows["K5"]["ms"] + rows["K6"]["ms"]
         print(f"[{smi}] P4 segment length {seg}: K5 + K6 {k56:.4f} ms of a "
               f"{step_ms:.3f} ms step ({100 * k56 / step_ms:.2f}%); the "
-              f"soft-DTW term (cost, K5, K6, gather, backward to the "
-              f"predictions) {term_ms:.4f} ms per call, host clock")
-        sdtw_times[B, n, m] = rows
+              f"soft-DTW term (cost, K5, K6, backward to the predictions) "
+              f"{term_ms:.4f} ms per call, host clock, {counts['term']:g} "
+              f"device kernels per call (profiler); estimate with the "
+              f"first port's layout and gather around the same kernels: "
+              f"{glue_estimate:g}")
+        check(counts["term"] < glue_estimate,
+              "the soft-DTW term launches no fewer kernels than with the "
+              "layout glue")
+        rows["K5"]["term_ms"] = term_ms
+        rows["K5"]["term_kernels"] = counts["term"]
+        rows["K5"]["term_kernels_glue_estimate"] = glue_estimate
 
     # where a P4 step's time goes: a torch.profiler trace of 5 steps at
     # segment length 60 (the trace's own host cost slows the steps)
@@ -2234,20 +2498,37 @@ def main() -> int:
         "launches_by_path": {f"P4_segment_{seg}": c[0][key]
                              for seg, c in p4.items()},
         "shape": "B=29 n=61 m=61 gamma=0.1 (L96 training, segments of 60)",
-        "max_abs_err": max(e[key][0] for e in sdtw_errs.values()),
-        "max_rel_err_of_peak": max(e[key][1] for e in sdtw_errs.values()),
-        "ms": sdtw_times[29, 61, 61][key][0],
-        "call_ms": sdtw_times[29, 61, 61][key][1],
-        "plain_ms": sdtw_times[29, 61, 61][key][2],
-        "bound_ms": sdtw_times[29, 61, 61][key][3],
-        "bound_by": sdtw_times[29, 61, 61][key][4],
+        "max_abs_err": max(v[0] for e in sdtw_errs.values()
+                           for k, v in e.items() if k.startswith(key)),
+        "max_rel_err_of_peak": max(v[1] for e in sdtw_errs.values()
+                                   for k, v in e.items()
+                                   if k.startswith(key)),
+        "bitwise_equal_to_plain": all(
+            v for e in sdtw_equal.values() for k, v in e.items()
+            if k.startswith(key) or k.startswith(f"diag {key}")),
+        **{k: sdtw_timed[29, 61, 61][key][k]
+           for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                     "chain_bound_ms")},
         "library_ms": None,
-        "segment_200_shape": dict(zip(
-            ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by"),
-            sdtw_times[8, 201, 201][key])),
+        "chain_cycles_per_step": chain[key]["cycles_per_step"],
+        **({"sdtw_log_mismatches_in_1_to_3": chain["log_mismatches"]}
+           if key == "K5" else {}),
+        "segment_200_shape": {
+            k: sdtw_timed[8, 201, 201][key][k]
+            for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                      "chain_bound_ms")},
+        **({"term_ms_by_segment": {
+                seg: sdtw_timed[shape]["K5"]["term_ms"]
+                for shape, seg in (((29, 61, 61), 60), ((8, 201, 201), 200))},
+            "term_device_kernels_by_segment": {
+                seg: {"measured": sdtw_timed[shape]["K5"]["term_kernels"],
+                      "with_layout_glue_estimate":
+                          sdtw_timed[shape]["K5"]["term_kernels_glue_estimate"]}
+                for shape, seg in (((29, 61, 61), 60), ((8, 201, 201), 200))}}
+           if key == "K5" else {}),
     } for name, key, replaces in (
-        ("softdtw_wavefront", "K5", "src/repro/kernels/softdtw.py:110"),
-        ("softdtw_wavefront_bwd", "K6",
+        ("softdtw_rowmajor", "K5", "src/repro/kernels/softdtw.py:110"),
+        ("softdtw_rowmajor_bwd", "K6",
          "src/repro/kernels/softdtw.py:215"))], *lm_entries]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

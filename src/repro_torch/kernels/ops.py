@@ -269,54 +269,37 @@ def fused_analogue_rollout(staged: dict, y0: torch.Tensor,
 # soft-DTW (K5 forward, K6 E-matrix backward)
 # ---------------------------------------------------------------------------
 
-def _diag_layout_batch(D: torch.Tensor) -> torch.Tensor:
-    """(B, n, m) costs -> the kernels' contiguous float32 (B, n+m-1, n)
-    diagonal layout (no padding to a chunk multiple)."""
-    return ref.diag_layout(D.to(torch.float32)).contiguous()
-
-
-def _undiag_batch(e_dd: torch.Tensor, n: int, m: int) -> torch.Tensor:
-    """Inverse of :func:`_diag_layout_batch`: (B, n+m-1, n) -> (B, n, m),
-    cell (i, j) gathered from ``e_dd[:, i+j, i]``."""
-    rows = torch.arange(n, device=e_dd.device)[:, None]
-    cols = torch.arange(m, device=e_dd.device)[None, :]
-    return e_dd[:, rows + cols, rows]
-
-
 class SoftDTW(torch.autograd.Function):
     """Batched soft-DTW of a (B, n, m) cost matrix: forward K5 with R,
-    backward K6.  ``apply(D, gamma)`` returns (B,) float32; the gradient
-    is ``g[:, None, None] * E`` in D's dtype, E the E-matrix."""
+    backward K6, both on the row-major matrix.  ``apply(D, gamma)``
+    returns (B,) float32; the gradient is ``g[:, None, None] * E`` in D's
+    dtype, E the E-matrix."""
 
     @staticmethod
     def forward(ctx, D, gamma):
-        n, m = D.shape[1], D.shape[2]
-        dd = _diag_layout_batch(D)
-        ans, rd = _k5.softdtw_wavefront(dd, n, m, gamma=gamma,
-                                        return_r=True)
-        ctx.save_for_backward(dd, rd)
+        D32 = D.to(torch.float32).contiguous()
+        ans, R = _k5.softdtw_rowmajor(D32, gamma=gamma, return_r=True)
+        ctx.save_for_backward(D32, R)
         ctx.gamma = gamma
         ctx.d_dtype = D.dtype
         return ans
 
     @staticmethod
     def backward(ctx, g):
-        dd, rd = ctx.saved_tensors
-        n = dd.shape[2]
-        m = dd.shape[1] - n + 1
-        e_dd = _k5.softdtw_wavefront_bwd(dd, rd, n, m, gamma=ctx.gamma)
-        dD = g[:, None, None] * _undiag_batch(e_dd, n, m)
-        return dD.to(ctx.d_dtype), None
+        D32, R = ctx.saved_tensors
+        E = _k5.softdtw_rowmajor_bwd(D32, R, gamma=ctx.gamma)
+        return (g[:, None, None] * E).to(ctx.d_dtype), None
 
 
 def soft_dtw(x: torch.Tensor, y: torch.Tensor, gamma: float = 1.0,
              precision: str | None = None) -> torch.Tensor:
     """Batched soft-DTW((B, n, d), (B, m, d)) -> (B,) through the
-    wavefront kernels: K5 forward, K6 backward, differentiable in ``x``
-    and ``y``.  The pairwise |x_i - y_j| cost stays in plain autograd
-    outside the kernels, as the JAX package leaves it to ``jax.vjp``.
-    ``precision``: ``None`` or ``"f32"`` (the bf16 cost slab is not
-    ported)."""
+    wavefront kernels on the row-major (B, n, m) cost matrix: K5 forward,
+    K6 backward, differentiable in ``x`` and ``y``.  The pairwise
+    |x_i - y_j| cost stays in plain autograd outside the kernels, as the
+    JAX package leaves it to ``jax.vjp``; the TPU kernels' diagonal
+    layout is not built.  ``precision``: ``None`` or ``"f32"`` (the bf16
+    cost slab is not ported)."""
     _k1.resolve_precision(precision, "the soft-DTW kernels")
     return SoftDTW.apply(_pairwise_dist(x, y), float(gamma))
 
@@ -325,9 +308,8 @@ def dtw_distance(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Batched hard-DTW metric, (B, n, d) x (B, m, d) -> (B,), through K5
     with ``hard=True``.  Not differentiable (a metric)."""
     with torch.no_grad():
-        D = _pairwise_dist(x, y)
-        n, m = D.shape[1], D.shape[2]
-        return _k5.softdtw_wavefront(_diag_layout_batch(D), n, m, hard=True)
+        D = _pairwise_dist(x, y).to(torch.float32).contiguous()
+        return _k5.softdtw_rowmajor(D, hard=True)
 
 
 # ---------------------------------------------------------------------------

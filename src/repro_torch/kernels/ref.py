@@ -462,16 +462,24 @@ def fused_analogue_rollout_ref(gps: Sequence[torch.Tensor],
 BIG_CUT = BIG * 0.5
 
 
-def diag_layout(D: torch.Tensor) -> torch.Tensor:
+def diag_layout(D: torch.Tensor, fill: float = BIG) -> torch.Tensor:
     """(..., n, m) cost matrices -> (..., n+m-1, n) anti-diagonal layout:
-    ``layout[k, i]`` holds cell (i, k-i), BIG where k-i is outside
-    [0, m)."""
+    ``layout[k, i]`` holds cell (i, k-i), ``fill`` (BIG) where k-i is
+    outside [0, m)."""
     n, m = D.shape[-2], D.shape[-1]
     rows = torch.arange(n, device=D.device)
     j = torch.arange(n + m - 1, device=D.device)[:, None] - rows[None, :]
     valid = (j >= 0) & (j < m)
     vals = D[..., rows[None, :], j.clamp(0, m - 1)]
-    return torch.where(valid, vals, torch.full_like(vals, BIG))
+    return torch.where(valid, vals, torch.full_like(vals, fill))
+
+
+def undiag_layout(x: torch.Tensor, n: int, m: int) -> torch.Tensor:
+    """Inverse of :func:`diag_layout`: (..., n+m-1, n) -> (..., n, m),
+    cell (i, j) gathered from ``x[..., i+j, i]``."""
+    rows = torch.arange(n, device=x.device)[:, None]
+    cols = torch.arange(m, device=x.device)[None, :]
+    return x[..., rows + cols, rows]
 
 
 def softdtw_ref(D: torch.Tensor, gamma: float,
@@ -500,7 +508,9 @@ def softdtw_wavefront_ref(dd: torch.Tensor, n: int, m: int, *,
                           return_r: bool = False):
     """Batched (soft-)DTW from the (B, n+m-1, n) float32 diagonal layout
     of the costs -> (B,), and with ``return_r`` also R in the same layout
-    — the plain version of K5 (``kernels/csrc/softdtw.cu``).
+    — the plain version of K5 (``kernels/csrc/softdtw.cu``) in the TPU
+    kernel's layout; :func:`softdtw_rowmajor_ref` runs it on row-major
+    costs.
 
     Walks the diagonals k = 0 .. n+m-2 as the kernel does: up, left and
     diag are R_{k-1}[i], R_{k-1}[i-1] and R_{k-2}[i-1] (BIG off the
@@ -535,7 +545,9 @@ def softdtw_wavefront_ref(dd: torch.Tensor, n: int, m: int, *,
 def softdtw_wavefront_bwd_ref(dd: torch.Tensor, rd: torch.Tensor, n: int,
                               m: int, *, gamma: float = 1.0) -> torch.Tensor:
     """The E-matrix dSDTW/dD in the diagonal layout, (B, n+m-1, n)
-    float32 — the plain version of K6 (``kernels/csrc/softdtw.cu``).
+    float32 — the plain version of K6 (``kernels/csrc/softdtw.cu``) in
+    the TPU kernel's layout (:func:`softdtw_rowmajor_bwd_ref` on row-major
+    operands).
 
     The closed-form reverse DP of Cuturi & Blondel 2017 (Alg. 2), walking
     k = n+m-2 .. 0: the children of cell (i, k-i) sit at layout[k+1, i+1],
@@ -572,6 +584,28 @@ def softdtw_wavefront_bwd_ref(dd: torch.Tensor, rd: torch.Tensor, n: int,
         es[k] = e_k
         e1, e2, r1, r2, d1, d2 = e_k, e1, r_k, r1, d_k, d1
     return torch.stack(es, dim=1)
+
+
+def softdtw_rowmajor_ref(D: torch.Tensor, *, gamma: float = 1.0,
+                         hard: bool = False, return_r: bool = False):
+    """The plain version of K5 on row-major costs: (B, n, m) float32 ->
+    (B,), and with ``return_r`` also R (B, n, m).  The diagonal-layout
+    plain version on ``diag_layout(D)``, R gathered back: the same cells
+    in the same order."""
+    n, m = D.shape[1], D.shape[2]
+    ans, rd = softdtw_wavefront_ref(diag_layout(D), n, m, gamma=gamma,
+                                    hard=hard, return_r=True)
+    return (ans, undiag_layout(rd, n, m)) if return_r else ans
+
+
+def softdtw_rowmajor_bwd_ref(D: torch.Tensor, R: torch.Tensor, *,
+                             gamma: float = 1.0) -> torch.Tensor:
+    """The plain version of K6 on row-major operands: the E-matrix
+    (B, n, m) from the costs D and K5's R, both (B, n, m) float32."""
+    n, m = D.shape[1], D.shape[2]
+    e_dd = softdtw_wavefront_bwd_ref(diag_layout(D), diag_layout(R), n, m,
+                                     gamma=gamma)
+    return undiag_layout(e_dd, n, m)
 
 
 def softdtw_grad_ref(D, gamma: float) -> np.ndarray:

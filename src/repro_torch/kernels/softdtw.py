@@ -1,28 +1,34 @@
 """Anti-diagonal wavefront soft-DTW, forward and backward (port of
 ``repro/kernels/softdtw.py``).
 
-:func:`softdtw_wavefront` is K5 (replaces ``softdtw_pallas``): the
+:func:`softdtw_rowmajor` is K5 (replaces ``softdtw_pallas``): the
 accumulated (soft-)DTW cost of each pair of a batch, or hard DTW with
 ``hard=True``, and with ``return_r=True`` the accumulated-cost matrix R
-that the backward needs.  :func:`softdtw_wavefront_bwd` is K6 (replaces
+that the backward needs.  :func:`softdtw_rowmajor_bwd` is K6 (replaces
 ``softdtw_bwd_pallas``): the closed-form E-matrix dSDTW/dD of Cuturi &
 Blondel 2017 by the reverse wavefront.  Both run in one launch each of
 the hand-written Hopper kernels in ``csrc/softdtw.cu``, one block per
-series pair walking all n+m-1 diagonals; the kernels' design, and what
-bounds them, are in the source's header.
+series pair, one thread per row; the kernels' design, and what bounds
+them, are in the source's header.
 
-Layout: the costs arrive diagonal-major, ``dd[b, k, i] = D[b, i, k-i]``,
-of shape (B, n+m-1, n), BIG where k-i falls outside [0, m)
-(:func:`repro_torch.kernels.ref.diag_layout`); R and E come back in the
-same layout.  Unlike the JAX package's, the layout is not padded to a
-multiple of a k-chunk: the TPU kernel's chunk grid (``_sdtw_chunk``) only
-kept long series inside VMEM, and here one block owns the whole sweep.
+Layout: the kernels read the costs D, and K6 also R, in the caller's
+row-major (B, n, m) float32 layout, and write R and E in it.  The TPU
+kernel's diagonal-major slab ``dd[b, k, i] = D[b, i, k-i]`` (of shape
+(B, n+m-1, n), BIG where k-i falls outside [0, m);
+:func:`repro_torch.kernels.ref.diag_layout`) only made each wavefront
+row one contiguous vector row of VMEM; on the card a thread that owns a
+row reads it contiguously as the wavefront moves, so the slab is not
+built.  :func:`softdtw_wavefront` and :func:`softdtw_wavefront_bwd` keep
+the slab's signature, as the counterparts of ``softdtw_pallas`` /
+``softdtw_bwd_pallas`` that the parity tests call: on CUDA they gather
+the matrix out of the slab, run the row-major kernel and lay its result
+out again (the slab's in-matrix entries only; no padding to a k-chunk).
 
-Device rule: the plain versions
-:func:`repro_torch.kernels.ref.softdtw_wavefront_ref` and
-:func:`~repro_torch.kernels.ref.softdtw_wavefront_bwd_ref` run only for
-CPU tensors.  CUDA tensors launch the kernels or raise.  Float32 only:
-the bf16 cost slab of the JAX package is not ported.
+Device rule: the plain versions (``ref.softdtw_rowmajor_ref``,
+``ref.softdtw_rowmajor_bwd_ref`` and the diagonal-layout
+``ref.softdtw_wavefront_ref`` / ``ref.softdtw_wavefront_bwd_ref``) run
+only for CPU tensors.  CUDA tensors launch the kernels or raise.  Float32
+only: the bf16 cost slab of the JAX package is not ported.
 """
 from __future__ import annotations
 
@@ -32,8 +38,11 @@ import torch
 
 from repro_torch.kernels import ref
 
-#: Rows of one pair the kernels hold (4 per thread, 1024 threads).
+#: Rows of one pair the kernels take (bands of at most 256 rows, one a
+#: thread, run one after another).
 MAX_ROWS = 4096
+#: Warps of a block: a band of 32 x warps rows is one sweep.
+MAX_WARPS = 8
 
 #: K5 launches in this process (forward, soft or hard).
 LAUNCHES = 0
@@ -41,21 +50,19 @@ LAUNCHES = 0
 BWD_LAUNCHES = 0
 
 
-def _check(caller: str, n: int, m: int, gamma: float,
-           **slabs: torch.Tensor):
-    """Validate gamma and the diagonal-layout operands; returns their
-    device."""
-    if n < 1 or m < 1:
-        raise ValueError(f"{caller}: n={n}, m={m} must both be >= 1")
+def band_warps(n: int) -> int:
+    """Warps a block for n rows: one row a thread, a single band wherever
+    n <= 256 (the other counts timed slower, PERF.md)."""
+    return min(MAX_WARPS, -(-n // 32))
+
+
+def _device_of(caller: str, gamma: float, tensors: dict):
+    """Check dtype, contiguity, shared shape and device of the operands and
+    gamma; returns their device."""
     if not gamma > 0:
         raise ValueError(f"{caller}: gamma={gamma} must be > 0")
     want = None
-    for name, x in slabs.items():
-        if x.ndim != 3 or x.shape[1:] != (n + m - 1, n) or x.shape[0] < 1:
-            raise ValueError(
-                f"{caller}: {name} has shape {tuple(x.shape)}, the diagonal "
-                f"layout of {n} x {m} costs is (B >= 1, n+m-1 = "
-                f"{n + m - 1}, n = {n})")
+    for name, x in tensors.items():
         if x.dtype != torch.float32:
             raise ValueError(
                 f"{caller}: {name} has dtype {x.dtype}; the kernels take "
@@ -74,16 +81,122 @@ def _check(caller: str, n: int, m: int, gamma: float,
         raise ValueError(
             f"{caller}: tensors on {device} — the kernel runs on CUDA and "
             f"its plain version on the CPU")
+    return device
+
+
+def _check_rows(caller: str, n: int, device):
     if device.type == "cuda" and n > MAX_ROWS:
         raise ValueError(
-            f"{caller}: series of n={n} rows; the kernel holds at most "
-            f"{MAX_ROWS} rows per pair (4 per thread of a 1024-thread "
-            f"block) — put the longer series second (m is unbounded)")
+            f"{caller}: series of n={n} rows; the kernel takes at most "
+            f"{MAX_ROWS} rows per pair — put the longer series second (m is "
+            f"unbounded)")
+
+
+def _check(caller: str, n: int, m: int, gamma: float,
+           **slabs: torch.Tensor):
+    """Validate gamma and the diagonal-layout operands; returns their
+    device."""
+    if n < 1 or m < 1:
+        raise ValueError(f"{caller}: n={n}, m={m} must both be >= 1")
+    for name, x in slabs.items():
+        if x.ndim != 3 or x.shape[1:] != (n + m - 1, n) or x.shape[0] < 1:
+            raise ValueError(
+                f"{caller}: {name} has shape {tuple(x.shape)}, the diagonal "
+                f"layout of {n} x {m} costs is (B >= 1, n+m-1 = "
+                f"{n + m - 1}, n = {n})")
+    device = _device_of(caller, gamma, slabs)
+    _check_rows(caller, n, device)
     return device
+
+
+def _check_matrices(caller: str, gamma: float, **mats: torch.Tensor):
+    """Validate gamma and the row-major (B, n, m) operands; returns their
+    device."""
+    for name, x in mats.items():
+        if x.ndim != 3 or min(x.shape) < 1:
+            raise ValueError(
+                f"{caller}: {name} has shape {tuple(x.shape)}; the kernels "
+                f"take (B, n, m) cost matrices, each size >= 1")
+    device = _device_of(caller, gamma, mats)
+    _check_rows(caller, next(iter(mats.values())).shape[1], device)
+    return device
+
+
+def _geometry(n: int, m: int, B: int, device):
+    """(warps, edge buffer or None) of a launch: more than one band of
+    32 x warps rows hands its last row on through a (B, 2, m) buffer."""
+    warps = band_warps(n)
+    edge = (torch.empty((B, 2, m), dtype=torch.float32, device=device)
+            if n > 32 * warps else None)
+    return warps, edge
 
 
 def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _raise(caller: str, err: int, B: int, n: int, m: int):
+    if err != 0:
+        raise RuntimeError(
+            f"{caller}: CUDA kernel launch failed with cudaError_t {err} "
+            f"(B={B}, n={n}, m={m})")
+
+
+def softdtw_rowmajor(D: torch.Tensor, *, gamma: float = 1.0,
+                     hard: bool = False, return_r: bool = False):
+    """Batched accumulated (soft-)DTW of (B, n, m) float32 costs -> (B,)
+    float32; with ``return_r`` also R, (B, n, m) float32.  ``gamma`` is
+    ignored when ``hard``."""
+    global LAUNCHES
+    gamma = float(gamma)
+    device = _check_matrices("softdtw_rowmajor", gamma, D=D)
+    if device.type == "cpu":
+        return ref.softdtw_rowmajor_ref(D, gamma=gamma, hard=hard,
+                                        return_r=return_r)
+    from repro_torch.kernels import _build
+    fn = _build.load("softdtw").k5_softdtw_f32
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    B, n, m = D.shape
+    warps, edge = _geometry(n, m, B, device)
+    out = torch.empty((B,), dtype=torch.float32, device=device)
+    R = torch.empty_like(D) if return_r else None
+    with torch.cuda.device(device):
+        err = fn(D.data_ptr(), out.data_ptr(),
+                 R.data_ptr() if return_r else None,
+                 None if edge is None else edge.data_ptr(), B, n, m, gamma,
+                 1.0 / gamma, int(bool(hard)), warps, _stream(device))
+    _raise("softdtw_rowmajor", err, B, n, m)
+    LAUNCHES += 1
+    return (out, R) if return_r else out
+
+
+def softdtw_rowmajor_bwd(D: torch.Tensor, R: torch.Tensor, *,
+                         gamma: float = 1.0) -> torch.Tensor:
+    """The E-matrix dSDTW/dD, (B, n, m) float32, from the costs ``D`` and
+    the forward's R, both (B, n, m) float32."""
+    global BWD_LAUNCHES
+    gamma = float(gamma)
+    device = _check_matrices("softdtw_rowmajor_bwd", gamma, D=D, R=R)
+    if device.type == "cpu":
+        return ref.softdtw_rowmajor_bwd_ref(D, R, gamma=gamma)
+    from repro_torch.kernels import _build
+    fn = _build.load("softdtw").k6_softdtw_bwd_f32
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    B, n, m = D.shape
+    warps, edge = _geometry(n, m, B, device)
+    E = torch.empty_like(D)
+    with torch.cuda.device(device):
+        err = fn(D.data_ptr(), R.data_ptr(), E.data_ptr(),
+                 None if edge is None else edge.data_ptr(), B, n, m,
+                 1.0 / gamma, warps, _stream(device))
+    _raise("softdtw_rowmajor_bwd", err, B, n, m)
+    BWD_LAUNCHES += 1
+    return E
 
 
 def softdtw_wavefront(dd: torch.Tensor, n: int, m: int, *,
@@ -92,54 +205,26 @@ def softdtw_wavefront(dd: torch.Tensor, n: int, m: int, *,
     """Batched accumulated (soft-)DTW from diagonal-layout costs -> (B,)
     float32; with ``return_r`` also R, (B, n+m-1, n) float32 in the same
     layout.  ``gamma`` is ignored when ``hard``."""
-    global LAUNCHES
     gamma = float(gamma)
     device = _check("softdtw_wavefront", n, m, gamma, dd=dd)
     if device.type == "cpu":
         return ref.softdtw_wavefront_ref(dd, n, m, gamma=gamma, hard=hard,
                                          return_r=return_r)
-    from repro_torch.kernels import _build
-    fn = _build.load("softdtw").k5_softdtw_f32
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                   + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    B = dd.shape[0]
-    out = torch.empty((B,), dtype=torch.float32, device=device)
-    rd = torch.empty_like(dd) if return_r else None
-    with torch.cuda.device(device):
-        err = fn(dd.data_ptr(), out.data_ptr(),
-                 rd.data_ptr() if return_r else None, B, n, m, gamma,
-                 1.0 / gamma, int(bool(hard)), _stream(device))
-    if err != 0:
-        raise RuntimeError(
-            f"softdtw_wavefront: CUDA kernel launch failed with cudaError_t "
-            f"{err} (B={B}, n={n}, m={m})")
-    LAUNCHES += 1
-    return (out, rd) if return_r else out
+    got = softdtw_rowmajor(ref.undiag_layout(dd, n, m), gamma=gamma,
+                           hard=hard, return_r=return_r)
+    if not return_r:
+        return got
+    return got[0], ref.diag_layout(got[1]).contiguous()
 
 
 def softdtw_wavefront_bwd(dd: torch.Tensor, rd: torch.Tensor, n: int, m: int,
                           *, gamma: float = 1.0) -> torch.Tensor:
     """The E-matrix dSDTW/dD, (B, n+m-1, n) float32 in the diagonal layout,
     from the costs ``dd`` and the forward's R ``rd`` (same layout)."""
-    global BWD_LAUNCHES
     gamma = float(gamma)
     device = _check("softdtw_wavefront_bwd", n, m, gamma, dd=dd, rd=rd)
     if device.type == "cpu":
         return ref.softdtw_wavefront_bwd_ref(dd, rd, n, m, gamma=gamma)
-    from repro_torch.kernels import _build
-    fn = _build.load("softdtw").k6_softdtw_bwd_f32
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    B = dd.shape[0]
-    e_dd = torch.empty_like(dd)
-    with torch.cuda.device(device):
-        err = fn(dd.data_ptr(), rd.data_ptr(), e_dd.data_ptr(), B, n, m,
-                 1.0 / gamma, _stream(device))
-    if err != 0:
-        raise RuntimeError(
-            f"softdtw_wavefront_bwd: CUDA kernel launch failed with "
-            f"cudaError_t {err} (B={B}, n={n}, m={m})")
-    BWD_LAUNCHES += 1
-    return e_dd
+    E = softdtw_rowmajor_bwd(ref.undiag_layout(dd, n, m),
+                             ref.undiag_layout(rd, n, m), gamma=gamma)
+    return ref.diag_layout(E, fill=0.0).contiguous()

@@ -70,14 +70,14 @@ def jax_slab(x, y):
 def test_diag_layout_and_undiag_match_jax_bitwise(n, m, d):
     x, y = series(n * m, 2, n, m, d)
     D, dd_j, _ = jax_slab(x, y)
-    dd_t = tops._diag_layout_batch(t(np.asarray(D)))
+    dd_t = tref.diag_layout(t(np.asarray(D))).contiguous()
     assert dd_t.shape == (2, n + m - 1, n) and dd_t.is_contiguous()
     # JAX pads to a chunk multiple with BIG rows; the port does not
     np.testing.assert_array_equal(dd_t.numpy(),
                                   np.asarray(dd_j)[:, :n + m - 1])
     np.testing.assert_array_equal(tref.diag_layout(t(np.asarray(D[0]))),
                                   np.asarray(jref.diag_layout(D[0])))
-    back = tops._undiag_batch(dd_t, n, m)
+    back = tref.undiag_layout(dd_t, n, m)
     np.testing.assert_array_equal(
         back.numpy(), np.asarray(jops._undiag_batch(dd_j, n, m)))
     np.testing.assert_array_equal(back.numpy(), np.asarray(D))
@@ -125,9 +125,9 @@ def test_plain_k6_matches_float64_oracle(gamma):
     training objective's)."""
     x, y = series(3, 1, 17, 23, 2)
     D = tlosses._pairwise_dist(t(x), t(y))
-    dd = tops._diag_layout_batch(D)
+    dd = tref.diag_layout(D).contiguous()
     _, rd = tk.softdtw_wavefront(dd, 17, 23, gamma=gamma, return_r=True)
-    E = tops._undiag_batch(tk.softdtw_wavefront_bwd(dd, rd, 17, 23,
+    E = tref.undiag_layout(tk.softdtw_wavefront_bwd(dd, rd, 17, 23,
                                                     gamma=gamma), 17, 23)[0]
     want = tref.softdtw_grad_ref(D[0].numpy(), gamma)
     np.testing.assert_allclose(E.numpy(), want, rtol=1e-4, atol=1e-5)
@@ -176,9 +176,9 @@ def test_ops_soft_dtw_gradients_at_the_training_gamma():
     assert of_peak(tx.grad, gx_j) <= 2e-3
     assert of_peak(ty.grad, gy_j) <= 2e-3
     D = tlosses._pairwise_dist(t(x), t(y))
-    dd = tops._diag_layout_batch(D)
+    dd = tref.diag_layout(D).contiguous()
     _, rd = tk.softdtw_wavefront(dd, n, m, gamma=gamma, return_r=True)
-    E = tops._undiag_batch(tk.softdtw_wavefront_bwd(dd, rd, n, m,
+    E = tref.undiag_layout(tk.softdtw_wavefront_bwd(dd, rd, n, m,
                                                     gamma=gamma), n, m)
     for b in range(2):
         want = tref.softdtw_grad_ref(D[b].numpy(), gamma)
@@ -251,7 +251,7 @@ def test_soft_dtw_refuses_what_it_does_not_take():
             tops.soft_dtw(t(x), t(y), 0.1, precision=policy)
     with pytest.raises(ValueError, match="unknown precision"):
         tops.soft_dtw(t(x), t(y), 0.1, precision="fp8")
-    dd = tops._diag_layout_batch(tlosses._pairwise_dist(t(x), t(y)))
+    dd = tref.diag_layout(tlosses._pairwise_dist(t(x), t(y))).contiguous()
     with pytest.raises(ValueError, match="diagonal layout"):
         tk.softdtw_wavefront(dd, 7, 6)
     with pytest.raises(ValueError, match="float32"):
@@ -277,11 +277,169 @@ def test_autograd_function_uses_the_kernel_pair():
     assert (tk.LAUNCHES, tk.BWD_LAUNCHES) == before
     D = tlosses._pairwise_dist(t(x), t(y)).requires_grad_()
     tops.SoftDTW.apply(D, 0.1).sum().backward()
-    dd = tops._diag_layout_batch(D.detach())
+    dd = tref.diag_layout(D.detach()).contiguous()
     _, rd = tref.softdtw_wavefront_ref(dd, 8, 9, gamma=0.1, return_r=True)
-    E = tops._undiag_batch(tref.softdtw_wavefront_bwd_ref(dd, rd, 8, 9,
+    E = tref.undiag_layout(tref.softdtw_wavefront_bwd_ref(dd, rd, 8, 9,
                                                           gamma=0.1), 8, 9)
     np.testing.assert_array_equal(D.grad.numpy(), E.numpy())
+
+
+# ---------------------------------------------------------------------------
+# row-major entry points (what the kernels take since the slab was dropped)
+# ---------------------------------------------------------------------------
+
+ROW_SHAPES = [(1, 1), (5, 5), (7, 3), (3, 7), (61, 61)]
+
+
+def row_costs(seed, n, m, planted=False):
+    """(2, n, m) pairwise costs of seeded 2-D series; ``planted`` sets one
+    in-matrix cost above BIG_CUT and one at it (invalid cells)."""
+    x, y = series(seed, 2, n, m, 2)
+    D = tlosses._pairwise_dist(t(x), t(y)).contiguous()
+    if planted:
+        D[0, n // 2, m // 3] = 2 * tref.BIG
+        D[1, n - 1, m // 2] = tref.BIG_CUT
+    return D
+
+
+@pytest.mark.parametrize("planted", [False, True], ids=["clean", "planted"])
+@pytest.mark.parametrize("gamma", [0.1, 0.7])
+@pytest.mark.parametrize("n,m", ROW_SHAPES)
+def test_rowmajor_plain_versions_match_diagonal_ones_bitwise(n, m, gamma,
+                                                             planted):
+    """Answer, R, hard answer and E of the row-major entry points (on the
+    CPU: their plain versions) are the diagonal-layout plain versions'
+    through ``diag_layout`` and the gather, bit for bit."""
+    D = row_costs(n * m + 3, n, m, planted and n * m > 1)
+    dd = tref.diag_layout(D).contiguous()
+    ans, R = tk.softdtw_rowmajor(D, gamma=gamma, return_r=True)
+    d_ans, d_r = tref.softdtw_wavefront_ref(dd, n, m, gamma=gamma,
+                                            return_r=True)
+    assert R.shape == D.shape and ans.shape == (2,)
+    assert torch.equal(ans, d_ans)
+    assert torch.equal(R, tref.undiag_layout(d_r, n, m))
+    assert torch.equal(tk.softdtw_rowmajor(D, gamma=gamma), ans)
+    assert torch.equal(tk.softdtw_rowmajor(D, hard=True),
+                       tref.softdtw_wavefront_ref(dd, n, m, hard=True))
+    E = tk.softdtw_rowmajor_bwd(D, R, gamma=gamma)
+    d_e = tref.softdtw_wavefront_bwd_ref(dd, d_r, n, m, gamma=gamma)
+    assert torch.equal(E, tref.undiag_layout(d_e, n, m))
+    # the diagonal adapters lay the same values out again
+    assert torch.equal(tref.diag_layout(E, fill=0.0), d_e)
+    if planted and n * m > 1:
+        assert float(R[0, n // 2, m // 3]) == tref.BIG
+        assert float(E[0, n // 2, m // 3]) == 0.0
+        assert float(E[1, n - 1, m // 2]) == 0.0
+
+
+@pytest.mark.parametrize("gamma", [0.1, 0.7])
+@pytest.mark.parametrize("n,m", ROW_SHAPES)
+def test_rowmajor_entry_points_match_pallas(n, m, gamma):
+    """The row-major answer, R and hard answer against ``softdtw_pallas``
+    in interpret mode on the same costs, each within 1e-5 of its peak.  E
+    against ``softdtw_bwd_pallas`` and the float64 oracle: the child
+    weights exp((R_c - R - D_c)/gamma) carry float32 rounding that grows
+    with |R|/gamma and along the sweep, and each package rounds its own
+    way, so 1e-5 of the peak holds only for the small shapes; at
+    (61, 61), gamma 0.1, the port's E is 4.1e-4 of its peak off the
+    oracle and the Pallas E 6.6e-4 (measured).  Bounds: the port to the
+    oracle 1e-3, the port to Pallas 2e-3 (measured 1.1e-3), and 5e-5
+    wherever n * m <= 25 (measured 2.9e-5 at (7, 3), gamma 0.1)."""
+    x, y = series(n * m + 17, 2, n, m, 2)
+    D, dd_j, chunk = jax_slab(x, y)
+    want, r_j = softdtw_pallas(dd_j, n, m, gamma=gamma, chunk=chunk,
+                               return_r=True)
+    want_h = softdtw_pallas(dd_j, n, m, hard=True, chunk=chunk)
+    e_j = softdtw_bwd_pallas(dd_j, r_j, n, m, gamma=gamma, chunk=chunk)
+    kd = n + m - 1
+    D_t = t(np.asarray(D)).contiguous()
+    got, R = tk.softdtw_rowmajor(D_t, gamma=gamma, return_r=True)
+    E = tk.softdtw_rowmajor_bwd(D_t, R, gamma=gamma)
+    assert of_peak(got, want) <= 1e-5
+    assert of_peak(R, tref.undiag_layout(t(np.asarray(r_j)[:, :kd]), n,
+                                         m)) <= 1e-5
+    assert of_peak(tk.softdtw_rowmajor(D_t, hard=True), want_h) <= 1e-5
+    e_pallas = of_peak(E, tref.undiag_layout(t(np.asarray(e_j)[:, :kd]),
+                                             n, m))
+    e_oracle = of_peak(E, np.stack([tref.softdtw_grad_ref(D_t[b].numpy(),
+                                                          gamma)
+                                    for b in range(2)]))
+    assert e_pallas <= (5e-5 if n * m <= 25 else 2e-3)
+    assert e_oracle <= 1e-3
+
+
+@pytest.mark.parametrize("n,m,d", [(61, 61, 6), (40, 60, 2)])
+def test_ops_soft_dtw_rowmajor_gradients_at_the_training_gamma(n, m, d):
+    """``ops.soft_dtw`` (row-major K5 + K6) at gamma 0.1, the training
+    objective's, against ``jax.grad`` of the JAX package's kernel path and
+    the float64 gradient (the float64 oracle's E through the pairwise
+    cost's autograd).  The value within 1e-5 of its peak.  The port's
+    gradients within 1e-3 of the float64 peak (measured <= 3.1e-4); JAX's
+    own within 5e-3 (measured 3.5e-3 at (61, 61, 6): its E-matrix's
+    rounding, as in ``test_ops_soft_dtw_gradients_at_the_training_gamma``),
+    so the port and JAX within 6e-3 of each other (measured 3.7e-3).  The
+    gradient through D is g * E of the row-major backward, bitwise."""
+    x, y = series(n * m + d, 2, n, m, d)
+    gamma = 0.1
+    want = jops.soft_dtw(jnp.asarray(x), jnp.asarray(y), gamma, True, "f32")
+    gx_j, gy_j = jax.grad(
+        lambda a, b: jnp.sum(jops.soft_dtw(a, b, gamma, True, "f32")),
+        argnums=(0, 1))(jnp.asarray(x), jnp.asarray(y))
+    tx, ty = t(x).requires_grad_(), t(y).requires_grad_()
+    got = tops.soft_dtw(tx, ty, gamma)
+    got.sum().backward()
+    x64 = t(x).double().requires_grad_()
+    y64 = t(y).double().requires_grad_()
+    D64 = tlosses._pairwise_dist(x64, y64)
+    D64.backward(torch.from_numpy(np.stack([
+        tref.softdtw_grad_ref(D64[b].detach().numpy(), gamma)
+        for b in range(2)])))
+    assert of_peak(got.detach(), want) <= 1e-5
+    for port, jax_g, truth in ((tx.grad, gx_j, x64.grad),
+                               (ty.grad, gy_j, y64.grad)):
+        assert of_peak(port, truth) <= 1e-3
+        assert of_peak(np.asarray(jax_g), truth) <= 5e-3
+        assert of_peak(port, jax_g) <= 6e-3
+    D = tlosses._pairwise_dist(t(x), t(y)).requires_grad_()
+    tops.SoftDTW.apply(D, gamma).backward(torch.tensor([1.0, -0.5]))
+    _, R = tk.softdtw_rowmajor(D.detach(), gamma=gamma, return_r=True)
+    E = tk.softdtw_rowmajor_bwd(D.detach(), R, gamma=gamma)
+    assert torch.equal(D.grad, torch.tensor([1.0, -0.5])[:, None, None] * E)
+
+
+def test_rowmajor_entry_points_refuse_what_the_diagonal_ones_refuse():
+    D = row_costs(0, 6, 7)
+    _, R = tk.softdtw_rowmajor(D, gamma=0.1, return_r=True)
+    for fn, args in ((tk.softdtw_rowmajor, (D,)),
+                     (tk.softdtw_rowmajor_bwd, (D, R))):
+        with pytest.raises(ValueError, match="float32"):
+            fn(*(a.double() for a in args))
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(*(a.transpose(1, 2).contiguous().transpose(1, 2)
+                 for a in args))
+        for gamma in (0.0, -1.0):
+            with pytest.raises(ValueError, match="gamma"):
+                fn(*args, gamma=gamma)
+        with pytest.raises(ValueError, match="on meta"):
+            fn(*(a.to("meta") for a in args))
+        with pytest.raises(ValueError, match=r"\(B, n, m\)"):
+            fn(*(a[0] for a in args))
+    with pytest.raises(ValueError, match="differ"):
+        tk.softdtw_rowmajor_bwd(D, R[:1].contiguous())
+    with pytest.raises(ValueError, match="differ"):
+        tk.softdtw_rowmajor_bwd(D, R[:, :, :6].contiguous())
+
+
+def test_band_warps_and_row_limit():
+    """One band of one row a thread up to 256 rows (8 warps), bands of 256
+    beyond; the CUDA path's row limit is checked before any launch."""
+    assert [tk.band_warps(n) for n in (1, 32, 33, 61, 201, 256, 257, 4096)
+            ] == [1, 1, 2, 2, 7, 8, 8, 8]
+    assert tk.MAX_ROWS == 4096
+    with pytest.raises(ValueError, match="at most 4096 rows"):
+        tk._check_rows("softdtw_rowmajor", tk.MAX_ROWS + 1,
+                       torch.device("cuda"))
+    tk._check_rows("softdtw_rowmajor", tk.MAX_ROWS, torch.device("cuda"))
 
 
 # ---------------------------------------------------------------------------
