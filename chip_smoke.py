@@ -12,7 +12,7 @@ result line:
 1. environment: a CUDA card is required; prints its name and power
    limit; TF32 is switched off so the plain versions run in full float32;
 2. build: every kernel source under ``src/repro_torch/kernels/csrc`` (K1,
-   K2, K4 with the K3 fill kernel, K5 and K6, K7, K8, K9) is compiled with
+   K2, K3, K4, K5 and K6, K7, K8, K9) is compiled with
    ``nvcc`` (one process per source, in parallel), with ptxas's registers
    and spills printed; then a line per kernel library counting, with
    ``cuobjdump --dump-sass``, the tensor-core ``HMMA`` instructions of
@@ -56,7 +56,17 @@ result line:
    step and the launch geometry;
 9. K3 (the counter noise stream) on the card against its plain version
    on a 513 x 512 block at two salts, one above 2^31: hash bits, uniforms
-   and stuck masks bitwise, normals within 1e-6;
+   and stuck masks bitwise, normals within 1e-6; K3's batched stuck masks
+   (one launch) bitwise their plain version and the per-array fill at P2's
+   programming arrays and at a ragged (100, 70) + (513, 512) pair; K3's
+   hardware-aware write path against ``ref.hw_write_path_ref`` at HP
+   (2->14->14->1, 2 draws), Lorenz96 (6->64->64->6, 4 draws) and scorecard
+   (6->512->512->6, 2 draws) widths, the calibrated spec, 1% stuck cells
+   resampled per (step, draw), the calibrated drift over 1000 reads, at
+   step 0 and at a step whose salts wrap past 2^32, as w_hw and as the
+   straight-through value: noisy within 1e-6 of each layer's peak,
+   noise-free bitwise (levels, stuck cells, drift), one launch a call,
+   repeats bitwise, a single layer's launch bitwise the batched one;
 10. K4 (fused analogue rollout) against its plain version: the Lorenz96
    fleet shape (1024 x 200, 6->64->64->6) with float storage and clean
    reads, the same with uint8 storage, read noise 0.02, 1% stuck cells
@@ -89,13 +99,29 @@ result line:
    fleet served by ``serve_fleet`` on ``analogue_fused_cuda``, 2 batches
    of 1024 x 200 (exactly 2 K4 launches and no pre-pass; the clean
    unquantised spec within 1e-4 of ``fused_cuda``; with the noisy faulty
-   spec two serves bitwise equal, one pre-pass per batch); P3,
+   spec two serves bitwise equal, one pre-pass per batch, one K3 batched
+   mask launch per programming and no K3 fill); P3,
    ``AnalogueBackend`` with uint8 storage at the scorecard width
    6->512->512->6 rolling out 1024 twins x 50 steps (exactly 200 K7
    GEMM and 200 read-pass launches, within 1e-4 of the same path on K7's
-   plain version);
+   plain version); P6, hardware-aware training of the HP twin,
+   ``train_hp_twin(seed=42, 200, 250, "fused_cuda", hw_aware=
+   HwAwareConfig(spec=spec_from_calibration(...), k_draws=2))`` (exactly one
+   K3 write-path launch and two K1 and K2 launches a step, no K3 fill or
+   mask launch; a finite loss history that falls), 40 steps from the same
+   weights twice (bitwise) and with the plain write path swapped in
+   (<= 1e-3 rel), clean beside them (the hardware-aware / clean step
+   ratio), 10 steps on ``analogue_fused_cuda`` (step-keyed, not the clean
+   loss), a ``FusedAnalogueCudaBackend(trainable=True)`` rollout's
+   gradients (finite, non-zero; ``trainable=False`` detached), the write
+   path's host cost within a step with the kernel and with the plain
+   version, and the clean and hardware-aware weights deployed on
+   ``analogue_fused_cuda`` (sine MREs printed, not a gate);
 13. K3, K4 and K7 timing with CUDA events: kernel, plain version, the
    card's bound, and for K7 one ``torch.matmul`` on the pre-combined pair;
+   K3's fill, its batched masks at P2's programming and its write path at
+   the HP and Lorenz96 step shapes, each with its wrapper's host time per
+   call (and the write path's share of P6's step);
    K4 at the fleet request clean and noisy faulty and at P1's HP shapes
    (one twin clean and noisy, 100 twins noisy), a noisy rollout's
    pre-pass also alone;
@@ -181,11 +207,15 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config, param_count  # noqa: E402
 from repro_torch.configs.lorenz96_twin import CONFIG as L96_CONFIG  # noqa: E402
-from repro_torch.core.analogue import AnalogueSpec  # noqa: E402
+from repro_torch.core.analogue import (AnalogueSpec,  # noqa: E402
+                                       drift_from_calibration,
+                                       spec_from_calibration)
 from repro_torch.core.backends import (AnalogueBackend, DigitalBackend,  # noqa: E402
                                        FusedAnalogueCudaBackend,
                                        FusedCudaBackend)
-from repro_torch.core.faults import FAULT_SALT_BASE, make_fault_model  # noqa: E402
+from repro_torch.core.faults import (FAULT_SALT_BASE, FaultModel,  # noqa: E402
+                                     StuckCells, fault_salt,
+                                     make_fault_model)
 from repro_torch.core.losses import _pairwise_dist, mre, soft_dtw_batch  # noqa: E402
 from repro_torch.core.node import mlp_init  # noqa: E402
 from repro_torch.core.twin import (TwinFleet, make_autonomous_twin,  # noqa: E402
@@ -200,8 +230,9 @@ from repro_torch.launch.fleet_serving import serve_fleet  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import model as lm_model  # noqa: E402
 from repro_torch.models import moe as lm_moe  # noqa: E402
-from repro_torch.train import (checkpoint, lm_trainer, recipes,  # noqa: E402
-                               trainer)
+from repro_torch.train import (checkpoint, hw_aware, lm_trainer,  # noqa: E402
+                               recipes, trainer)
+from repro_torch.train.hw_aware import HwAwareConfig  # noqa: E402
 from repro_torch.train.optimizer import adam  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
@@ -388,6 +419,429 @@ def noise_pass_kwargs(staged, read_noise):
     return dict(read_noise=read_noise, noise_seed=SEED,
                 g_step=staged["g_step"], g_min=staged["g_min"],
                 g_max=staged["g_max"], fault=fault_args(staged))
+
+
+# -- K3's batched masks and write path (phases 9, 12 P6, 13) -------------------
+
+CALIBRATION = ROOT / "calibration" / "paper_device.json"
+#: Phase 9's write-path widths as (name, sizes, k_draws): HP and Lorenz96
+#: at their training widths, the scorecard width of P3.
+K3_WRITE_CASES = [("hp", (2, 14, 14, 1), 2), ("l96", (6, 64, 64, 6), 4),
+                  ("scorecard", (6, 512, 512, 6), 2)]
+#: A training step whose salts wrap past 2^32 at every case above:
+#: (step k + draw) L 4 >= 4.8e9.
+K3_WRAP_STEP = 200_000_000
+WRITE_TOL = 1e-6    # w_hw, kernel vs plain, of each layer's peak (normals)
+#: Scalar operations of one counter uniform (one splitmix32 hash of about
+#: ten integer operations, the exponent bitcast and the subtraction).
+OPS_PER_UNIFORM = 12
+#: Scalar operations of one write-path element and draw besides its
+#: normals and uniforms: the pair, the level, clips, drift, the read back.
+OPS_PER_WRITE = 20
+#: P6's hardware-aware policy: the calibrated device, two draws.
+P6_DRAWS = 2
+
+
+def p2_mask_arrays():
+    """The (salt, shape) arrays of one programming of P2's fleet twin: each
+    layer's folded (in + 1, out) array, G+ and G-."""
+    cfg = recipes.FLEET
+    sizes = [cfg.state_dim] + [cfg.hidden] * cfg.n_hidden_layers + [
+        cfg.state_dim]
+    return [(fault_salt(li, pair), (a + 1, b))
+            for li, (a, b) in enumerate(zip(sizes[:-1], sizes[1:]))
+            for pair in (0, 1)]
+
+
+def k3_write_config(k: int, noisy: bool = True) -> HwAwareConfig:
+    """Phase 9's write path: the calibrated spec (programming and read
+    noise, or neither), 1% stuck cells resampled per (step, draw), the
+    calibrated drift spread over 1000 reads."""
+    spec = spec_from_calibration(CALIBRATION)
+    if not noisy:
+        spec = dataclasses.replace(spec, prog_noise=0.0, read_noise=0.0)
+    fm = FaultModel(stuck=StuckCells(rate=0.01),
+                    drift=drift_from_calibration(CALIBRATION), seed=SEED)
+    return HwAwareConfig(spec=spec, k_draws=k, noise_seed=SEED + 3,
+                         faults=fm, fault_ensemble=True, drift_reads=1000)
+
+
+def k3_masks_check(dev) -> None:
+    """Phase 9 (a): the batched mask fill at P2's programming arrays and at
+    a ragged pair, bitwise its plain version and the per-array fill."""
+    cases = {"P2 programming": (p2_mask_arrays(), 0.01, 0.5),
+             "ragged (100, 70) + (513, 512)": (
+                 [(FAULT_SALT_BASE + 5, (100, 70)),
+                  (2 ** 31 + 12345, (513, 512))], 0.2, 0.4)}
+    for name, (arrays, rate, on_frac) in cases.items():
+        before = noise.MASK_LAUNCHES
+        got = noise.stuck_cell_masks_many(SEED, arrays, rate, on_frac,
+                                          device=dev)
+        launches = noise.MASK_LAUNCHES - before
+        want = ref.stuck_cell_masks_many_ref(SEED, arrays, rate, on_frac,
+                                             device=dev)
+        single = [noise.stuck_cell_masks(SEED, salt, shape, rate, on_frac,
+                                         device=dev) for salt, shape in arrays]
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for g, w in zip(got, want)
+                   for a, b in zip(g, w))
+        same1 = all(torch.equal(a, b) for g, w in zip(got, single)
+                    for a, b in zip(g, w))
+        stuck = sum(int(g[0].sum()) for g in got)
+        print(f"K3 batched masks vs plain [{name}, {len(arrays)} arrays, "
+              f"rate {rate}]: {launches} launch, {stuck} stuck cells; "
+              f"bitwise the plain version: {same}; bitwise the per-array "
+              f"fill: {same1}")
+        check(launches == 1, f"K3 batched masks {name}: {launches} launches")
+        check(same and same1, f"K3 batched masks {name} differ")
+
+
+def folded_of(per_draw):
+    """The write path's (w_hw, b_hw) pairs as folded (K + 1, N) arrays."""
+    return [[torch.cat([w, b[None, :]]) for w, b in pairs]
+            for pairs in per_draw]
+
+
+def layer_errs(got, want):
+    """Per (draw, layer): max |got - want| and that over the layer's peak."""
+    return [(float((a - b).abs().max()),
+             float((a - b).abs().max()) / float(b.abs().max()))
+            for ga, wa in zip(got, want) for a, b in zip(ga, wa)]
+
+
+def k3_write_inputs(gen, sizes, dev):
+    params = mlp_init(gen, sizes, device=dev)
+    for p in params:
+        p["b"] = (0.1 * torch.randn(p["b"].shape, generator=gen)).to(dev)
+    return [p["w"] for p in params], [p["b"] for p in params]
+
+
+def k3_write_check(gen, dev) -> float:
+    """Phase 9 (b): the write path against ``ref.hw_write_path_ref`` at each
+    case of K3_WRITE_CASES, noisy (within WRITE_TOL of each layer's peak)
+    and noise-free (bitwise: the levels, stuck cells and drift are the
+    plain version's bits), at step 0 and K3_WRAP_STEP, the straight-through
+    value too; two calls bitwise; one layer's own launch bitwise the
+    batched one.  Returns the worst (max abs err, error of the peak)."""
+    worst = (0.0, 0.0)
+    for name, sizes, k in K3_WRITE_CASES:
+        ws, bs = k3_write_inputs(gen, sizes, dev)
+        L = len(ws)
+        for noisy in (True, False):
+            cfg = k3_write_config(k, noisy)
+            wp = hw_aware._write_path(cfg, L, k)
+            for step in (0, K3_WRAP_STEP):
+                salt = ref.hw_salt(k, L, step, k - 1, L - 1, 1, 1)
+                for ste in (False, True):
+                    before = noise.WRITE_LAUNCHES
+                    got = folded_of(noise.hw_write_path(
+                        ws, bs, wp, step, range(k), ste=ste))
+                    launches = noise.WRITE_LAUNCHES - before
+                    again = folded_of(noise.hw_write_path(
+                        ws, bs, wp, step, range(k), ste=ste))
+                    want = folded_of(ref.hw_write_path_ref(
+                        ws, bs, wp, step, range(k), ste=ste))
+                    torch.cuda.synchronize()
+                    pairs = [(a, b) for ga, wa in zip(got, want)
+                             for a, b in zip(ga, wa)]
+                    bitwise = all(torch.equal(a, b) for a, b in pairs)
+                    repeat = all(torch.equal(a, b) for ga, aa in
+                                 zip(got, again) for a, b in zip(ga, aa))
+                    finite = all(bool(torch.isfinite(a).all())
+                                 for a, _ in pairs)
+                    errs = layer_errs(got, want)
+                    rel = max(r for _, r in errs)
+                    worst = (max(worst[0], max(a for a, _ in errs)),
+                             max(worst[1], rel))
+                    print(f"K3 write path vs plain [{name} {sizes} k={k}, "
+                          f"{'noisy' if noisy else 'noise-free'}, step "
+                          f"{step} (last salt {salt:#x}), "
+                          f"{'STE value' if ste else 'w_hw'}]: {launches} "
+                          f"launch; max abs err "
+                          f"{max(a for a, _ in errs):.3e}, worst of a "
+                          f"layer's peak {rel:.3e} (limit {WRITE_TOL:g}); "
+                          f"bitwise {bitwise}; repeat bitwise {repeat}")
+                    check(launches == 1 and finite and repeat,
+                          f"K3 write path {name}: launches {launches}, "
+                          f"finite {finite}, repeat bitwise {repeat}")
+                    if noisy:
+                        check(rel <= WRITE_TOL,
+                              f"K3 write path {name}: kernel disagrees with "
+                              f"its plain version")
+                    else:
+                        check(bitwise, f"K3 write path {name}: noise-free "
+                                       f"output not bitwise the plain "
+                                       f"version's")
+            # a layer alone (its own launch, salts of its global index)
+            folded = torch.cat([ws[1], bs[1][None, :]])
+            alone = hw_aware.write_path_tensor(folded, cfg, 11, k - 1, 1, L)
+            batched = folded_of(noise.hw_write_path(ws, bs, wp, 11,
+                                                    range(k)))[k - 1][1]
+            same = torch.equal(alone, batched)
+            print(f"  K3 write path [{name}, {'noisy' if noisy else 'noise-free'}] "
+                  f"write_path_tensor of layer 1, draw {k - 1} bitwise the "
+                  f"batched launch's: {same}")
+            check(same, f"K3 write path {name}: one layer's launch differs")
+    return worst
+
+
+def k3_mask_work(arrays):
+    """(operations, bytes) of the batched mask fill: two uniforms a cell,
+    two bool masks written."""
+    cells = sum(r * c for _, (r, c) in arrays)
+    return 2 * cells * OPS_PER_UNIFORM, 2 * cells
+
+
+def k3_write_work(ws, bs, cfg, k):
+    """(operations, bytes) of one write-path call of k draws: per element
+    and draw 4 normals (with noise), 4 uniforms (with stuck cells) and the
+    chain; the folded weights read once and each draw written once."""
+    cells = sum(w.numel() + b.numel() for w, b in zip(ws, bs))
+    normals = 2 * (cfg.spec.prog_noise > 0) + 2 * (
+        cfg.effective_read_sigma > 0)
+    uniforms = 4 * (cfg.faults is not None and cfg.faults.stuck_rate > 0)
+    ops = k * cells * (normals * OPS_PER_NORMAL + uniforms * OPS_PER_UNIFORM
+                       + OPS_PER_WRITE)
+    return ops, 4 * cells * (1 + k)
+
+
+def host_ms(fn, reps: int = 100) -> float:
+    """Host-clock ms per call of ``reps`` calls enqueued behind a spin
+    kernel (the wrapper's own cost: the card never holds the host back)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sec = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return sec / reps * 1e3
+
+
+def p6_hw_aware(dev, smi, clean_twin, clean_params, zero_counts,
+                read_counts) -> dict:
+    """P6: hardware-aware training of the HP twin on the card, the
+    calibrated device at P6_DRAWS draws a step.  ``train_hp_twin`` at the
+    CI budget (one K3 write-path launch and P6_DRAWS K1 and K2 launches a
+    step, no K3 fill); 40 steps twice (bitwise), with the plain write path
+    swapped in (1e-3 rel), and clean beside them (order clean, hw, hw,
+    clean: the step-time ratio); training on ``analogue_fused_cuda``
+    (step-keyed, not the clean loss); a trainable fused analogue rollout's
+    gradients; the write path's host cost within a step; then the clean
+    (phase 7) and hardware-aware weights deployed on
+    ``analogue_fused_cuda`` (printed, not a gate).  Returns the counts by
+    path, the HP steps' times and the write path's share."""
+    spec = spec_from_calibration(CALIBRATION)
+    cfg = HwAwareConfig(spec=spec, k_draws=P6_DRAWS)
+    steps = 250
+    hists = []
+    train_twin = trainer.train_twin
+
+    def keep_history(*args, **kw):
+        out = train_twin(*args, **kw)
+        hists.append(out[1])
+        return out
+
+    trainer.train_twin = keep_history
+    try:
+        torch.cuda.synchronize()
+        t_p = time.perf_counter()
+        hw_twin, hw_params, loss = recipes.train_hp_twin(
+            seed=42, pretrain_steps=200, train_steps=steps,
+            backend="fused_cuda", hw_aware=cfg, device=dev)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t_p
+    finally:
+        trainer.train_twin = train_twin
+    path = f"P6 train_hp_twin(hw_aware, k_draws={P6_DRAWS})"
+    counts = {path: read_counts(path, {
+        "K3_write": steps, "K3": 0, "K3_masks": 0, "K1": P6_DRAWS * steps,
+        "K2": P6_DRAWS * steps, "K4": 0})}
+    hist = hists[0]
+    h0, h1 = float(hist[0]), float(hist[-1])
+    print(f"[{smi}] {path}: loss {h0:.6f} -> {h1:.6f} (final {loss:.6f}) "
+          f"in {sec:.3f} s, warm start included")
+    check(bool(torch.isfinite(hist).all()) and h1 < h0,
+          "P6: the hardware-aware loss history is not finite or did not fall")
+
+    ts, xs, _, _ = hp.generate("sine", num_points=500, dt=1e-3,
+                               amp=recipes.HP_AMP, freq=recipes.HP_FREQ,
+                               device=dev)
+    tw = make_driven_twin(1, hp.WAVEFORMS["sine"](
+        amp=recipes.HP_AMP, freq=recipes.HP_FREQ), hidden=14)
+    p0 = tw.init(torch.Generator().manual_seed(42), device=dev)
+
+    def run(hw, backend="fused_cuda", n=40):
+        torch.cuda.synchronize()
+        t_r = time.perf_counter()
+        _, h = trainer.train_twin(
+            tw, p0, ts, xs[:, None], optimizer=adam(1e-3), num_steps=n,
+            segment_len=50, loss="l1", noise_std=0.002,
+            generator=torch.Generator().manual_seed(1), backend=backend,
+            hw_aware=hw)
+        torch.cuda.synchronize()
+        return h, (time.perf_counter() - t_r) / n * 1e3
+
+    clean_a, clean_a_ms = run(None)
+    hw_a, hw_a_ms = run(cfg)
+    hw_b, hw_b_ms = run(cfg)
+    clean_b, clean_b_ms = run(None)
+    same = torch.equal(hw_a, hw_b)
+    real_write = noise.hw_write_path
+    noise.hw_write_path = (
+        lambda *a, **kw: ref.hw_write_path_ref(*a, **kw))
+    try:
+        plain, plain_step_ms = run(cfg)
+    finally:
+        noise.hw_write_path = real_write
+    plain_rel = float(((plain - hw_a).abs() / hw_a.abs()).max())
+    ratio = (hw_a_ms + hw_b_ms) / (clean_a_ms + clean_b_ms)
+    print(f"[{smi}] P6 40 HP steps from the same weights (clean; hw; hw; "
+          f"clean): {clean_a_ms:.3f}; {hw_a_ms:.3f}; {hw_b_ms:.3f}; "
+          f"{clean_b_ms:.3f} ms a step (hardware-aware / clean "
+          f"{ratio:.3f}); hw loss {float(hw_a[0]):.6f} -> "
+          f"{float(hw_a[-1]):.6f}, two runs bitwise equal: {same}; with the "
+          f"plain write path ({plain_step_ms:.3f} ms a step) max rel diff "
+          f"{plain_rel:.3e} (limit {HIST_TOL:g})")
+    check(same, "P6: two hardware-aware runs differ")
+    check(plain_rel <= HIST_TOL,
+          "P6: the plain write path's history differs from the kernel's")
+
+    # training on the analogue substrate is hardware-aware and step-keyed
+    be = FusedAnalogueCudaBackend(spec=spec)
+    ts_seg, ys_seg = trainer.make_segments(ts, xs[:, None], 50)
+    keyed = trainer.segment_loss_fn(tw, ts_seg, ys_seg,
+                                    backend=be).wants_step
+    analogue, _ = run(None, backend=be, n=10)
+    differs = not torch.equal(analogue, clean_a[:10])
+    print(f"P6 10 steps on analogue_fused_cuda: step-keyed {keyed}, loss "
+          f"{float(analogue[0]):.6f} -> {float(analogue[-1]):.6f} against "
+          f"fused_cuda's {float(clean_a[0]):.6f} -> {float(clean_a[9]):.6f};"
+          f" differs: {differs}")
+    check(keyed and differs,
+          "P6: training on analogue_fused_cuda is not hardware-aware")
+
+    # the trainable fused analogue backend differentiates its rollout
+    leaves = [{k: v.detach().clone().requires_grad_() for k, v in p.items()}
+              for p in p0]
+    trainable = FusedAnalogueCudaBackend(spec=spec, trainable=True)
+    out = trainable.rollout(trainable.program(tw.node.field, leaves),
+                            xs[:1], ts)
+    grads = torch.autograd.grad(out.sum(), [x for p in leaves
+                                            for x in p.values()])
+    ok = all(bool(torch.isfinite(g).all()) for g in grads) and all(
+        float(g.abs().sum()) > 0 for g in grads)
+    frozen = FusedAnalogueCudaBackend(spec=spec)
+    detached = frozen.rollout(frozen.program(tw.node.field, leaves), xs[:1],
+                              ts).grad_fn is None
+    print(f"P6 FusedAnalogueCudaBackend(trainable=True) rollout: gradients "
+          f"finite and non-zero: {ok} (|grad| sums "
+          f"{', '.join(f'{float(g.abs().sum()):.3e}' for g in grads)}); "
+          f"trainable=False detached: {detached}")
+    check(ok and detached, "P6: trainable rollout gradients")
+
+    # the write path's host cost within a step, kernel and plain version
+    def draws_ms(reps):
+        torch.cuda.synchronize()
+        t_w = time.perf_counter()
+        for i in range(reps):
+            hw_aware._step_draws(leaves, cfg, i)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t_w) / reps * 1e3
+
+    draws_ms(3)
+    write_ms = draws_ms(50)
+    noise.hw_write_path = (
+        lambda *a, **kw: ref.hw_write_path_ref(*a, **kw))
+    try:
+        draws_ms(2)
+        plain_write_ms = draws_ms(10)
+    finally:
+        noise.hw_write_path = real_write
+    step_ms = (hw_a_ms + hw_b_ms) / 2
+    print(f"[{smi}] P6 write path per step (host clock, the STE's forward, "
+          f"{P6_DRAWS} draws): {write_ms:.4f} ms with the kernel "
+          f"({100 * write_ms / step_ms:.2f}% of a {step_ms:.3f} ms step), "
+          f"{plain_write_ms:.4f} ms with the plain version on the card "
+          f"({100 * plain_write_ms / step_ms:.2f}%)")
+
+    # deployment: the clean and the hardware-aware weights on the card's
+    # analogue substrate (JAX's x2 gate is red in the reference: not a gate)
+    mres = {}
+    for name, prm in (("clean", clean_params), ("hw_aware", hw_params)):
+        mres[name] = [recipes.eval_hp_twin(
+            clean_twin, prm, "sine", device=dev,
+            backend=FusedAnalogueCudaBackend(spec=spec, prog_seed=100,
+                                             read_seed=rs))["mre"]
+            for rs in (0, 1)]
+    mean = {k: sum(v) / len(v) for k, v in mres.items()}
+    print(f"P6 deployed on analogue_fused_cuda (calibrated spec, prog_seed "
+          f"100, read seeds 0 and 1): sine MRE clean {mres['clean']}, "
+          f"hardware-aware {mres['hw_aware']}; clean / hardware-aware "
+          f"{mean['clean'] / mean['hw_aware']:.3f}")
+    return dict(counts=counts, step_ms=step_ms, clean_step_ms=(
+        clean_a_ms + clean_b_ms) / 2, write_ms=write_ms,
+        plain_write_ms=plain_write_ms, ratio=ratio)
+
+
+def k3_times(dev, smi, step_ms) -> dict:
+    """Phase 13's K3 rows: the batched masks at P2's programming, the write
+    path at the HP and Lorenz96 step shapes (P6's policy): kernel ms
+    (CUDA events behind a spin kernel), the wrapper's host ms per call,
+    plain ms and the bound; for the write path also the STE helper's host
+    ms and its share of P6's step."""
+    rows = {}
+    arrays = p2_mask_arrays()
+    call = functools.partial(noise.stuck_cell_masks_many, SEED, arrays, 0.01,
+                             0.5, device=dev)
+    ops, nbytes = k3_mask_work(arrays)
+    b_ms, b_by = bound(ops, nbytes)
+    rows["masks"] = dict(
+        ms=cuda_ms(call, reps=50, queue_ahead=True), host_ms=host_ms(call),
+        plain_ms=cuda_ms(lambda: ref.stuck_cell_masks_many_ref(
+            SEED, arrays, 0.01, 0.5, device=dev), reps=10, queue_ahead=True),
+        bound_ms=b_ms, bound_by=b_by)
+    r = rows["masks"]
+    print(f"[{smi}] K3 stuck_cell_masks_many [P2 programming, 6 arrays]: "
+          f"kernel_ms {r['ms']:.4f}, the wrapper's host time per call "
+          f"{r['host_ms']:.4f}, plain_ms {r['plain_ms']:.4f}, bound_ms "
+          f"{b_ms:.6f} ({b_by}: {ops / 1e6:.3f} M operations, "
+          f"{nbytes / 1e3:.1f} KB), launches per programming 1")
+    spec = spec_from_calibration(CALIBRATION)
+    gen = torch.Generator().manual_seed(SEED + 13)
+    for name, sizes, k in K3_WRITE_CASES[:2]:
+        ws, bs = k3_write_inputs(gen, sizes, dev)
+        cfg = HwAwareConfig(spec=spec, k_draws=k)
+        wp = hw_aware._write_path(cfg, len(ws), k)
+        call = functools.partial(noise.hw_write_path, ws, bs, wp, 7, range(k),
+                                 ste=True)
+        leaves = [{"w": w.clone().requires_grad_(),
+                   "b": b.clone().requires_grad_()} for w, b in zip(ws, bs)]
+        ops, nbytes = k3_write_work(ws, bs, cfg, k)
+        t_ops, t_bytes = ops / FP32_PEAK * 1e3, nbytes / HBM_BW * 1e3
+        row = dict(
+            k_draws=k, ms=cuda_ms(call, reps=50, queue_ahead=True),
+            host_ms=host_ms(call),
+            ste_host_ms=host_ms(lambda: hw_aware._step_draws(leaves, cfg, 7)),
+            plain_ms=cuda_ms(lambda: ref.hw_write_path_ref(
+                ws, bs, wp, 7, range(k), ste=True), reps=10,
+                queue_ahead=True),
+            bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            ops_bound_ms=t_ops, bytes_bound_ms=t_bytes)
+        rows[f"write_{name}"] = row
+        share = (f", {100 * row['ste_host_ms'] / step_ms:.2f}% of P6's "
+                 f"{step_ms:.3f} ms step" if name == "hp" else "")
+        print(f"[{smi}] K3 hw_write_path [{name} step {sizes}, k_draws "
+              f"{k}]: kernel_ms {row['ms']:.4f}, the wrapper's host time per "
+              f"call {row['host_ms']:.4f} (with the STE, all draws of a "
+              f"step {row['ste_host_ms']:.4f}{share}), plain_ms "
+              f"{row['plain_ms']:.4f}, bound_ms {row['bound_ms']:.7f} "
+              f"({row['bound_by']}; operations {t_ops:.7f}, bytes "
+              f"{t_bytes:.7f}), launches per step 1")
+    return rows
 
 
 #: Scalar operations of one soft-DTW cell, expf and logf counted as one
@@ -1641,6 +2095,10 @@ def main() -> int:
               f"normals max abs err {err:.3e} (limit {NORMAL_ATOL:g}), "
               f"bitwise equal: {torch.equal(z, z_ref)}")
         check(err <= NORMAL_ATOL, "K3 normals disagree with the plain version")
+    # K3's batched masks and write path (their own generator, so the later
+    # phases' data stay as they were)
+    k3_masks_check(dev)
+    k3_write_err = k3_write_check(torch.Generator().manual_seed(SEED + 9), dev)
 
     # -- 10. K4 vs plain version --------------------------------------------------
     fleet_twin = make_autonomous_twin(6, hidden=64)
@@ -1873,7 +2331,11 @@ def main() -> int:
     check(same, "K7: float64 conductances read differently from float32")
 
     # -- 12. the analogue paths ----------------------------------------------------
-    counters = {"K1": (fused_ode_mlp, "LAUNCHES"), "K3": (noise, "LAUNCHES"),
+    counters = {"K1": (fused_ode_mlp, "LAUNCHES"), "K2": (fused_ode_mlp_bwd,
+                                                           "LAUNCHES"),
+                "K3": (noise, "LAUNCHES"),
+                "K3_masks": (noise, "MASK_LAUNCHES"),
+                "K3_write": (noise, "WRITE_LAUNCHES"),
                 "K4": (fused_analogue, "LAUNCHES"),
                 "K4_noise": (fused_analogue, "NOISE_LAUNCHES"),
                 "K7": (crossbar_vmm, "LAUNCHES"),
@@ -1989,8 +2451,10 @@ def main() -> int:
             "stuck, drift), served twice", {"K4": 2 * n_batches,
                                             "K4_noise": 2 * n_batches,
                                             "K1": 0, "K7": 0})
-        check(path_counts["P2_serve_noisy_faulty_x2"]["K3"] > 0,
-              "P2: programming the stuck cells launched no K3 fill")
+        p2_k3 = path_counts["P2_serve_noisy_faulty_x2"]
+        check(p2_k3["K3_masks"] == 2 * n_batches and p2_k3["K3"] == 0,
+              "P2: expected one K3 launch (the batched stuck masks) per "
+              "programming")
         for i, (a_, b_) in enumerate(zip(serves[0][0], serves[1][0])):
             check(bool(torch.isfinite(a_).all()), f"P2 noisy batch {i}")
             same = torch.equal(a_, b_)
@@ -2032,6 +2496,11 @@ def main() -> int:
           f"on K7's plain version max abs err {p3_err[0]:.3e}, of peak "
           f"{p3_err[1]:.3e} (limit {TOL:g})")
     check(p3_err[1] <= TOL, "P3 disagrees with its plain path")
+
+    # P6: hardware-aware training of the HP twin (K3's write path, K1, K2)
+    zero_counts()
+    p6 = p6_hw_aware(dev, smi, twin, params, zero_counts, read_counts)
+    path_counts.update(p6["counts"])
 
     # -- 13. K3, K4 and K7 timing -----------------------------------------------------
     # K4 at the fleet request (P2) and at P1's HP shapes; a noisy rollout is
@@ -2125,10 +2594,13 @@ def main() -> int:
     k3_plain_ms = cuda_ms(lambda: ref.counter_normal_ref(SEED, 5, shape, dev),
                           reps=10, queue_ahead=True)
     k3_bound, k3_by = bound(n3 * OPS_PER_NORMAL, 4 * n3)
+    k3_host_ms = host_ms(k3_call)
     print(f"[{smi}] K3 counter_normal fill 513x512: kernel_ms {k3_ms:.4f} "
-          f"(per call with the wrapper {k3_wall_ms:.4f}), plain_ms "
+          f"(per call with the wrapper {k3_wall_ms:.4f}; the wrapper's host "
+          f"time per call {k3_host_ms:.4f}), plain_ms "
           f"{k3_plain_ms:.4f}, bound_ms {k3_bound:.5f} ({k3_by}), "
           f"library_ms n/a")
+    k3_rows = k3_times(dev, smi, p6["step_ms"])
 
     # -- 14. K5 and K6 vs plain versions ---------------------------------------
     sdtw_errs, sdtw_equal = sdtw_check(gen, dev)
@@ -2356,8 +2828,10 @@ def main() -> int:
                 "hp_40_steps_fused_cuda": hp40_counts["fused_cuda"][0],
                 "train_l96_twin": l96_counts[0],
                 **{f"P4_segment_{seg}": c[0]["K1"] for seg, c in p4.items()},
-                "P4_10_steps_fused_cuda": p4_cmp["K1"]}
+                "P4_10_steps_fused_cuda": p4_cmp["K1"],
+                **{p: c["K1"] for p, c in p6["counts"].items()}}
     k2_paths = {"train_hp_twin": hp_counts[1],
+                **{p: c["K2"] for p, c in p6["counts"].items()},
                 "hp_40_steps_fused_cuda": hp40_counts["fused_cuda"][1],
                 "train_l96_twin": l96_counts[1],
                 **{f"P4_segment_{seg}": c[0]["K2"] for seg, c in p4.items()},
@@ -2415,7 +2889,7 @@ def main() -> int:
     }, {
         "name": "counter_noise",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/counter_noise.cuh",
+        "source": "src/repro_torch/kernels/csrc/counter_noise.cu",
         "replaces": "src/repro/kernels/noise.py:46",
         "launches": sum(by_path("K3").values()),
         "launches_by_path": by_path("K3"),
@@ -2424,9 +2898,34 @@ def main() -> int:
         "max_abs_err": k3_err,
         "ms": k3_ms,
         "call_ms": k3_wall_ms,
+        "host_ms": k3_host_ms,
         "plain_ms": k3_plain_ms,
         "bound_ms": k3_bound,
         "bound_by": k3_by,
+        "library_ms": None,
+    }, {
+        "name": "counter_noise_stuck_masks",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/counter_noise.cu",
+        "replaces": "src/repro/kernels/noise.py:80",
+        "launches": sum(by_path("K3_masks").values()),
+        "launches_by_path": by_path("K3_masks"),
+        "shape": "P2's programming: 6 arrays (7x64, 65x64, 65x6, G+ and G-)",
+        "max_abs_err": 0.0,
+        **k3_rows["masks"],
+        "library_ms": None,
+    }, {
+        "name": "counter_noise_hw_write_path",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/counter_noise.cu",
+        "replaces": "src/repro/kernels/noise.py:100",
+        "launches": sum(by_path("K3_write").values()),
+        "launches_by_path": by_path("K3_write"),
+        "shape": "HP step: 2-14-14-1, k_draws 2",
+        "max_abs_err": k3_write_err[0],
+        "max_rel_err_of_peak": k3_write_err[1],
+        **k3_rows["write_hp"],
+        "l96_step_shape": k3_rows["write_l96"],
         "library_ms": None,
     }, {
         "name": "fused_analogue_rollout",

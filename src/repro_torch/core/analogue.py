@@ -22,8 +22,9 @@ read noise) are bitwise.
 
 Large noise-free 2-D reads (``KERNEL_DISPATCH_MIN_CELLS``) run on the
 hand-written crossbar kernel K7 (:mod:`repro_torch.kernels.crossbar_vmm`).
-The calibration loaders of the JAX module are not ported yet (ROADMAP.md,
-queue 1).
+Measured device constants load from a calibration file
+(:func:`spec_from_calibration`, :func:`drift_from_calibration`; the repo's
+reference file is ``calibration/paper_device.json``).
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.core.faults import apply_stuck, fault_salt
+from repro_torch.core.faults import ConductanceDrift, pin_stuck, stuck_masks_of
 from repro_torch.core.node import field_input
 from repro_torch.kernels import crossbar_vmm as _k7
 
@@ -83,15 +84,23 @@ def weight_scale(w: torch.Tensor, spec: AnalogueSpec) -> torch.Tensor:
     return g_range / torch.clamp(torch.max(torch.abs(w)), min=1e-12)
 
 
-def _require_programmable(w: torch.Tensor, name: str) -> torch.Tensor:
-    """Refuse integer or NaN weights, naming the input: conductances are
-    continuous, and a NaN weight would poison every read."""
-    w = torch.as_tensor(w)
+def _require_floating(w: torch.Tensor, name: str) -> torch.Tensor:
+    """Refuse integer weights, naming the input: conductances are
+    continuous.  Reads nothing back from the device."""
     if not torch.is_floating_point(w):
         raise ValueError(
             f"analogue programming: {name} has non-floating dtype "
             f"{w.dtype}; crossbar conductances are continuous — cast "
             f"{name} to a floating dtype first")
+    return w
+
+
+def _require_programmable(w: torch.Tensor, name: str) -> torch.Tensor:
+    """Refuse integer or NaN weights, naming the input: conductances are
+    continuous, and a NaN weight would poison every read.  The NaN check
+    reads back from the device, so the training write path
+    (:mod:`repro_torch.train.hw_aware`) keeps only the dtype check."""
+    w = _require_floating(torch.as_tensor(w), name)
     if bool(torch.isnan(w).any()):
         raise ValueError(
             f"analogue programming: {name} contains NaN — a NaN weight "
@@ -290,11 +299,12 @@ class RepairReport:
 
 def _simulate_write(generator, current: torch.Tensor, target: torch.Tensor,
                     sigma: float, spec: AnalogueSpec, faults,
-                    salt: int) -> torch.Tensor:
+                    masks) -> torch.Tensor:
     """One programming pulse against the simulated faulty physics:
     quantise the target, land with multiplicative noise ``sigma``, keep
-    the previous state where the pulse failed, and pin stuck cells (the
-    same counter stream the kernels re-derive)."""
+    the previous state where the pulse failed, and pin stuck cells
+    (``masks``, the array's stuck masks from the counter stream the kernels
+    re-derive; None without stuck cells)."""
     g = quantize_conductance(target, spec)
     if sigma > 0:
         g = g * (1.0 + sigma * _normal(generator, g))
@@ -303,9 +313,8 @@ def _simulate_write(generator, current: torch.Tensor, target: torch.Tensor,
         gen = generator if generator is not None else torch.Generator()
         u = torch.rand(g.shape, generator=gen, dtype=F32).to(g.device)
         g = torch.where(u < faults.write_fail_rate, current, g)
-    if faults is not None and faults.stuck_rate > 0:
-        g = apply_stuck(g, faults.seed, salt, faults.stuck_rate,
-                        faults.stuck.on_frac, spec.g_max, spec.g_min)
+    if masks is not None:
+        g = pin_stuck(g, masks, spec.g_max, spec.g_min)
     return g
 
 
@@ -323,18 +332,26 @@ def program_with_verify(generator: Optional[torch.Generator],
     is unrepairable).  Write noise backs off as ``prog_noise *
     backoff**k``.  The loop ends as soon as every cell verifies.  Returns
     ``(prog, report)``."""
+    masks = stuck_masks_of(faults, [tuple(w.shape)], w.device, layer0=layer)
+    return _program_with_verify(generator, w, spec, faults, verify, name,
+                                None if masks is None else masks[0])
+
+
+def _program_with_verify(generator, w, spec, faults, verify, name, masks):
+    """:func:`program_with_verify` with the pair's stuck masks given
+    (``(masks of G+, masks of G-)`` or None)."""
     gp_t, gm_t, scale = conductance_pair(w, spec, name)
     gp_t = quantize_conductance(gp_t, spec)
     gm_t = quantize_conductance(gm_t, spec)
     target = gp_t - gm_t
     g_range = spec.g_max - spec.g_min
-    salt_p, salt_m = fault_salt(layer, 0), fault_salt(layer, 1)
+    mask_p, mask_m = (None, None) if masks is None else masks
 
     pristine = torch.full_like(gp_t, spec.g_min)
     gp = _simulate_write(generator, pristine, gp_t, spec.prog_noise, spec,
-                         faults, salt_p)
+                         faults, mask_p)
     gm = _simulate_write(generator, pristine, gm_t, spec.prog_noise, spec,
-                         faults, salt_m)
+                         faults, mask_m)
 
     attempts = 1
     for k in range(verify.max_retries):
@@ -347,12 +364,12 @@ def program_with_verify(generator: Optional[torch.Generator],
         if k % 2 == 0:
             want = torch.clamp(gm + target, spec.g_min, spec.g_max)
             wrote = _simulate_write(generator, gp, want, sigma, spec, faults,
-                                    salt_p)
+                                    mask_p)
             gp = torch.where(need, wrote, gp)
         else:
             want = torch.clamp(gp - target, spec.g_min, spec.g_max)
             wrote = _simulate_write(generator, gm, want, sigma, spec, faults,
-                                    salt_m)
+                                    mask_m)
             gm = torch.where(need, wrote, gm)
 
     err = torch.abs((gp - gm) - target) / g_range
@@ -375,12 +392,16 @@ def program_mlp_with_verify(generator: Optional[torch.Generator],
                             faults=None,
                             verify: VerifyConfig = VerifyConfig()):
     """Per-layer :func:`program_with_verify` over an MLP (bias folded as
-    the constant-1 row).  Returns ``(progs, reports)``."""
+    the constant-1 row), every layer's stuck masks drawn at once (one K3
+    launch on CUDA).  Returns ``(progs, reports)``."""
+    folded = [_fold_bias(layer) for layer in params]
+    masks = stuck_masks_of(faults, [tuple(f.shape) for f in folded],
+                           folded[0].device if folded else "cpu")
     progs, reports = [], []
-    for i, layer in enumerate(params):
-        prog, rep = program_with_verify(
-            generator, _fold_bias(layer), spec, faults=faults,
-            verify=verify, name=f"params[{i}] (w|b folded)", layer=i)
+    for i, f in enumerate(folded):
+        prog, rep = _program_with_verify(
+            generator, f, spec, faults, verify, f"params[{i}] (w|b folded)",
+            None if masks is None else masks[i])
         progs.append(prog)
         reports.append(rep)
     return progs, reports
@@ -437,3 +458,153 @@ class AnalogueMLPVectorField:
         if self.read_seed is not None and self.spec.read_noise > 0:
             gen = _read_generator(self.read_seed, t)
         return analogue_mlp_apply(list(self.progs), inp, self.spec, gen)
+
+
+# ---------------------------------------------------------------------------
+# Device calibration: measured constants in, AnalogueSpec / drift out
+# ---------------------------------------------------------------------------
+
+CALIBRATION_SCHEMA = 1
+
+#: field name -> (required, constraint) per section; constraints are
+#: "pos" (> 0), "nonneg" (>= 0), "int" (integer >= 2) or None
+_CALIBRATION_FIELDS = {
+    "device": {
+        "g_off_S": (True, "pos"),
+        "g_on_S": (True, "pos"),
+        "levels": (True, "int"),
+        "prog_noise_sigma": (True, "nonneg"),
+        "read_noise_sigma": (True, "nonneg"),
+        "v_clamp": (False, "pos"),          # null = no clamp
+    },
+    "drift": {
+        "nu": (True, "nonneg"),
+        "tau": (True, "pos"),
+    },
+    "energy": {
+        "t_settle_us": (False, "pos"),
+        "p_base_w": (False, "pos"),
+        "p_int_w": (False, "pos"),
+        "v_read": (False, "pos"),
+        "g_mean_s": (False, "pos"),
+    },
+}
+
+
+def _check_calibration_field(sec: str, key: str, value, constraint):
+    where = f"calibration: {sec}.{key}"
+    if constraint == "int":
+        if isinstance(value, bool) or not isinstance(value, int):
+            raise ValueError(f"{where} must be an integer, got {value!r}")
+        if value < 2:
+            raise ValueError(f"{where} must be >= 2, got {value}")
+        return value
+    if isinstance(value, bool) or not isinstance(value, (int, float)):
+        raise ValueError(f"{where} must be a number, got {value!r}")
+    v = float(value)
+    if constraint == "pos" and not v > 0:
+        raise ValueError(f"{where} must be > 0, got {value}")
+    if constraint == "nonneg" and v < 0:
+        raise ValueError(f"{where} must be >= 0, got {value}")
+    return v
+
+
+def load_calibration(source) -> dict:
+    """Load and validate a measured device-constants file.
+
+    ``source`` is a path to a JSON file or an already-parsed dict.  Returns
+    the validated dict (numbers as float, ``levels`` as int).  Schema 1: a
+    required ``device`` section (``g_off_S``, ``g_on_S``, ``levels``,
+    ``prog_noise_sigma``, ``read_noise_sigma``, optional ``v_clamp``), and
+    optional ``drift`` (``nu``, ``tau``) and ``energy`` sections.  Every
+    error names the field (``calibration: device.g_on_S must be > 0, got
+    ...``); unknown sections and fields are refused by name."""
+    import json
+    import os
+
+    if isinstance(source, (str, os.PathLike)):
+        with open(source) as fh:
+            try:
+                cal = json.load(fh)
+            except json.JSONDecodeError as e:
+                raise ValueError(
+                    f"calibration file {os.fspath(source)}: invalid JSON "
+                    f"({e})") from e
+    elif isinstance(source, dict):
+        cal = source
+    else:
+        raise TypeError(
+            f"load_calibration takes a path or a dict, got "
+            f"{type(source).__name__}")
+    if not isinstance(cal, dict):
+        raise ValueError("calibration: top level must be a JSON object")
+
+    schema = cal.get("schema")
+    if schema != CALIBRATION_SCHEMA:
+        raise ValueError(
+            f"calibration: schema must be {CALIBRATION_SCHEMA}, "
+            f"got {schema!r}")
+
+    known = set(_CALIBRATION_FIELDS) | {"schema", "source"}
+    for sec in cal:
+        if sec not in known:
+            raise ValueError(f"calibration: unknown section {sec!r}")
+    if "device" not in cal:
+        raise ValueError("calibration: missing required section 'device'")
+
+    out = {"schema": CALIBRATION_SCHEMA}
+    if "source" in cal:
+        out["source"] = str(cal["source"])
+    for sec, fields in _CALIBRATION_FIELDS.items():
+        if sec not in cal:
+            continue
+        raw = cal[sec]
+        if not isinstance(raw, dict):
+            raise ValueError(
+                f"calibration: section {sec!r} must be an object, "
+                f"got {raw!r}")
+        for key in raw:
+            if key not in fields:
+                raise ValueError(f"calibration: unknown field {sec}.{key}")
+        parsed = {}
+        for key, (required, constraint) in fields.items():
+            if key not in raw or raw[key] is None:
+                if required:
+                    raise ValueError(
+                        f"calibration: missing field {sec}.{key}")
+                continue
+            parsed[key] = _check_calibration_field(sec, key, raw[key],
+                                                   constraint)
+        out[sec] = parsed
+
+    dev = out["device"]
+    if not dev["g_on_S"] > dev["g_off_S"]:
+        raise ValueError(
+            f"calibration: device.g_on_S ({dev['g_on_S']}) must exceed "
+            f"device.g_off_S ({dev['g_off_S']}) — the differential range "
+            f"is the weight-mapping denominator")
+    return out
+
+
+def spec_from_calibration(source, **overrides) -> AnalogueSpec:
+    """An :class:`AnalogueSpec` from a measured calibration file;
+    ``overrides`` replace single fields after the measured values (e.g.
+    ``read_noise=0.0``)."""
+    dev = load_calibration(source)["device"]
+    kw = dict(g_min=dev["g_off_S"], g_max=dev["g_on_S"],
+              levels=dev["levels"],
+              prog_noise=dev["prog_noise_sigma"],
+              read_noise=dev["read_noise_sigma"],
+              v_clamp=dev.get("v_clamp"))
+    kw.update(overrides)
+    return AnalogueSpec(**kw)
+
+
+def drift_from_calibration(source) -> Optional[ConductanceDrift]:
+    """The measured drift law as a
+    :class:`repro_torch.core.faults.ConductanceDrift` (None when the file
+    has no ``drift`` section)."""
+    cal = load_calibration(source)
+    if "drift" not in cal:
+        return None
+    return ConductanceDrift(nu=cal["drift"]["nu"], tau=cal["drift"]["tau"])

@@ -21,7 +21,7 @@ counterpart of ``FusedAnalogueBackend``.  The fleet axis is a batch
 dimension written out, where JAX vmaps.
 
 Not ported yet (ROADMAP.md, queue 1): ``rollout_batch_resumed``,
-``dopri5``, the analogue backend's training mode and mesh sharding.
+``dopri5`` and mesh sharding.
 """
 from __future__ import annotations
 
@@ -355,9 +355,14 @@ class FusedAnalogueCudaBackend(FusedCudaBackend):
     re-derived in the kernel (stuck cells, idempotent) with live drift
     that advances with the step count from ``n_reads``.
 
-    Serving only: the rollout is detached and float32 whatever
-    ``gradient`` says.  ``trainable=True`` (the JAX package's
-    hardware-aware training mode) raises ``NotImplementedError``.
+    Serving (``trainable=False``) is detached and float32 whatever
+    ``gradient`` says.  ``trainable=True`` arms the differentiable training
+    mode: ``program`` also stages the float32 master weights, and a
+    non-``stopgrad`` rollout passes them through the hardware-aware write
+    path (:func:`repro_torch.train.hw_aware.hw_aware_params`, one device
+    realisation keyed by ``read_seed`` at step 0: the port has no resumed
+    rollout yet) and integrates on K1 with K2's reverse-time VJP, so the
+    gradient reaches the masters through the straight-through estimator.
     ``apply`` keeps the plain crossbar read of the programmed field.
     """
 
@@ -372,12 +377,6 @@ class FusedAnalogueCudaBackend(FusedCudaBackend):
     trainable: bool = False
 
     def program(self, field: Callable, params: Params) -> ExecState:
-        if self.trainable:
-            raise NotImplementedError(
-                "FusedAnalogueCudaBackend(trainable=True): hardware-aware "
-                "training is not ported yet (ROADMAP.md, queue 1 item 4, "
-                "'Hardware-aware training'); train on 'fused_cuda' and "
-                "deploy here")
         progs, reports = _program_arrays(self, params)
         staged = {
             "scales": torch.stack([p["scale"] for p in progs]),
@@ -398,14 +397,28 @@ class FusedAnalogueCudaBackend(FusedCudaBackend):
         else:
             staged["gps"] = [p["gp"].to(torch.float32) for p in progs]
             staged["gms"] = [p["gm"].to(torch.float32) for p in progs]
+        if self.trainable:
+            # the differentiable _solve reads the f32 masters
+            staged["weights"] = [p["w"].to(torch.float32) for p in params]
+            staged["biases"] = [p["b"].to(torch.float32) for p in params]
         a_field = AnalogueMLPVectorField(
             progs=progs, spec=self.spec, drive=getattr(field, "drive", None))
         return ExecState(field=a_field, params=None, extra=staged)
 
     def _solve(self, state: ExecState, y0s, uh, dt, bt, gradient):
-        """The fused analogue solve on K4, detached for every ``gradient``."""
-        del gradient
+        """The fused analogue solve on K4, detached for every ``gradient``;
+        with ``trainable=True`` and a non-``stopgrad`` gradient, the masters
+        through the write path on K1/K2 instead."""
         from repro_torch.kernels import ops
+        if self.trainable and gradient != "stopgrad":
+            from repro_torch.train.hw_aware import (HwAwareConfig,
+                                                    hw_aware_params)
+            masters = [{"w": w, "b": b} for w, b in
+                       zip(state.extra["weights"], state.extra["biases"])]
+            eff = hw_aware_params(
+                masters, HwAwareConfig.from_backend(self, k_draws=1), 0)
+            return ops.fused_node_rollout(eff, y0s, uh, dt, batch_tile=bt,
+                                          gradient="fused_vjp")
         return ops.fused_analogue_rollout(
             state.extra, y0s, uh, dt, batch_tile=bt,
             read_noise=self.spec.read_noise, noise_seed=self.read_seed)

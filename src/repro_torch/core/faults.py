@@ -33,10 +33,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.noise import stuck_cell_masks as stuck_masks
-
-#: Salt space for fault masks, disjoint from the read-noise salts of the
-#: fused kernels (which count up from 0 per (step, stage, layer, pair)).
-FAULT_SALT_BASE = 0x0F00_0000
+from repro_torch.kernels.noise import stuck_cell_masks_many
+from repro_torch.kernels.ref import FAULT_SALT_BASE
 
 
 def fault_salt(layer: int, pair: int) -> int:
@@ -162,13 +160,35 @@ def apply_stuck(g: torch.Tensor, seed, salt, rate: float, on_frac: float,
     The masks are computed on ``g``'s device (K3's fill kernel on CUDA)."""
     if rate <= 0.0:
         return g
-    is_stuck, stuck_on = stuck_masks(seed, salt, tuple(g.shape), rate,
-                                     on_frac, row0=row0, col0=col0,
-                                     ncols=ncols, device=g.device)
+    masks = stuck_masks(seed, salt, tuple(g.shape), rate, on_frac, row0=row0,
+                        col0=col0, ncols=ncols, device=g.device)
+    return pin_stuck(g, masks, g_on, g_off)
+
+
+def pin_stuck(g: torch.Tensor, masks, g_on: float,
+              g_off: float) -> torch.Tensor:
+    """``g`` with the cells of ``masks = (is_stuck, stuck_on)`` pinned at
+    ``g_on`` / ``g_off``."""
+    is_stuck, stuck_on = masks
     on = torch.tensor(g_on, dtype=torch.float32, device=g.device)
     off = torch.tensor(g_off, dtype=torch.float32, device=g.device)
     return torch.where(is_stuck, torch.where(stuck_on, on, off).to(g.dtype),
                        g)
+
+
+def stuck_masks_of(model: Optional[FaultModel], shapes, device,
+                   layer0: int = 0) -> Optional[list]:
+    """The stuck masks of both pairs of layers ``layer0, layer0 + 1, ...``
+    with array shapes ``shapes``: ``[(masks of G+, masks of G-), ...]``,
+    drawn for all of them at once (one K3 launch on CUDA); None when the
+    model has no stuck cells."""
+    if model is None or model.stuck_rate <= 0.0:
+        return None
+    arrays = [(fault_salt(layer0 + i, pair), tuple(shape))
+              for i, shape in enumerate(shapes) for pair in (0, 1)]
+    masks = stuck_cell_masks_many(model.seed, arrays, model.stuck.rate,
+                                  model.stuck.on_frac, device=device)
+    return [(masks[2 * i], masks[2 * i + 1]) for i in range(len(shapes))]
 
 
 def drift_factor(model: Optional[FaultModel], n_reads) -> torch.Tensor:
@@ -189,22 +209,30 @@ def apply_faults_to_prog(prog: dict, model: Optional[FaultModel], spec,
                          layer: int = 0, *, n_reads: int = 0) -> dict:
     """Degrade a programmed pair as the physical array would: stuck cells
     pinned at g_max/g_min (and their uint8 level indices, when staged, at
-    ``levels - 1`` / 0), then the drift snapshot after ``n_reads``
-    evaluations scales both halves.  ``model=None`` is the identity."""
+    ``levels - 1`` / 0, from the same masks), then the drift snapshot after
+    ``n_reads`` evaluations scales both halves.  ``model=None`` is the
+    identity."""
     if model is None:
         return prog
+    masks = stuck_masks_of(model, [prog["gp"].shape], prog["gp"].device,
+                           layer0=layer)
+    return _apply_faults(prog, model, spec, None if masks is None
+                         else masks[0], n_reads)
+
+
+def _apply_faults(prog: dict, model: FaultModel, spec, masks,
+                  n_reads: int) -> dict:
+    """:func:`apply_faults_to_prog` with the pair's stuck masks given."""
     out = dict(prog)
-    if model.stuck is not None and model.stuck.rate > 0.0:
-        r, f = model.stuck.rate, model.stuck.on_frac
-        for pair, key_ in ((0, "gp"), (1, "gm")):
-            salt = fault_salt(layer, pair)
-            out[key_] = apply_stuck(out[key_], model.seed, salt, r, f,
-                                    spec.g_max, spec.g_min)
+    if masks is not None:
+        for key_, pair_masks in zip(("gp", "gm"), masks):
+            out[key_] = pin_stuck(out[key_], pair_masks, spec.g_max,
+                                  spec.g_min)
             idx_key = key_ + "_idx"
             if idx_key in out:
-                out[idx_key] = apply_stuck(
-                    out[idx_key].to(torch.float32), model.seed, salt, r, f,
-                    spec.levels - 1, 0).to(torch.uint8)
+                out[idx_key] = pin_stuck(out[idx_key].to(torch.float32),
+                                         pair_masks, spec.levels - 1,
+                                         0).to(torch.uint8)
     if model.drift is not None and model.drift.nu > 0.0:
         if "gp_idx" in out:
             raise ValueError(
@@ -220,8 +248,12 @@ def apply_faults_to_prog(prog: dict, model: Optional[FaultModel], spec,
 
 def apply_faults_to_mlp(progs, model: Optional[FaultModel], spec, *,
                         n_reads: int = 0) -> list:
-    """Per-layer :func:`apply_faults_to_prog` over a programmed MLP."""
+    """Per-layer :func:`apply_faults_to_prog` over a programmed MLP, with
+    every layer's and pair's stuck masks drawn at once."""
     if model is None:
         return list(progs)
-    return [apply_faults_to_prog(p, model, spec, layer=i, n_reads=n_reads)
-            for i, p in enumerate(progs)]
+    progs = list(progs)
+    masks = stuck_masks_of(model, [p["gp"].shape for p in progs],
+                           progs[0]["gp"].device if progs else "cpu")
+    return [_apply_faults(p, model, spec, None if masks is None else masks[i],
+                          n_reads) for i, p in enumerate(progs)]

@@ -4,9 +4,10 @@
 // counter_uniform_at, global_cell_index, stuck_cell_masks, counter_normal).
 // The JAX functions have no pallas_call of their own: they are traced into
 // the fused analogue rollout and the crossbar VMM, and run on the host for
-// the fault masks.  Here they are inline device functions that K4
-// (fused_analogue.cu) and K7 (crossbar_vmm.cu) include, plus one fill
-// kernel compiled into K4's library (k3_counter_fill) so that
+// the fault masks and hardware-aware training.  Here they are inline device
+// functions that K4 (fused_analogue.cu) and K7 (crossbar_vmm.cu) include,
+// and K3's own library (counter_noise.cu: a fill, the masks of a whole
+// programming, the hardware-aware write path) so that
 // repro_torch.kernels.noise computes on CUDA tensors too.
 //
 // Every sample is a pure function of (seed, salt, element id):

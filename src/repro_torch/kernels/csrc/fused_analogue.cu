@@ -1,5 +1,5 @@
 // K4 on Hopper: the fused analogue RK4 rollout through memristor crossbar
-// pairs, its read-noise pre-pass, and the K3 fill kernel.
+// pairs, and its read-noise pre-pass.
 //
 // Replaces repro/kernels/fused_analogue.py:fused_analogue_rollout (the
 // Pallas kernel built by _make_kernel there).  It computes the trajectory
@@ -556,66 +556,4 @@ extern "C" int k4_fused_analogue_rollout_f32(
   if (twins == 4) K4_LAUNCH(4, dyn);
   K4_LAUNCH(1, dyn);
 #undef K4_LAUNCH
-}
-
-// ---------------------------------------------------------------------------
-// K3 fill kernel: the counter stream written to device memory, for
-// repro_torch.kernels.noise on CUDA tensors (and chip_smoke.py's check of
-// the stream alone).  Modes:
-//   0  out0[i] (int64) = splitmix32(in[i])                      i < n
-//   1  out0[i] (f32)   = counter_uniform_at(seed, salt, in[i])  i < n
-//   2  out0[i] (f32)   = counter_normal_at(seed, salt, i)       i < n
-//   3  out0/out1 (bool) = is_stuck / stuck_on of the (rows, cols) block at
-//      (row0, col0) of a (?, ncols) array, ids (row0 + r) * ncols + col0 + c
-// Integer inputs are uint32 values held in int64, as the plain version
-// holds them.
-// ---------------------------------------------------------------------------
-
-__global__ void k3_fill_kernel(int mode, uint32_t seed, uint32_t salt,
-                               const long long* __restrict__ in, long long n,
-                               int cols, uint32_t row0, uint32_t col0,
-                               uint32_t ncols, float rate, float on_frac,
-                               void* out0, void* out1) {
-  const uint32_t base = cn_base(seed, salt);
-  const uint32_t base_on = cn_base(seed, salt + CN_POLARITY_SALT_OFFSET);
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    if (mode == 0) {
-      static_cast<long long*>(out0)[i] =
-          (long long)cn_splitmix32((uint32_t)in[i]);
-    } else if (mode == 1) {
-      static_cast<float*>(out0)[i] = cn_uniform_from_base(base, (uint32_t)in[i]);
-    } else if (mode == 2) {
-      static_cast<float*>(out0)[i] = cn_normal_from_base(base, (uint32_t)i);
-    } else {
-      const uint32_t r = (uint32_t)(i / cols);
-      const uint32_t c = (uint32_t)(i - (long long)r * cols);
-      const uint32_t idx = (row0 + r) * ncols + (col0 + c);
-      static_cast<unsigned char*>(out0)[i] =
-          cn_uniform_from_base(base, idx) < rate ? 1 : 0;
-      static_cast<unsigned char*>(out1)[i] =
-          cn_uniform_from_base(base_on, idx) < on_frac ? 1 : 0;
-    }
-  }
-}
-
-// Launch the K3 fill on `stream` over n elements (mode 3: n = rows * cols);
-// returns the launch's cudaError_t.
-extern "C" int k3_counter_fill(int mode, unsigned int seed, unsigned int salt,
-                               const void* in, long long n, int cols,
-                               unsigned int row0, unsigned int col0,
-                               unsigned int ncols, float rate, float on_frac,
-                               void* out0, void* out1, void* stream) {
-  if (mode < 0 || mode > 3 || n < 0 || (mode == 3 && cols < 1) ||
-      ((mode == 0 || mode == 1) && in == nullptr && n > 0))
-    return (int)cudaErrorInvalidValue;
-  cudaGetLastError();   // clear any stale error first
-  if (n == 0) return 0;
-  const int threads = 256;
-  const long long want = (n + threads - 1) / threads;
-  const int blocks = (int)(want < 4096 ? want : 4096);
-  k3_fill_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      mode, seed, salt, static_cast<const long long*>(in), n, cols, row0,
-      col0, ncols, rate, on_frac, out0, out1);
-  return (int)cudaGetLastError();
 }

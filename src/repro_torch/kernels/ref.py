@@ -5,12 +5,14 @@ stock tensor ops on whatever device its tensors lie on.  The kernel
 wrappers use them for CPU tensors, the CPU tests hold them against the
 JAX package, and ``chip_smoke.py`` holds each kernel against them on the
 card.  Sections: the fused RK4 rollout and its VJP (K1, K2), the counter
-noise stream (K3), the crossbar VMM (K7), the fused analogue rollout
+noise stream (K3, with its batched masks and the hardware-aware write
+path), the crossbar VMM (K7), the fused analogue rollout
 (K4), the soft-DTW wavefront pair (K5, K6), and the LM kernels: causal
 GQA flash attention (K8) and the selective-SSM scan (K9).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
@@ -226,6 +228,138 @@ def pin_stuck_ref(g: torch.Tensor, seed: int, salt: int, rate: float,
     val = torch.where(stuck_on, torch.tensor(g_on, dtype=F32, device=g.device),
                       torch.tensor(g_off, dtype=F32, device=g.device))
     return torch.where(is_stuck, val.to(g.dtype), g)
+
+
+def stuck_cell_masks_many_ref(seed: int, arrays, rate: float,
+                              on_frac: float = 0.5, *, device=None) -> list:
+    """The (is_stuck, stuck_on) masks of each whole array of ``arrays``, a
+    list of ``(salt, (rows, cols))``: what K3's batched mask fill writes in
+    one launch."""
+    return [stuck_cell_masks_ref(seed, salt, shape, rate, on_frac,
+                                 device=device) for salt, shape in arrays]
+
+
+#: Salt block of the hardware-aware write path (``repro/train/hw_aware.py``),
+#: between the kernels' read-noise salts and the fault masks.
+HW_SALT_BASE = 0x0A00_0000
+#: Salt block of the fault masks (``core.faults`` re-exports it), disjoint
+#: from the read-noise salts of the fused kernels, which count up from 0.
+FAULT_SALT_BASE = 0x0F00_0000
+
+
+@dataclasses.dataclass(frozen=True)
+class WritePath:
+    """The scalars of the hardware-aware write path, K3's third entry point
+    (``repro_torch.train.hw_aware`` builds one from an ``HwAwareConfig``).
+    ``num_layers`` is the L of the salt formula; ``stuck_rate`` 0 means no
+    stuck cells; ``drift`` holds each draw's float32 drift factor (empty:
+    no drift snapshot)."""
+    noise_seed: int
+    k_draws: int
+    num_layers: int
+    g_min: float
+    g_max: float
+    levels: int
+    quantize: bool
+    prog_noise: float
+    read_sigma: float
+    stuck_rate: float = 0.0
+    on_frac: float = 0.5
+    fault_seed: int = 0
+    fault_ensemble: bool = False
+    drift: tuple = ()
+
+    @property
+    def g_step(self) -> float:
+        return (self.g_max - self.g_min) / (self.levels - 1)
+
+
+def hw_salt(k_draws: int, num_layers: int, step: int, draw: int,
+            layer: int, pair: int, channel: int) -> int:
+    """``HW_SALT_BASE + ((step k + draw) L + layer) 4 + 2 pair + channel`` in
+    uint32 that wraps, as the JAX package forms it."""
+    s = (int(step) * k_draws + draw) * num_layers + layer
+    return (HW_SALT_BASE + s * 4 + 2 * pair + channel) & U32_MASK
+
+
+def hw_write_tensor_ref(folded: torch.Tensor, wp: WritePath, step: int,
+                        draw: int, layer: int, *,
+                        ste: bool = False) -> torch.Tensor:
+    """One folded array (bias as the last row) through the write path, in
+    ``repro/train/hw_aware.py:write_path_tensor``'s order: differential pair
+    at the layer's scale, 6-bit quantise, programming noise clipped to
+    [0, 1.5 g_max], stuck pinning, drift snapshot, read noise,
+    ``(g+ - g-) / scale``.  ``ste`` returns ``folded + (w_hw - folded)``,
+    the straight-through estimator's value.
+
+    Every division is a true division on either device (the level's divisor
+    is a 0-dim tensor on ``folded``'s device: a Python divisor becomes a
+    multiplication by its reciprocal on CUDA), so the kernel can repeat
+    each operation bit for bit."""
+    f = folded.to(F32)
+    dev = f.device
+    shape = tuple(f.shape)
+    g_min = torch.full((), wp.g_min, dtype=F32, device=dev)
+    g_max = torch.full((), wp.g_max, dtype=F32, device=dev)
+    scale = (wp.g_max - wp.g_min) / torch.clamp(torch.max(torch.abs(f)),
+                                                min=1e-12)
+    mag = torch.abs(f) * scale
+    gp = torch.where(f >= 0, wp.g_min + mag, g_min)
+    gm = torch.where(f >= 0, g_min, wp.g_min + mag)
+    if wp.quantize:
+        g_step = torch.full((), wp.g_step, dtype=F32, device=dev)
+
+        def quantize(g):
+            q = torch.clamp(torch.round((g - wp.g_min) / g_step), 0,
+                            wp.levels - 1)
+            return wp.g_min + q * wp.g_step
+        gp, gm = quantize(gp), quantize(gm)
+
+    def noisy(g, sigma, pair, channel):
+        e = counter_normal_ref(wp.noise_seed, hw_salt(
+            wp.k_draws, wp.num_layers, step, draw, layer, pair, channel),
+            shape, dev)
+        return g * (1.0 + sigma * e)
+
+    if wp.prog_noise > 0:
+        gp = torch.clamp(noisy(gp, wp.prog_noise, 0, 0), 0.0, wp.g_max * 1.5)
+        gm = torch.clamp(noisy(gm, wp.prog_noise, 1, 0), 0.0, wp.g_max * 1.5)
+    if wp.stuck_rate > 0:
+        seed = wp.fault_seed & U32_MASK
+        if wp.fault_ensemble:
+            seed = splitmix32_ref(
+                seed ^ ((int(step) * wp.k_draws + draw) & U32_MASK))
+        pinned = []
+        for pair, g in ((0, gp), (1, gm)):
+            is_stuck, stuck_on = stuck_cell_masks_ref(
+                seed, FAULT_SALT_BASE + 2 * layer + pair, shape,
+                wp.stuck_rate, wp.on_frac, device=dev)
+            pinned.append(torch.where(is_stuck,
+                                      torch.where(stuck_on, g_max, g_min), g))
+        gp, gm = pinned
+    if wp.drift:
+        gp = gp * wp.drift[draw]
+        gm = gm * wp.drift[draw]
+    if wp.read_sigma > 0:
+        gp = noisy(gp, wp.read_sigma, 0, 1)
+        gm = noisy(gm, wp.read_sigma, 1, 1)
+    w_hw = (gp - gm) / scale
+    return f + (w_hw - f) if ste else w_hw
+
+
+def hw_write_path_ref(weights: Sequence[torch.Tensor],
+                      biases: Sequence[torch.Tensor], wp: WritePath,
+                      step: int, draws, *, layer0: int = 0,
+                      ste: bool = False) -> list:
+    """Every layer's folded weights through the write path, for each draw
+    of ``draws``: a list (per draw) of lists (per layer) of ``(w_hw,
+    b_hw)``, the rows and the last row of the ``(K + 1, N)`` result.
+    Layer i takes salts as layer ``layer0 + i``."""
+    folded = [torch.cat([w.to(F32), b.to(F32)[None, :]])
+              for w, b in zip(weights, biases)]
+    out = [[hw_write_tensor_ref(fo, wp, step, d, layer0 + li, ste=ste)
+            for li, fo in enumerate(folded)] for d in draws]
+    return [[(o[:-1], o[-1]) for o in per_layer] for per_layer in out]
 
 
 # ---------------------------------------------------------------------------

@@ -2,11 +2,20 @@
 this tree or on another tree's ``src``, so that one command can time a
 parent and a change on the same inputs.
 
-    python3 src/repro_torch/launch/kernel_timing.py --kernel k4|sdtw [--src DIR]
+    python3 src/repro_torch/launch/kernel_timing.py --kernel k3|k4|sdtw [--src DIR]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
 (default: the one this file lies in).  Every line is one JSON object with
 the card's name and power limit from ``nvidia-smi`` and the ``src`` timed.
+
+``k3``: K3 on the noisy analogue serving path P2 (the Lorenz96 fleet
+twin, 6->64->64->6, uint8 storage, read noise 0.02, 1% stuck cells,
+drift): one programming of ``FusedAnalogueCudaBackend`` (host-clock ms,
+device sync, and K3 launches per programming), the host-clock ms per
+call of ``noise.stuck_cell_masks`` on one 65 x 64 array (calls queued
+behind a spin kernel: the wrapper's own cost) and its kernel's CUDA-event
+mean, and the wall ms of each of ``K3_BATCHES`` request batches of 1024
+twins x 200 steps through ``serve_fleet``, programming included.
 
 ``k4``: K4, the fused analogue RK4 rollout, at the shapes of its main
 paths, reached only through ``FusedAnalogueCudaBackend.program`` and
@@ -43,6 +52,8 @@ import time
 from pathlib import Path
 
 SEED = 0
+K3_REPS = 20
+K3_BATCHES = 3
 K4_REPS = 10
 SDTW_REPS = 50
 SDTW_SHAPES = [(29, 61, 61), (8, 201, 201)]
@@ -113,6 +124,79 @@ def _k4_cases(torch, dev):
         out[name] = (staged, y0, u.to(torch.float32).to(dev), dt,
                      kw["spec"].read_noise)
     return out
+
+
+def time_k3(torch, dev, tag: dict) -> None:
+    import tempfile
+
+    from repro_torch.core.analogue import AnalogueSpec
+    from repro_torch.core.backends import FusedAnalogueCudaBackend
+    from repro_torch.core.faults import make_fault_model
+    from repro_torch.kernels import noise
+    from repro_torch.launch.fleet_serving import serve_fleet
+    from repro_torch.train import checkpoint, recipes
+
+    def k3_launches():
+        # a tree without the batched mask fill counts only fills
+        return noise.LAUNCHES + getattr(noise, "MASK_LAUNCHES", 0)
+
+    cfg = recipes.FLEET
+    faulty = dict(spec=AnalogueSpec(prog_noise=0.0, read_noise=0.02),
+                  storage="uint8", prog_seed=SEED, read_seed=SEED,
+                  faults=make_fault_model(("stuck", dict(rate=0.01)), "drift",
+                                          seed=SEED))
+    backend = FusedAnalogueCudaBackend(batch_tile=cfg.batch_tile, **faulty)
+    fleet = recipes.make_l96_fleet(backend=backend)
+    params = fleet.twin.init(torch.Generator().manual_seed(SEED), device=dev)
+    field = fleet.twin.node.field
+    backend.program(field, params)
+    torch.cuda.synchronize()
+    before = k3_launches()
+    t0 = time.perf_counter()
+    for _ in range(K3_REPS):
+        backend.program(field, params)
+    torch.cuda.synchronize()
+    print(json.dumps({
+        "case": "P2 programming (noisy faulty, 6->64->64->6)",
+        "host_ms": (time.perf_counter() - t0) / K3_REPS * 1e3,
+        "k3_launches_per_programming": (k3_launches() - before) / K3_REPS,
+        **tag}))
+
+    def fill():
+        return noise.stuck_cell_masks(SEED, 0x0F00_0002, (65, 64), 0.01,
+                                      device=dev)
+    for _ in range(2):
+        fill()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
+    t0 = time.perf_counter()
+    for _ in range(K3_REPS * 5):
+        fill()
+    host_ms = (time.perf_counter() - t0) / (K3_REPS * 5) * 1e3
+    torch.cuda.synchronize()
+    print(json.dumps({
+        "case": "noise.stuck_cell_masks 65x64 (the fill)",
+        "host_ms": host_ms,
+        "kernel_ms": _events_ms(torch, fill, K3_REPS * 5, True), **tag}))
+
+    with tempfile.TemporaryDirectory(prefix="kernel_timing_ckpt_") as ckpt:
+        checkpoint.save_twin(ckpt, fleet.twin.init(
+            torch.Generator().manual_seed(SEED), device="cpu"))
+        stream = serve_fleet(ckpt, fleet, recipes.l96_fleet_ts(),
+                             recipes.l96_fleet_requests(
+                                 num_batches=K3_BATCHES, seed=SEED,
+                                 device=dev), device=dev)
+        batch_ms = []
+        while True:
+            t0 = time.perf_counter()
+            out = next(stream, None)
+            torch.cuda.synchronize()
+            if out is None:
+                break
+            batch_ms.append((time.perf_counter() - t0) * 1e3)
+    print(json.dumps({
+        "case": "P2 serve_fleet noisy faulty, 1024 twins x 200 steps",
+        "batch_ms": batch_ms, **tag}))
 
 
 def time_k4(torch, dev, tag: dict) -> None:
@@ -193,8 +277,9 @@ def time_sdtw(torch, dev, tag: dict) -> None:
 def main(argv=None) -> int:
     here = Path(__file__).resolve().parents[2]
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", required=True, choices=("k4", "sdtw"),
-                    help="k4: the analogue rollout; sdtw: K5 and K6")
+    ap.add_argument("--kernel", required=True, choices=("k3", "k4", "sdtw"),
+                    help="k3: the counter noise on analogue serving; k4: "
+                         "the analogue rollout; sdtw: K5 and K6")
     ap.add_argument("--src", default=str(here),
                     help="directory holding the repro_torch package to time")
     args = ap.parse_args(argv)
@@ -209,7 +294,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    timer = time_k4 if args.kernel == "k4" else time_sdtw
+    timer = {"k3": time_k3, "k4": time_k4, "sdtw": time_sdtw}[args.kernel]
     timer(torch, torch.device("cuda"), {"src": src, "card": smi})
     return 0
 

@@ -3,7 +3,8 @@
 The HP-memristor twin (paper Fig. 3) and the Lorenz96 twin (Fig. 4):
 ground truth, derivative-matching warm start, multiple-shooting
 trajectory training on a chosen substrate (``backend="fused_cuda"``
-trains through the hand-written kernels K1 and K2), and the paper's
+trains through the hand-written kernels K1 and K2; ``hw_aware=`` trains
+through the analogue write path, K3), and the paper's
 evaluation protocols and the Lorenz96 system's Lyapunov time; the
 analogue noise-robustness grid (Fig. 4j); plus the Lorenz96
 fleet-serving scenario.  Each recipe takes ``device=``
@@ -12,7 +13,7 @@ from ``torch.Generator``s seeded from ``seed``, so the port's weights
 are not the JAX package's for the same seed.
 
 Not ported yet (ROADMAP.md, queue 1): the recurrent-ResNet and
-recurrent-forecaster baselines and hardware-aware training.
+recurrent-forecaster baselines.
 
 CLI (``--device cpu`` runs the kernels' plain versions):
 
@@ -51,14 +52,16 @@ L96_DT = 0.0025
 
 def train_hp_twin(seed: int = 42, pretrain_steps: int = 400,
                   train_steps: int = 600, hidden: int = 14,
-                  backend=None, device=None):
+                  backend=None, hw_aware=None, device=None):
     """Train the HP twin on the sine drive (paper Methods: 500 pts, 1e-3 s).
 
     ``backend``: training substrate for the trajectory phase (Backend
     instance or registry name); ``"fused_cuda"`` trains on the serving
     substrate, K1 forward and K2 backward.  The derivative-matching warm
-    start evaluates the bare field and stays digital.  Returns
-    ``(twin, params, final loss)``."""
+    start evaluates the bare field and stays digital.  ``hw_aware``: an
+    optional :class:`repro_torch.train.hw_aware.HwAwareConfig`; the
+    trajectory phase then trains through the analogue write path, the warm
+    start stays clean.  Returns ``(twin, params, final loss)``."""
     device = resolve_device(device)
     ts, xs, _, _ = hp.generate("sine", num_points=500, dt=1e-3,
                                amp=HP_AMP, freq=HP_FREQ, device=device)
@@ -73,7 +76,8 @@ def train_hp_twin(seed: int = 42, pretrain_steps: int = 400,
         twin, params, ts, ys,
         optimizer=adam(warmup_cosine_schedule(3e-3, 50, train_steps)),
         num_steps=train_steps, segment_len=50, loss="l1", noise_std=0.002,
-        generator=torch.Generator().manual_seed(seed + 1), backend=backend)
+        generator=torch.Generator().manual_seed(seed + 1), backend=backend,
+        hw_aware=hw_aware)
     return twin, params, float(hist[-1])
 
 
@@ -118,12 +122,14 @@ def l96_data(num_points: int = 2400, dt: float = L96_DT, device=None):
 def train_l96_twin(seed: int = 7, pretrain_steps: int = 5000,
                    train_steps: tuple = ((60, 600, 1e-3), (200, 600, 4e-4)),
                    hidden: int = 64, tube_noise: float = 0.03,
-                   data=None, backend=None, device=None):
+                   data=None, backend=None, hw_aware=None, device=None):
     """Noisy-tube derivative pretraining + multiple-shooting curriculum.
 
     ``train_steps``: ``(segment_len, steps, peak lr)`` per phase.
     ``backend``: trajectory-phase training substrate (see
-    :func:`repro_torch.train.trainer.segment_loss_fn`).  Returns
+    :func:`repro_torch.train.trainer.segment_loss_fn`).  ``hw_aware``: an
+    optional :class:`repro_torch.train.hw_aware.HwAwareConfig`; the
+    curriculum phases train through the analogue write path.  Returns
     ``(twin, params)``."""
     device = resolve_device(device)
     ts, ys, split = data if data is not None else l96_data(device=device)
@@ -151,7 +157,7 @@ def train_l96_twin(seed: int = 7, pretrain_steps: int = 5000,
                            weight_decay=1e-4),
             num_steps=steps, segment_len=seg, loss="l1", noise_std=0.02,
             generator=torch.Generator().manual_seed(seed + 2),
-            backend=backend)
+            backend=backend, hw_aware=hw_aware)
     return twin, params
 
 

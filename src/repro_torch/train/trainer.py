@@ -27,9 +27,15 @@ a ``torch.Generator`` handed to ``fit`` (the JAX package splits a
 ``jax.random`` key per step), on the CPU and then moved, so one seed
 gives the same noise on every device.
 
-Not ported yet (ROADMAP.md, queue 1): hardware-aware training
-(``hw_aware=``) and the baseline trainers (``train_forecaster``,
-``train_recurrent_resnet``).
+Hardware-aware training (``hw_aware=``, :mod:`repro_torch.train.hw_aware`)
+passes the weights through the analogue write path inside the loss,
+keyed by the global step: such a loss sets ``wants_step`` and the engines
+call it as ``loss_fn(params, generator, step)``.  Training on
+``FusedAnalogueCudaBackend`` implies it, with the backend's own device
+model, as in the JAX package.
+
+Not ported yet (ROADMAP.md, queue 1): the baseline trainers
+(``train_forecaster``, ``train_recurrent_resnet``).
 """
 from __future__ import annotations
 
@@ -38,7 +44,8 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from repro_torch.core.backends import (FusedCudaBackend, resolve_backend,
+from repro_torch.core.backends import (FusedAnalogueCudaBackend,
+                                       FusedCudaBackend, resolve_backend,
                                        uniform_dt)
 from repro_torch.core.losses import l1, soft_dtw_batch
 from repro_torch.train.optimizer import Optimizer, apply_updates
@@ -56,12 +63,14 @@ def normal_like(generator: torch.Generator,
 
 
 def _step_body(loss_fn: Callable, optimizer: Optimizer, params, opt_state,
-               generator):
+               generator, step=None):
     """One descent step — the shared body of both engines: the loss and
-    its gradient at ``params``, then the optimizer update."""
+    its gradient at ``params``, then the optimizer update.  ``step``, the
+    global step counter, is passed on to step-keyed losses only."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    args = (generator,) if step is None else (generator, step)
     with torch.enable_grad():
-        loss = loss_fn(tree_unflatten(params, leaves), generator)
+        loss = loss_fn(tree_unflatten(params, leaves), *args)
         grads = torch.autograd.grad(loss, leaves)
     grads = tree_unflatten(params, list(grads))
     params = tree_unflatten(params, [p.detach() for p in leaves])
@@ -69,10 +78,18 @@ def _step_body(loss_fn: Callable, optimizer: Optimizer, params, opt_state,
     return apply_updates(params, updates), opt_state, loss.detach()
 
 
+def _wants_step(loss_fn: Callable) -> bool:
+    """Does the loss take the global step as a third argument?  Step-keyed
+    losses (hardware-aware training) set ``loss_fn.wants_step = True``."""
+    return bool(getattr(loss_fn, "wants_step", False))
+
+
 def fit(loss_fn: Callable, params: Tree, optimizer: Optimizer,
         num_steps: int, generator: Optional[torch.Generator] = None
         ) -> tuple[Tree, torch.Tensor]:
-    """Full-batch descent; ``loss_fn(params, generator) -> scalar``.
+    """Full-batch descent; ``loss_fn(params, generator) -> scalar``, or
+    ``loss_fn(params, generator, step)`` with the global step from 0 when
+    ``loss_fn.wants_step``.
 
     The loss history stays on the device and comes back to the host once
     at the end, as the JAX package's scan engine syncs only at chunk
@@ -80,10 +97,12 @@ def fit(loss_fn: Callable, params: Tree, optimizer: Optimizer,
     Returns ``(params, losses)`` with ``losses`` the (num_steps,) float32
     history."""
     opt_state = optimizer.init(params)
+    keyed = _wants_step(loss_fn)
     losses = []
-    for _ in range(num_steps):
+    for i in range(num_steps):
         params, opt_state, loss = _step_body(loss_fn, optimizer, params,
-                                             opt_state, generator)
+                                             opt_state, generator,
+                                             i if keyed else None)
         losses.append(loss)
     if not losses:
         return params, torch.zeros((0,), dtype=torch.float32)
@@ -96,10 +115,12 @@ def fit_per_step(loss_fn: Callable, params: Tree, optimizer: Optimizer,
     """Reference loop that reads every step's loss back to the host; the
     equivalence oracle for :func:`fit`."""
     opt_state = optimizer.init(params)
+    keyed = _wants_step(loss_fn)
     losses = []
-    for _ in range(num_steps):
+    for i in range(num_steps):
         params, opt_state, loss = _step_body(loss_fn, optimizer, params,
-                                             opt_state, generator)
+                                             opt_state, generator,
+                                             i if keyed else None)
         losses.append(float(loss))
     return params, torch.tensor(losses, dtype=torch.float32)
 
@@ -150,16 +171,19 @@ def _segment_objective(loss: str, gamma: float, preds, ys_seg,
     return l1(preds, ys_seg) + 0.1 * sdtw / ys_seg.shape[1]
 
 
-def _check_ported(hw_aware) -> None:
-    """Refuse what the port does not have yet, before any solve runs."""
-    if hw_aware is not None:
-        raise NotImplementedError(
-            "hw_aware=: hardware-aware training is not ported yet "
-            "(ROADMAP.md, queue 1, 'Hardware-aware training')")
+def _hw_aware_loss(rollout_loss: Callable, params, hw_aware, step):
+    """The loss of ``params`` (``hw_aware`` None), or its mean over the
+    ``k_draws`` device realisations of ``step``, drawn in one K3 launch on
+    the card."""
+    if hw_aware is None:
+        return rollout_loss(params)
+    from repro_torch.train.hw_aware import _step_draws, expectation_over_draws
+    draws = _step_draws(params, hw_aware, step)
+    return expectation_over_draws(lambda d: rollout_loss(draws[d]), hw_aware)
 
 
 def _fused_segment_loss_fn(twin, backend, ts_seg, ys_seg, loss: str,
-                           gamma: float, noise_std: float):
+                           gamma: float, noise_std: float, hw_aware=None):
     """Multiple-shooting loss on the fused CUDA substrate.
 
     The segments become the kernel's BATCH dimension: one K1 launch
@@ -167,7 +191,9 @@ def _fused_segment_loss_fn(twin, backend, ts_seg, ys_seg, loss: str,
     segment gets its own drive, sampled at its absolute half-step times —
     the per-twin drive path), and K2 carries the gradients.  Differs from
     the digital path only by the substrate; the objective, segmentation
-    and noise regularisation are identical."""
+    and noise regularisation are identical.  ``hw_aware`` rolls out each
+    of the step's device realisations (K1 forward and K2 backward each)
+    and averages the losses."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.fused_ode_mlp import pad_fleet_to_tile
 
@@ -191,18 +217,23 @@ def _fused_segment_loss_fn(twin, backend, ts_seg, ys_seg, loss: str,
             row, sub, dev)[0]) for row in ts_seg])
     S = ts_seg.shape[0]
 
-    def loss_fn(params, generator):
+    def loss_fn(params, generator, step=None):
         y0s = ys_seg[:, 0]
         if noise_std > 0 and generator is not None:
             y0s = y0s + noise_std * normal_like(generator, y0s)
         # pad segments up to a tile multiple, as rollout_batch_local does
         y0p, uhp, bt, _ = pad_fleet_to_tile(y0s, uh, backend.batch_tile)
-        traj = ops.fused_node_rollout(params, y0p, uhp, dt, batch_tile=bt,
-                                      gradient="fused_vjp")
-        preds = traj[::sub, :S].transpose(0, 1)          # (S, L+1, D)
-        return _segment_objective(loss, gamma, preds, ys_seg,
-                                  kernelised=True)
 
+        def rollout_loss(p):
+            traj = ops.fused_node_rollout(p, y0p, uhp, dt, batch_tile=bt,
+                                          gradient="fused_vjp")
+            preds = traj[::sub, :S].transpose(0, 1)      # (S, L+1, D)
+            return _segment_objective(loss, gamma, preds, ys_seg,
+                                      kernelised=True)
+
+        return _hw_aware_loss(rollout_loss, params, hw_aware, step)
+
+    loss_fn.wants_step = hw_aware is not None
     return loss_fn
 
 
@@ -217,23 +248,39 @@ def segment_loss_fn(twin, ts_seg, ys_seg, loss: str = "l1",
     The digital substrate batches the segments into one solve
     (:func:`_batched_segments`); the fused CUDA substrate batches them
     through one K1 launch with the K2 reverse-time VJP, and soft-DTW
-    through K5 and K6 (train where you serve)."""
-    _check_ported(hw_aware)
+    through K5 and K6 (train where you serve).
+
+    ``hw_aware``: an optional :class:`repro_torch.train.hw_aware.HwAwareConfig`
+    turning on hardware-aware training on either substrate: every
+    evaluation sees the weights through the analogue write path (STE),
+    keyed by the global step, averaged over ``k_draws`` realisations; the
+    loss then sets ``wants_step``.  Training on a
+    ``FusedAnalogueCudaBackend`` implies it, with the policy derived from
+    the backend (``HwAwareConfig.from_backend``), and integrates on K1/K2
+    with the device-degraded weights."""
     be = resolve_backend(backend) if backend is not None else twin.backend
+    if hw_aware is None and isinstance(be, FusedAnalogueCudaBackend):
+        from repro_torch.train.hw_aware import HwAwareConfig
+        hw_aware = HwAwareConfig.from_backend(be)
     if isinstance(be, FusedCudaBackend):
         return _fused_segment_loss_fn(twin, be, ts_seg, ys_seg, loss,
-                                      gamma, noise_std)
+                                      gamma, noise_std, hw_aware)
     if backend is not None:
         twin = twin.with_backend(be)
     twin, ts_rel = _batched_segments(twin, ts_seg)
 
-    def loss_fn(params, generator):
+    def loss_fn(params, generator, step=None):
         y0s = ys_seg[:, 0]
         if noise_std > 0 and generator is not None:
             y0s = y0s + noise_std * normal_like(generator, y0s)
-        preds = twin.simulate(params, y0s, ts_rel).transpose(0, 1)
-        return _segment_objective(loss, gamma, preds, ys_seg)
 
+        def rollout_loss(p):
+            preds = twin.simulate(p, y0s, ts_rel).transpose(0, 1)
+            return _segment_objective(loss, gamma, preds, ys_seg)
+
+        return _hw_aware_loss(rollout_loss, params, hw_aware, step)
+
+    loss_fn.wants_step = hw_aware is not None
     return loss_fn
 
 
@@ -273,7 +320,8 @@ def train_twin(twin, params, ts: torch.Tensor, ys: torch.Tensor, *,
     through the hand-written kernels K1 and K2 (and a soft-DTW ``loss``
     through K5 and K6).  ``gamma`` is soft-DTW's smoothing.
     ``generator`` draws the state noise (default: a CPU generator seeded
-    with 0)."""
+    with 0).  ``hw_aware`` trains through the analogue write path (see
+    :func:`segment_loss_fn`)."""
     ts_seg, ys_seg = make_segments(ts, ys, segment_len)
     loss_fn = segment_loss_fn(twin, ts_seg, ys_seg, loss=loss, gamma=gamma,
                               noise_std=noise_std, backend=backend,

@@ -220,6 +220,48 @@ def test_apply_faults_to_prog_matches_jax(staged):
             float(jfaults.drift_factor(jfm, 400)), rtol=1e-6)
 
 
+def test_apply_faults_to_mlp_matches_jax_and_per_layer():
+    """The MLP's masks drawn at once are each layer's own: the result is the
+    JAX package's and each layer's ``apply_faults_to_prog``, the uint8
+    level indices pinned from the same masks."""
+    sizes = (6, 32, 32, 6)
+    jspec, tspec = jan.AnalogueSpec(prog_noise=0.0), \
+        tan.AnalogueSpec(prog_noise=0.0)
+    jprogs = [jan.stage_uint8(p, jspec) for p in jan.program_mlp(
+        KEY, [{k: jnp.asarray(v) for k, v in layer.items()}
+              for layer in np_params(8, sizes)], jspec)]
+    tprogs = progs_from_numpy(jprogs, "cpu")
+    jfm = jfaults.make_fault_model(("stuck", dict(rate=0.2)), seed=3)
+    tfm = tfaults.make_fault_model(("stuck", dict(rate=0.2)), seed=3)
+    jout = jfaults.apply_faults_to_mlp(jprogs, jfm, jspec)
+    tout = tfaults.apply_faults_to_mlp(tprogs, tfm, tspec)
+    for i, (jp, tp) in enumerate(zip(jout, tout)):
+        one = tfaults.apply_faults_to_prog(tprogs[i], tfm, tspec, layer=i)
+        for k in jp:
+            if k.endswith("_idx"):
+                np.testing.assert_array_equal(tp[k].numpy(),
+                                              np.asarray(jp[k]))
+            else:
+                assert ulps(tp[k], jp[k]) <= 1, k
+            assert torch.equal(tp[k], one[k])
+
+
+def test_program_mlp_with_verify_is_per_layer_programming():
+    """Drawing every layer's stuck masks at once leaves write-verify as it
+    was layer by layer."""
+    p = params_from_numpy(np_params(9, (2, 14, 14, 1)), "cpu")
+    spec = tan.AnalogueSpec(prog_noise=0.0)
+    fm = tfaults.make_fault_model(("stuck", dict(rate=0.1)), seed=6)
+    progs, reports = tan.program_mlp_with_verify(None, p, spec, faults=fm)
+    for i, layer in enumerate(p):
+        w = torch.cat([layer["w"], layer["b"][None, :]])
+        prog, rep = tan.program_with_verify(None, w, spec, faults=fm,
+                                            layer=i)
+        for k in ("gp", "gm", "scale"):
+            assert torch.equal(progs[i][k], prog[k])
+        assert reports[i].summary() == dict(rep.summary(), name=reports[i].name)
+
+
 def test_fault_model_registry_and_validation():
     m = tfaults.make_fault_model(("stuck", dict(rate=0.02)), "drift",
                                  ("write_fail", dict(rate=0.3)), seed=7)

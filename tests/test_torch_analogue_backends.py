@@ -193,9 +193,16 @@ def test_fused_is_detached_and_trainable_raises(hp_setup):
     y = y0.clone().requires_grad_()
     out = be.rollout(st, y, ts)
     assert out.grad_fn is None
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        FusedAnalogueCudaBackend(trainable=True).program(twin.node.field,
-                                                         params)
+    # trainable=True is ported: the rollout differentiates to the masters
+    leaves = [{k: v.clone().requires_grad_() for k, v in p.items()}
+              for p in params]
+    trainable = FusedAnalogueCudaBackend(spec=QUANT_CLEAN, trainable=True)
+    out = trainable.rollout(trainable.program(twin.node.field, leaves), y0,
+                            ts)
+    assert out.grad_fn is not None
+    grads = torch.autograd.grad(out.sum(), leaves[0]["w"])
+    assert bool(torch.isfinite(grads[0]).all())
+    assert float(grads[0].abs().sum()) > 0
     with pytest.raises(ValueError, match="storage"):
         FusedAnalogueCudaBackend(storage="int4").program(twin.node.field,
                                                          params)

@@ -374,9 +374,10 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
-    assert _build.sources() == ["crossbar_vmm", "flash_attention",
-                                "fused_analogue", "fused_ode_mlp",
-                                "fused_ode_mlp_bwd", "softdtw", "ssm_scan"]
+    assert _build.sources() == ["counter_noise", "crossbar_vmm",
+                                "flash_attention", "fused_analogue",
+                                "fused_ode_mlp", "fused_ode_mlp_bwd",
+                                "softdtw", "ssm_scan"]
 
 
 def test_library_path_follows_the_source(monkeypatch, tmp_path):

@@ -167,6 +167,43 @@ def test_apply_stuck_matches_jax_in_both_spaces():
     np.testing.assert_array_equal(lv.numpy(), np.asarray(jlv))
 
 
+MANY = [(0x0F00_0000, (7, 64)), (0x0F00_0001, (7, 64)),
+        (0x0F00_0002, (65, 64)), (2 ** 31 + 12345, (65, 6)),
+        (0xFFFF_FFF0, (100, 70)), (5, (1, 1))]
+
+
+def test_stuck_cell_masks_many_is_bitwise_per_array_and_jax():
+    """The batched masks (K3's one-launch programming fill) are each array's
+    own masks, as the per-array fill and the JAX package draw them, salts
+    past 2^31 and near 2^32 (the polarity salt wraps) included."""
+    got = tn.stuck_cell_masks_many(9, MANY, 0.2, 0.4, device="cpu")
+    assert len(got) == len(MANY)
+    for (salt, shape), (ts, to) in zip(MANY, got):
+        assert tuple(ts.shape) == shape and ts.dtype == torch.bool
+        one = tn.stuck_cell_masks(9, salt, shape, 0.2, 0.4, device="cpu")
+        assert torch.equal(ts, one[0]) and torch.equal(to, one[1])
+        js, jo = jn.stuck_cell_masks(9, jnp.uint32(salt), shape, 0.2, 0.4)
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+        np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
+    assert tn.MASK_LAUNCHES == 0 and tn.LAUNCHES == 0
+
+
+def test_stuck_masks_of_draws_every_layer_and_pair():
+    fm = tfaults.make_fault_model(("stuck", dict(rate=0.3, on_frac=0.7)),
+                                  seed=4)
+    shapes = [(3, 14), (15, 14), (15, 1)]
+    masks = tfaults.stuck_masks_of(fm, shapes, "cpu", layer0=1)
+    for i, (shape, pair_masks) in enumerate(zip(shapes, masks)):
+        for pair, (ts, to) in enumerate(pair_masks):
+            js, jo = jn.stuck_cell_masks(4, jfaults.fault_salt(1 + i, pair),
+                                         shape, 0.3, 0.7)
+            np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+            np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
+    assert tfaults.stuck_masks_of(None, shapes, "cpu") is None
+    assert tfaults.stuck_masks_of(tfaults.make_fault_model("drift"), shapes,
+                                  "cpu") is None
+
+
 def test_shape_functions_default_to_cuda_and_ids_must_be_integers():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device exists")
@@ -174,6 +211,8 @@ def test_shape_functions_default_to_cuda_and_ids_must_be_integers():
         tn.counter_normal(0, 0, (4, 4))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tn.stuck_cell_masks(0, 0, (4, 4), 0.1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tn.stuck_cell_masks_many(0, [(0, (4, 4))], 0.1)
     with pytest.raises(ValueError, match="integers"):
         tn.counter_uniform_at(0, 0, torch.zeros(3))
     with pytest.raises(ValueError, match="meta"):

@@ -328,8 +328,13 @@ def test_unported_objectives_raise(hp_data):
     ts, ys, _ = hp_data
     tt = ttwin.make_driven_twin(1, thp.WAVEFORMS["sine"](), hidden=14)
     ts_seg, ys_seg = ttrainer.make_segments(t(ts), t(ys), 50)
-    with pytest.raises(NotImplementedError, match="Hardware-aware"):
-        ttrainer.segment_loss_fn(tt, ts_seg, ys_seg, hw_aware=object())
+    # hardware-aware training is ported: its loss is keyed by the step
+    from repro_torch.train.hw_aware import HwAwareConfig
+    loss = ttrainer.segment_loss_fn(tt, ts_seg, ys_seg,
+                                    hw_aware=HwAwareConfig(k_draws=1))
+    assert loss.wants_step
+    assert not getattr(ttrainer.segment_loss_fn(tt, ts_seg, ys_seg),
+                       "wants_step", False)
     with pytest.raises(ValueError, match="uniform time grid"):
         ttrainer.segment_loss_fn(tt, ts_seg ** 2, ys_seg)
     euler = ttwin.make_driven_twin(1, thp.WAVEFORMS["sine"](), hidden=14,
