@@ -181,7 +181,35 @@ result line:
    and the achieved TFLOP/s, for K9 the three bounds: bytes, FP32 operations and expf at the special-function
    rate), P5's prefill tokens/s and decode
    ms per token, and a ``torch.profiler`` trace of one bf16 prefill (K8
-   and K9's share of device time, the top five kernels, idle share).
+   and K9's share of device time, the top five kernels, idle share);
+20. P7, streaming serving: the Lorenz96 fleet of phase 4 (6->64->64->6,
+   the same seeded weights) through ``StreamingFleetServer`` (hot slab
+   2048 rows, batches of 1024, windows of up to 200 steps in multiples
+   of 8) with ``REPRO_STORE_AUDIT=1`` (the store's invariants after
+   every pump): (a) on ``fused_cuda``, a Poisson trace (16384 requests
+   over 4096 twins, 8-64 steps) then a ragged one (8192 requests, up to
+   400 steps, split across windows): every request served, conservation,
+   exactly one K1 launch per pump, K1 within 1e-4 of its plain version
+   on one recorded pump's inputs at every window length, and every
+   twin's stitched trajectory bitwise one uninterrupted K1 rollout from
+   its y0; (b) on
+   ``analogue_fused_cuda`` with P2's noisy faulty spec under
+   ``ServingSLO(max_rel_error=0.5)``: the Poisson trace served by the
+   primary tier, one probe per 8 pumps, one K4 rollout and pre-pass per
+   pump and probe, K4 (read noise, offset 0) within 1e-4 of its plain
+   version on each served window length's recorded inputs, two K3 mask
+   launches when the tiers are programmed and none while serving; the
+   fleet request split at step 120 through a
+   ``TwinStateStore`` and resumed at offset 120 bitwise the unsplit K4
+   rollout; the clean unquantised spec streamed within 1e-4 of (a);
+   (c) an array with 30% stuck cells demoted to digital at the first
+   probe with every request served and none quarantined, and two
+   injected transient faults absorbed by two retries; (d) printed, not
+   gated: pumps/s and twin-steps/s per trace, page-ins and evictions,
+   the host ms of each pump stage (``_assemble``, ``store.fetch``, the
+   solve, ``_commit_batch``, the audit), K1's CUDA-event ms per pump at
+   the pumps' shapes, ``FleetServer`` on the same 1024 x 200 request,
+   and a ``torch.profiler`` trace of 10 pumps (device idle share).
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record, the
 last line ``{"ok": true, "device": {...}}``.
@@ -192,6 +220,7 @@ import ctypes
 import dataclasses
 import functools
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -200,6 +229,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -226,7 +256,12 @@ from repro_torch.kernels import (_build, crossbar_vmm,  # noqa: E402
                                  flash_attention, fused_analogue,
                                  fused_ode_mlp, fused_ode_mlp_bwd, noise, ops,
                                  ref, softdtw, ssm_scan)
-from repro_torch.launch.fleet_serving import serve_fleet  # noqa: E402
+from repro_torch.launch import chaos, traffic  # noqa: E402
+from repro_torch.launch.fleet_serving import (FleetServer,  # noqa: E402
+                                              ServingSLO,
+                                              StreamingFleetServer,
+                                              serve_fleet)
+from repro_torch.launch.state_store import TwinStateStore  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import model as lm_model  # noqa: E402
 from repro_torch.models import moe as lm_moe  # noqa: E402
@@ -1661,6 +1696,396 @@ def lm_slice(dev, smi, hmma, sass9):
     }]
 
 
+# -- phase 20: P7, streaming serving (K1, K4, K3) -------------------------------
+
+#: The streaming server of phase 20 and its traffic: a population twice the
+#: hot slab (so the store pages), Poisson windows of 8-64 steps, then
+#: ragged windows of up to 400 steps (split across 200-step windows).
+P7_SERVER = dict(hot_capacity=2048, max_batch=1024, max_window=200,
+                 horizon_quantum=8)
+P7_POPULATION = 4096
+P7_POISSON = dict(seed=0, n_requests=16384, min_horizon=8, max_horizon=64)
+P7_RAGGED = dict(seed=1, n_requests=8192, max_horizon=400)
+#: Requests of the degradation and fault-injection runs.
+P7_SMALL = 4096
+P7_TRACED_PUMPS = 10
+P7_SPLIT = 120
+
+
+def conservation(server, path: str) -> None:
+    s = server.stats().stream
+    total = (s.served + s.failed + s.shed + s.expired + s.quarantined
+             + server.pending)
+    check(s.enqueued == total,
+          f"{path}: conservation broken, enqueued {s.enqueued} != {total} "
+          f"({s.as_dict()}, pending {server.pending})")
+
+
+def timed_pumps(server) -> dict:
+    """Wrap the server's pump stages with host clocks; returns the lists
+    of seconds per call, and the window length H of every solve."""
+    host = {"_assemble": [], "store.fetch": [], "solve": [],
+            "_commit_batch": [], "audit": [], "H": []}
+
+    def wrap(obj, name, key):
+        fn = getattr(obj, name)
+
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            host[key].append(time.perf_counter() - t0)
+            return out
+        setattr(obj, name, run)
+
+    wrap(server, "_assemble", "_assemble")
+    wrap(server.store, "fetch", "store.fetch")
+    wrap(server, "_solve_batch", "solve")
+    wrap(server, "_commit_batch", "_commit_batch")
+    wrap(server.store, "check_invariants", "audit")
+    run_tier = server._run_tier
+
+    def run_recorded(tier_idx, ys, starts, thetas, H):
+        host["H"].append(H)
+        return run_tier(tier_idx, ys, starts, thetas, H)
+    server._run_tier = run_recorded
+    return host
+
+
+def record_windows(name: str, rows: int, into: dict):
+    """Wrap the kernel entry point ``ops.<name>`` so that the first call at
+    each window length H on ``rows`` twins (a served window, not a probe)
+    keeps its arguments in ``into[H]``; returns the undo."""
+    fn = getattr(ops, name)
+
+    def run(*a, **k):
+        y0, u = a[1], a[2]
+        H = (u.shape[-2] - 1) // 2
+        if y0.shape[0] == rows and H not in into:
+            into[H] = ((a[0], y0.clone(), u.clone(), a[3]), dict(k))
+        return fn(*a, **k)
+    setattr(ops, name, run)
+    return lambda: setattr(ops, name, fn)
+
+
+def hold_windows(smi, what: str, into: dict, kernel, plain) -> None:
+    """Hold the kernel against its plain version on every recorded
+    window's inputs, within TOL of the peak."""
+    errs = {}
+    for H, (a, k) in sorted(into.items()):
+        errs[H] = rel_err(kernel(*a, **k), plain(*a, **k))[1]
+    print(f"[{smi}] P7 {what} vs plain on a pump's recorded inputs, max "
+          f"error of the peak by H: " + ", ".join(
+              f"{H}: {e:.3e}" for H, e in errs.items()) + f" (limit {TOL:g})")
+    check(bool(errs), f"P7 {what}: no window recorded")
+    check(max(errs.values()) <= TOL, f"P7 {what}: disagrees with its plain "
+                                     f"version at H {max(errs, key=errs.get)}")
+
+
+def k1_window_plain(params, y0, u, dt, **_):
+    return ref.fused_node_rollout_ref(y0, u, [p["w"] for p in params],
+                                      [p["b"] for p in params], dt)
+
+
+def k4_window_plain(staged, y0, u, dt, *, read_noise, noise_seed,
+                    step_offset, **_):
+    return k4_plain(staged, y0, u, dt, read_noise, noise_seed, step_offset)
+
+
+def stitched_by_twin(done) -> dict:
+    parts = {}
+    for c in sorted(done, key=lambda c: c.seq):
+        parts.setdefault(c.twin_id, []).append(c.trajectory)
+    return {tid: np.concatenate([p[0]] + [q[1:] for q in p[1:]])
+            for tid, p in parts.items()}
+
+
+def p7_streaming(dev, smi, noisy_faulty, zero_counts, read_counts) -> dict:
+    """Phase 20: the Lorenz96 fleet (6->64->64->6, phase 4's seeded
+    weights) streamed by ``StreamingFleetServer`` on the card.  Returns
+    the launch counts of its paths."""
+    cfg = recipes.FLEET
+    fleet = recipes.make_l96_fleet(
+        backend=FusedCudaBackend(batch_tile=cfg.batch_tile))
+    params = fleet.twin.init(torch.Generator().manual_seed(SEED),
+                             device="cpu")
+    y0_table = (cfg.y0_spread * torch.randn(
+        (P7_POPULATION, cfg.state_dim),
+        generator=torch.Generator().manual_seed(SEED + 20))).numpy()
+
+    def y0_of(tid):
+        return y0_table[tid]
+
+    poisson = traffic.poisson_trace(population=P7_POPULATION, **P7_POISSON)
+    ragged = traffic.ragged_trace(population=P7_POPULATION, **P7_RAGGED)
+    counts = {}
+
+    def make(backend, **kw):
+        return StreamingFleetServer(fleet.with_backend(backend), params,
+                                    dt=cfg.dt, device=dev, **P7_SERVER, **kw)
+
+    def fused():
+        return FusedCudaBackend(batch_tile=cfg.batch_tile)
+
+    # (a) fused_cuda, no SLO: both traces, the store audited every pump
+    os.environ["REPRO_STORE_AUDIT"] = "1"
+    srv = make(fused())
+    check(srv._audit, "P7: REPRO_STORE_AUDIT=1 did not arm the audit")
+    host = timed_pumps(srv)
+    k1_windows = {}
+    undo = record_windows("fused_node_rollout", P7_SERVER["max_batch"],
+                          k1_windows)
+    zero_counts()
+    done_a, runs = [], {}
+    for name, trace in (("poisson", poisson), ("ragged", ragged)):
+        b0 = srv.stream_stats.batches
+        s0 = srv.stream_stats.twin_steps
+        p0 = srv.store.stats.page_ins
+        e0 = srv.store.stats.evictions
+        torch.cuda.synchronize()
+        t_r = time.perf_counter()
+        done = srv.serve_trace(trace, y0_of=y0_of)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t_r
+        pumps = srv.stream_stats.batches - b0
+        steps = srv.stream_stats.twin_steps - s0
+        runs[name] = done
+        done_a += done
+        check(len(done) == len(trace), f"P7 {name}: {len(done)} of "
+                                       f"{len(trace)} requests served")
+        print(f"[{smi}] P7 fused_cuda {name} trace: {len(trace)} requests, "
+              f"{pumps} pumps in {sec:.3f} s ({pumps / sec:.2f} pumps/s, "
+              f"{steps / sec:,.0f} twin-steps/s, store audited every pump); "
+              f"page-ins {srv.store.stats.page_ins - p0}, evictions "
+              f"{srv.store.stats.evictions - e0}; splits "
+              f"{srv.stream_stats.splits}")
+    undo()
+    conservation(srv, "P7 fused_cuda")
+    batches = srv.stream_stats.batches
+    counts["P7_stream_fused_cuda"] = read_counts(
+        "P7 stream fused_cuda (poisson then ragged)",
+        {"K1": batches, "K4": 0, "K4_noise": 0, "K3_masks": 0, "K7": 0})
+    check(len(host["audit"]) == batches,
+          f"P7: {len(host['audit'])} store audits for {batches} pumps")
+    print(f"P7 fused_cuda: {batches} pumps, {counts['P7_stream_fused_cuda']['K1']}"
+          f" K1 launches (one per pump), store audits {len(host['audit'])}")
+    for key in ("_assemble", "store.fetch", "solve", "_commit_batch",
+                "audit"):
+        v = np.asarray(host[key]) * 1e3
+        print(f"[{smi}] P7 pump host ms {key}: mean {v.mean():.3f}, median "
+              f"{np.median(v):.3f}, max {v.max():.3f} over {v.size} calls")
+    # the kernel's own time per pump: K1 at each pump's (1024, H), CUDA events
+    ws = [p["w"].to(dev) for p in params]
+    bs = [p["b"].to(dev) for p in params]
+    y0_dev = torch.from_numpy(y0_table[: P7_SERVER["max_batch"]]).to(dev)
+    k1_ms = {}
+    for H in sorted(set(host["H"])):
+        uh = torch.zeros((2 * H + 1, 0), device=dev)
+        k1_ms[H] = cuda_ms(lambda: fused_ode_mlp.fused_node_rollout(
+            y0_dev, uh, ws, bs, cfg.dt, batch_tile=cfg.batch_tile),
+            reps=5, warmup=1)
+    kernel_per_pump = float(np.mean([k1_ms[H] for H in host["H"]]))
+    solve_per_pump = float(np.mean(host["solve"])) * 1e3
+    print(f"[{smi}] P7 fused_cuda: K1 CUDA-event ms per pump {kernel_per_pump:.4f}"
+          f" (mean over the pumps' (1024, H); H in {sorted(k1_ms)}), solve "
+          f"host ms per pump {solve_per_pump:.4f}; K1 ms by H " + ", ".join(
+              f"{H}: {ms:.4f}" for H, ms in sorted(k1_ms.items())))
+
+    # K1 against its plain version at every window shape the pumps gave it
+    hold_windows(smi, "K1 (fused_cuda windows)", k1_windows,
+                 ops.fused_node_rollout, k1_window_plain)
+
+    # every twin's stitched trajectory is one uninterrupted rollout, bitwise
+    stitched = stitched_by_twin(done_a)
+    ids = sorted(stitched)
+    longest = max(s.shape[0] for s in stitched.values()) - 1
+    backend, state = srv._programs[0]
+    with torch.no_grad():
+        full = backend.rollout_batch_resumed(
+            state, torch.from_numpy(y0_table[ids]).to(dev), dt=cfg.dt,
+            num_steps=longest, gradient="stopgrad").cpu().numpy()
+    bad = [tid for i, tid in enumerate(ids)
+           if not np.array_equal(stitched[tid],
+                                 full[i, : stitched[tid].shape[0]])]
+    print(f"P7 fused_cuda: {len(ids)} twins' stitched trajectories (up to "
+          f"{longest} steps) vs one uninterrupted K1 rollout each: "
+          f"{len(ids) - len(bad)} bitwise identical")
+    check(not bad, f"P7: {len(bad)} twins differ from their uninterrupted "
+                   f"rollout (first {bad[:5]})")
+
+    # (b) analogue_fused_cuda, P2's noisy faulty spec, under an SLO
+    zero_counts()
+    nb = make(FusedAnalogueCudaBackend(batch_tile=cfg.batch_tile,
+                                       prog_seed=SEED, read_seed=SEED,
+                                       **noisy_faulty),
+              slo=ServingSLO(max_rel_error=0.5))
+    tiers = [n for n, _ in nb._tiers]
+    check(tiers == ["analogue_fused_cuda", "analogue_fused_cuda_clean",
+                    "digital"], f"P7: tiers {tiers}")
+    counts["P7_program_tiers"] = read_counts(
+        "P7 analogue tiers programmed (primary and quiet tier)",
+        {"K3_masks": 2, "K3": 0, "K4": 0, "K1": 0})
+    k4_windows = {}
+    undo = record_windows("fused_analogue_rollout", P7_SERVER["max_batch"],
+                          k4_windows)
+    zero_counts()
+    torch.cuda.synchronize()
+    t_r = time.perf_counter()
+    done_b = nb.serve_trace(poisson, y0_of=y0_of)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t_r
+    undo()
+    st = nb.stats()
+    nbatch, probes = st.stream.batches, st.serving.probes
+    check(probes == -(-nbatch // nb.slo.probe_every),
+          f"P7 noisy: {probes} probes for {nbatch} batches")
+    check(st.serving.served_by == {"analogue_fused_cuda": nbatch},
+          f"P7 noisy: served_by {st.serving.served_by}")
+    counts["P7_stream_analogue_noisy_faulty"] = read_counts(
+        "P7 stream analogue_fused_cuda (uint8, read noise 0.02, 1% stuck, "
+        "drift; SLO 0.5)", {"K3_masks": 0, "K3": 0, "K4": nbatch + probes,
+                            "K4_noise": nbatch + probes, "K1": 0, "K7": 0})
+    conservation(nb, "P7 noisy")
+    check(len(done_b) == len(poisson), "P7 noisy: requests not all served")
+    check(all(np.isfinite(c.trajectory).all() for c in done_b),
+          "P7 noisy: non-finite trajectories")
+    print(f"[{smi}] P7 analogue_fused_cuda noisy faulty poisson trace: "
+          f"{nbatch} pumps in {sec:.3f} s ({nbatch / sec:.2f} pumps/s, "
+          f"{st.stream.twin_steps / sec:,.0f} twin-steps/s); {probes} probes,"
+          f" probe errors {st.serving.probe_errors}; served_by "
+          f"{st.serving.served_by}")
+    # K4 (read noise, offset 0) against its plain version at every window
+    # shape the primary tier served
+    check(all(k["step_offset"] == 0 and k["read_noise"] > 0
+              for _, k in k4_windows.values()),
+          "P7 noisy: a served window was not a noisy one at offset 0")
+    hold_windows(smi, "K4 (noisy analogue_fused_cuda windows)", k4_windows,
+                 ops.fused_analogue_rollout, k4_window_plain)
+    # a whole-fleet split at step 120, through a state store, resumed with
+    # the shared offset: bitwise the unsplit rollout (pre-pass + K4 each)
+    backend, state = nb._programs[0]
+    ys = torch.from_numpy(y0_table[: cfg.fleet_size]).to(dev)
+    T = cfg.horizon
+    with torch.no_grad():
+        whole = backend.rollout_batch_resumed(state, ys, dt=cfg.dt,
+                                              num_steps=T)
+        head = backend.rollout_batch_resumed(state, ys, dt=cfg.dt,
+                                             num_steps=P7_SPLIT)
+        ids = list(range(ys.shape[0]))
+        store = TwinStateStore(cfg.state_dim, len(ids), device=dev)
+        for i in ids:
+            store.register(i, y0_table[i])
+        store.fetch(ids)
+        store.commit(ids, head[:, P7_SPLIT], np.full(len(ids), P7_SPLIT))
+        mid, steps, _ = store.fetch(ids)
+        tail = backend.rollout_batch_resumed(state, mid, dt=cfg.dt,
+                                             num_steps=T - P7_SPLIT,
+                                             start_steps=steps)
+    same = (torch.equal(head, whole[:, : P7_SPLIT + 1])
+            and torch.equal(tail, whole[:, P7_SPLIT:]))
+    print(f"P7 analogue noisy faulty: {len(ids)} x {T} split at step {P7_SPLIT} "
+          f"through TwinStateStore and resumed at offset {P7_SPLIT}: bitwise "
+          f"the unsplit rollout: {same}")
+    check(same, "P7: the resumed K4 rollout is not the unsplit one")
+    # the clean unquantised spec streamed: within TOL of (a)'s trajectories
+    cb = make(FusedAnalogueCudaBackend(
+        spec=AnalogueSpec(prog_noise=0.0, quantize=False),
+        batch_tile=cfg.batch_tile))
+    done_c = cb.serve_trace(poisson, y0_of=y0_of)
+    check([c.seq for c in done_c] == [c.seq for c in runs["poisson"]],
+          "P7 clean analogue: another completion order than fused_cuda")
+    err = max(float(np.max(np.abs(c.trajectory - a.trajectory))
+                    / np.max(np.abs(a.trajectory)))
+              for c, a in zip(done_c, runs["poisson"]))
+    print(f"P7 clean unquantised analogue stream vs fused_cuda stream: max "
+          f"error of the peak {err:.3e} (limit {TOL:g})")
+    check(err <= TOL, "P7: the clean analogue stream disagrees with K1's")
+
+    # (c) degradation: unrepairable stuck cells demote to digital at the
+    # first probe; a transient fault is absorbed by two retries
+    small = traffic.poisson_trace(seed=2, n_requests=P7_SMALL,
+                                  population=P7_POPULATION, min_horizon=8,
+                                  max_horizon=64)
+    db = make(FusedAnalogueCudaBackend(
+        spec=AnalogueSpec(prog_noise=0.0), batch_tile=cfg.batch_tile,
+        faults=make_fault_model(("stuck", dict(rate=0.3)), seed=5)),
+        slo=ServingSLO(max_rel_error=0.05))
+    done_d = db.serve_trace(small, y0_of=y0_of)
+    sd = db.stats()
+    print(f"P7 unrepairable array (30% stuck): active tier {db.active_tier},"
+          f" demotions {sd.serving.probe_demotions}, probe errors "
+          f"{sd.serving.probe_errors}, served_by {sd.serving.served_by}, "
+          f"served {sd.stream.served} of {len(small)}, quarantined "
+          f"{sd.stream.quarantined}")
+    check(db.active_tier == "digital" and sd.serving.probe_demotions == 1
+          and sd.serving.served_by == {"digital": sd.stream.batches}
+          and len(done_d) == len(small) and sd.stream.quarantined == 0,
+          "P7: the unrepairable array did not demote to digital cleanly")
+    conservation(db, "P7 degraded")
+    fb = make(fused(), transient_retries=2, backoff_base_s=0.0)
+    with chaos.flaky("pump:run_tier", times=2):
+        done_f = fb.serve_trace(small[:64], y0_of=y0_of)
+    sf = fb.stats()
+    print(f"P7 transient faults: 2 injected at pump:run_tier, "
+          f"{sf.serving.transient_retries} retries, served {len(done_f)} of "
+          f"64, served_by {sf.serving.served_by}")
+    check(sf.serving.transient_retries == 2 and len(done_f) == 64
+          and sf.stream.quarantined == 0,
+          "P7: the transient faults were not absorbed by the retries")
+    os.environ.pop("REPRO_STORE_AUDIT")
+
+    # (d) the same 1024 x 200 request through FleetServer, then a profiler
+    # trace of 10 pumps of (a)'s poisson trace (no audit)
+    server = FleetServer(fleet, params, recipes.l96_fleet_ts(), device=dev)
+    secs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t_r = time.perf_counter()
+        server.serve(ys)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t_r)
+    h200 = [s for s, H in zip(host["solve"], host["H"]) if H == 200]
+    print(f"[{smi}] P7 FleetServer 1024 x 200 request: "
+          f"{secs[1] * 1e3:.3f}; {secs[2] * 1e3:.3f} ms (after one warm-up); "
+          f"streaming solve of a 1024 x 200 window "
+          f"{np.mean(h200) * 1e3 if h200 else float('nan'):.3f} ms "
+          f"({len(h200)} pumps)")
+    ps = make(fused())
+    check(not ps._audit, "P7: the traced server audits")
+    pumps = 0
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t_r = time.perf_counter()
+        for a in poisson:
+            if a.twin_id not in ps.store:
+                ps.register_twin(a.twin_id, y0_of(a.twin_id))
+            ps.submit(a.twin_id, a.horizon, t_arrival=a.time)
+            if ps.pending >= ps.max_batch:
+                ps.pump(now=a.time)
+                pumps += 1
+                if pumps == P7_TRACED_PUMPS:
+                    break
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t_r) * 1e3
+    kernels_us = {ev.key: ev.self_device_time_total
+                  for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA
+                  and ev.self_device_time_total > 0}
+    busy_ms = sum(kernels_us.values()) / 1e3
+    if busy_ms > 0:
+        top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:5]
+        print(f"[{smi}] P7 trace, {pumps} pumps of the poisson trace: wall "
+              f"{traced_ms:.3f} ms ({traced_ms / pumps:.3f} ms a pump, "
+              f"ingest included), device busy {busy_ms:.3f} ms (idle "
+              f"{100 * (1 - busy_ms / traced_ms):.1f}%); by device time: "
+              + "; ".join(f"{k[:48]} {v / 1e3:.4f} ms" for k, v in top))
+    else:
+        print("P7 trace: the profiler recorded no device time (device idle "
+              "share not measured)")
+    return counts
+
+
 def main() -> int:
     # -- 1. environment ----------------------------------------------------
     if not torch.cuda.is_available():
@@ -2824,12 +3249,17 @@ def main() -> int:
     # -- 17-19. the LM serving slice: K8, K9 and P5 (Jamba at full width) ------
     lm_entries = lm_slice(dev, smi, hmma["flash_attention"], sass["ssm_scan"])
 
+    # -- 20. P7: streaming serving (K1, K4, K3) ---------------------------------
+    p7 = p7_streaming(dev, smi, noisy_faulty, zero_counts, read_counts)
+    path_counts.update(p7)
+
     k1_paths = {"serve_fleet": launches, "train_hp_twin": hp_counts[0],
                 "hp_40_steps_fused_cuda": hp40_counts["fused_cuda"][0],
                 "train_l96_twin": l96_counts[0],
                 **{f"P4_segment_{seg}": c[0]["K1"] for seg, c in p4.items()},
                 "P4_10_steps_fused_cuda": p4_cmp["K1"],
-                **{p: c["K1"] for p, c in p6["counts"].items()}}
+                **{p: c["K1"] for p, c in p6["counts"].items()},
+                **{p: c["K1"] for p, c in p7.items() if c["K1"]}}
     k2_paths = {"train_hp_twin": hp_counts[1],
                 **{p: c["K2"] for p, c in p6["counts"].items()},
                 "hp_40_steps_fused_cuda": hp40_counts["fused_cuda"][1],

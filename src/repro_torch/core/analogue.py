@@ -273,19 +273,21 @@ class RepairReport:
 
     ``unrepairable`` marks cells still outside tolerance after the last
     retry; ``projected_rollout_error`` is ``||W_realised - W||_F /
-    ||W||_F``."""
+    ||W||_F``.  The counts and errors stay 0-dim tensors on the array's
+    device, so programming reads nothing back; :meth:`summary` converts
+    them."""
     name: str
     attempts: int
     tol: float
     unrepairable: torch.Tensor     # bool, weight-shaped
     n_cells: int
-    n_unrepairable: int
-    max_error: float               # programming_error units
-    mean_error: float
-    projected_rollout_error: float
+    n_unrepairable: torch.Tensor   # int64, 0-dim
+    max_error: torch.Tensor        # float32, 0-dim, programming_error units
+    mean_error: torch.Tensor
+    projected_rollout_error: torch.Tensor
 
     def summary(self) -> dict:
-        """Plain Python scalars for logs."""
+        """Plain Python scalars for logs (one host read per field)."""
         return {
             "name": self.name,
             "attempts": int(self.attempts),
@@ -380,9 +382,9 @@ def _program_with_verify(generator, w, spec, faults, verify, name, masks):
     report = RepairReport(
         name=name, attempts=attempts, tol=verify.tol,
         unrepairable=unrepairable, n_cells=int(w.numel()),
-        n_unrepairable=int(unrepairable.sum()),
-        max_error=float(err.max()), mean_error=float(err.mean()),
-        projected_rollout_error=float(
+        n_unrepairable=unrepairable.sum(), max_error=err.max(),
+        mean_error=err.mean(),
+        projected_rollout_error=(
             torch.linalg.norm((w_realised - w).reshape(-1)) / w_norm))
     return {"gp": gp, "gm": gm, "scale": scale}, report
 

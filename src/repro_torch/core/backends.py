@@ -6,6 +6,8 @@ One trained twin, several substrates, one abstraction:
     Backend.apply(state, t, x)     -> dx/dt         (one vector-field eval)
     Backend.rollout(state, y0, ts) -> ys            (full IVP solve)
     Backend.rollout_batch(state, y0s, ts) -> yss    (fleet of N twins)
+    Backend.rollout_batch_resumed(state, ys, dt=, num_steps=, start_steps=)
+                                   -> yss    (each twin from its own step)
 
 ``DigitalBackend`` integrates with plain tensor ops (:func:`repro_torch.core.ode.odeint`);
 ``FusedCudaBackend`` (``"fused_cuda"``) runs the whole RK4 trajectory of
@@ -20,8 +22,7 @@ in one launch of K4 (:mod:`repro_torch.kernels.fused_analogue`), the
 counterpart of ``FusedAnalogueBackend``.  The fleet axis is a batch
 dimension written out, where JAX vmaps.
 
-Not ported yet (ROADMAP.md, queue 1): ``rollout_batch_resumed``,
-``dopri5`` and mesh sharding.
+Not ported yet (ROADMAP.md, queue 1): ``dopri5`` and mesh sharding.
 """
 from __future__ import annotations
 
@@ -37,6 +38,8 @@ from repro_torch.core.analogue import (AnalogueMLPVectorField, AnalogueSpec,
                                        program_mlp_with_verify, stage_uint8)
 from repro_torch.core.faults import FaultModel, apply_faults_to_mlp
 from repro_torch.core.ode import odeint
+from repro_torch.kernels.ops import (half_step_times, sample_drive_window,
+                                     window_times)
 
 Params = Any
 
@@ -77,11 +80,20 @@ def _with_drive(state: ExecState, drive: Optional[Callable]) -> ExecState:
 
 def _fleet_drive(drive_family: Callable, drive_params: torch.Tensor):
     """u(t) of every fleet member, (N, Du): ``drive_family(t, theta_i)``
-    evaluated over the rows of ``drive_params`` (as ``jax.vmap`` does)."""
+    evaluated over the rows of ``drive_params`` (as ``jax.vmap`` does),
+    at one shared time or at an (N,) time, one per member."""
     def drive(t):
-        u = torch.func.vmap(lambda th: drive_family(t, th))(drive_params)
+        if torch.as_tensor(t).ndim:
+            u = torch.func.vmap(drive_family)(t, drive_params)
+        else:
+            u = torch.func.vmap(lambda th: drive_family(t, th))(drive_params)
         return u.reshape(u.shape[0], -1)
     return drive
+
+
+def _homogeneous(starts: np.ndarray) -> bool:
+    """Whether every twin of a resumed batch sits at the same step."""
+    return starts.size > 0 and bool((starts == starts[0]).all())
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -126,6 +138,84 @@ class BaseBackend:
             state = _with_drive(state, _fleet_drive(drive_family,
                                                     drive_params))
         return self.rollout(state, y0s, ts, **kw).transpose(0, 1)
+
+    # -- resume-from-state rollouts (streaming serving) ---------------------
+    @staticmethod
+    def _resume_starts(start_steps, n: int) -> np.ndarray:
+        """Normalise ``start_steps`` to a host (N,) int64 vector of
+        per-twin global step offsets.  They index the canonical float64
+        time grid (:func:`repro_torch.kernels.ops.window_times`), so a
+        tensor is read back to the host here, once."""
+        if start_steps is None:
+            return np.zeros(n, np.int64)
+        if isinstance(start_steps, torch.Tensor):
+            start_steps = start_steps.detach().cpu().numpy()
+        starts = np.asarray(start_steps, np.int64)
+        if starts.ndim == 0:
+            starts = np.broadcast_to(starts, (n,)).copy()
+        if starts.shape != (n,) or (starts < 0).any():
+            raise ValueError(
+                f"rollout_batch_resumed: start_steps must be {n} "
+                f"non-negative per-twin step offsets, got shape "
+                f"{starts.shape}")
+        return starts
+
+    def rollout_batch_resumed(self, state: ExecState, ys, *, dt: float,
+                              num_steps: int, t0: float = 0.0,
+                              start_steps=None,
+                              drive_family: Optional[Callable] = None,
+                              drive_params: Optional[torch.Tensor] = None,
+                              **kw) -> torch.Tensor:
+        """Fleet rollout resuming each twin from a carried state: twin i
+        advances ``num_steps`` steps from its own global step
+        ``start_steps[i]`` on the canonical grid ``t = t0 + dt*k``.
+        Returns (N, num_steps+1, D) with row 0 the carried states.
+
+        The determinism contract (``docs/serving.md``): every time value
+        is derived in float64 from ``(t0, dt, global step)`` and rounded to
+        float32 once, so serving ``[0, k)`` then ``[k, T)`` through a state
+        store is bitwise serving ``[0, T)`` in one call.  A batch whose
+        twins share one step passes it to :meth:`solve_window` as the
+        ``step_offset`` that keys a noisy substrate; mixed phases pass 0
+        (deterministic per batch, not a replay of the noise stream).
+        ``kw`` (``method``, ``steps_per_interval``, ``gradient``) go to
+        :meth:`solve_window`.
+        """
+        starts = self._resume_starts(start_steps, ys.shape[0])
+        offset = int(starts[0]) if _homogeneous(starts) else 0
+        return self.solve_window(state, ys, dt=dt, num_steps=num_steps,
+                                 t0=t0, starts=starts, step_offset=offset,
+                                 drive_family=drive_family,
+                                 drive_params=drive_params, **kw)
+
+    def solve_window(self, state: ExecState, ys, *, dt: float,
+                     num_steps: int, starts: np.ndarray,
+                     step_offset: int = 0, t0: float = 0.0,
+                     drive_family: Optional[Callable] = None,
+                     drive_params: Optional[torch.Tensor] = None,
+                     method: str = "rk4", steps_per_interval: int = 1,
+                     gradient: str = "direct") -> torch.Tensor:
+        """One resumed window: twin i from ``ys[i]`` at host step
+        ``starts[i]`` over ``num_steps`` steps -> (N, num_steps+1, D).
+        The streaming server calls it with ``step_offset`` 0, as the JAX
+        package's window does.  Each row integrates on its own grid (one
+        ``odeint`` over an (H+1, N) grid, where the JAX package vmaps); a
+        digital or simulated substrate reads no ``step_offset``, and
+        gradients, if any, flow by autograd through the unrolled steps
+        (the continuous adjoint takes one shared grid), so ``gradient`` is
+        not read either.
+        """
+        del step_offset, gradient
+        if method == "dopri5":
+            raise NotImplementedError(
+                "dopri5 is not ported yet (ROADMAP.md, queue 1)")
+        tss = window_times(t0, dt, int(num_steps), starts, device=ys.device)
+        if drive_family is not None:
+            state = _with_drive(state, _fleet_drive(drive_family,
+                                                    drive_params))
+        out = odeint(state.field, ys, tss.T, state.params, method=method,
+                     steps_per_interval=steps_per_interval)
+        return out.transpose(0, 1)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -202,15 +292,71 @@ class FusedCudaBackend(BaseBackend):
                                device=ts_fine.device)
         return half_step_drive(drive, ts_fine).to(torch.float32)
 
-    def _solve(self, state: ExecState, y0s, uh, dt, bt, gradient):
+    def _solve(self, state: ExecState, y0s, uh, dt, bt, gradient,
+               step_offset: int = 0):
         """The fused solve: 'stopgrad' detaches, every other mode is the
-        fused VJP (K1 forward, K2 backward)."""
+        fused VJP (K1 forward, K2 backward).  ``step_offset`` (the global
+        step of ``y0s`` in a resumed rollout) does not enter: the RK4
+        arithmetic is time-translation invariant once the drive is
+        sampled.  The analogue subclass keys its noise and drift on it."""
+        del step_offset
         from repro_torch.kernels import ops
         params = [{"w": w, "b": b} for w, b in
                   zip(state.extra["weights"], state.extra["biases"])]
         mode = "stopgrad" if gradient == "stopgrad" else "fused_vjp"
         return ops.fused_node_rollout(params, y0s, uh, dt, batch_tile=bt,
                                       gradient=mode)
+
+    def _u_half_window(self, state: ExecState, t0: float, dt: float,
+                       num_steps: int, starts: np.ndarray,
+                       drive_family: Optional[Callable],
+                       drive_params: Optional[torch.Tensor],
+                       device) -> torch.Tensor:
+        """The drive on each twin's canonical half-step window: shared
+        (2H+1, Du) when every twin sits at one global step with one drive,
+        per twin (N, 2H+1, Du) otherwise (mixed phases or a drive family;
+        the kernel takes per-twin slabs)."""
+        drive = getattr(state.field, "drive", None)
+        if drive_family is not None:
+            ths = half_step_times(t0, dt, num_steps, starts, device=device)
+
+            def row(ts_row, theta):
+                u = torch.func.vmap(lambda t: drive_family(t, theta))(ts_row)
+                return u[:, None] if u.ndim == 1 else u
+
+            return torch.func.vmap(row)(ths, drive_params).to(torch.float32)
+        if drive is None:
+            return torch.zeros((2 * num_steps + 1, 0), dtype=torch.float32,
+                               device=device)
+        start = int(starts[0]) if _homogeneous(starts) else starts
+        return sample_drive_window(drive, t0, dt, num_steps, start,
+                                   device=device).to(torch.float32)
+
+    def solve_window(self, state: ExecState, ys, *, dt: float,
+                     num_steps: int, starts: np.ndarray,
+                     step_offset: int = 0, t0: float = 0.0,
+                     drive_family: Optional[Callable] = None,
+                     drive_params: Optional[torch.Tensor] = None,
+                     method: str = "rk4", steps_per_interval: int = 1,
+                     gradient: str = "fused_vjp") -> torch.Tensor:
+        """One resumed window in one launch: each twin's drive is sampled
+        on the canonical global half-step grid, so a rollout split at any
+        step and resumed from the stored row is bitwise the uninterrupted
+        one.  ``step_offset`` goes to the solve (the analogue substrate
+        keys its noise, drift and write path on it)."""
+        from repro_torch.kernels.fused_ode_mlp import pad_fleet_to_tile
+        if method != "rk4" or steps_per_interval != 1:
+            raise ValueError(
+                "FusedCudaBackend.rollout_batch_resumed integrates plain "
+                "RK4 on the canonical step grid (method='rk4', "
+                f"steps_per_interval=1), got method={method!r}, "
+                f"steps_per_interval={steps_per_interval}")
+        uh = self._u_half_window(state, t0, dt, int(num_steps), starts,
+                                 drive_family, drive_params, ys.device)
+        y0s, uh, bt, B = pad_fleet_to_tile(ys, uh, self.batch_tile)
+        traj = self._solve(state, y0s, uh, float(dt), bt, gradient,
+                           step_offset=step_offset)
+        return traj[:, :B].transpose(0, 1)
 
     def rollout(self, state: ExecState, y0, ts, *, method: str = "rk4",
                 steps_per_interval: int = 1,
@@ -360,9 +506,9 @@ class FusedAnalogueCudaBackend(FusedCudaBackend):
     mode: ``program`` also stages the float32 master weights, and a
     non-``stopgrad`` rollout passes them through the hardware-aware write
     path (:func:`repro_torch.train.hw_aware.hw_aware_params`, one device
-    realisation keyed by ``read_seed`` at step 0: the port has no resumed
-    rollout yet) and integrates on K1 with K2's reverse-time VJP, so the
-    gradient reaches the masters through the straight-through estimator.
+    realisation keyed by ``read_seed`` and the rollout's ``step_offset``)
+    and integrates on K1 with K2's reverse-time VJP, so the gradient
+    reaches the masters through the straight-through estimator.
     ``apply`` keeps the plain crossbar read of the programmed field.
     """
 
@@ -405,10 +551,14 @@ class FusedAnalogueCudaBackend(FusedCudaBackend):
             progs=progs, spec=self.spec, drive=getattr(field, "drive", None))
         return ExecState(field=a_field, params=None, extra=staged)
 
-    def _solve(self, state: ExecState, y0s, uh, dt, bt, gradient):
+    def _solve(self, state: ExecState, y0s, uh, dt, bt, gradient,
+               step_offset: int = 0):
         """The fused analogue solve on K4, detached for every ``gradient``;
         with ``trainable=True`` and a non-``stopgrad`` gradient, the masters
-        through the write path on K1/K2 instead."""
+        through the write path on K1/K2 instead.  ``step_offset`` (the
+        global step of ``y0s``) keys the read noise, the drift and the
+        write path, so a resumed rollout whose twins share one step
+        replays the uninterrupted one."""
         from repro_torch.kernels import ops
         if self.trainable and gradient != "stopgrad":
             from repro_torch.train.hw_aware import (HwAwareConfig,
@@ -416,12 +566,14 @@ class FusedAnalogueCudaBackend(FusedCudaBackend):
             masters = [{"w": w, "b": b} for w, b in
                        zip(state.extra["weights"], state.extra["biases"])]
             eff = hw_aware_params(
-                masters, HwAwareConfig.from_backend(self, k_draws=1), 0)
+                masters, HwAwareConfig.from_backend(self, k_draws=1),
+                step_offset)
             return ops.fused_node_rollout(eff, y0s, uh, dt, batch_tile=bt,
                                           gradient="fused_vjp")
         return ops.fused_analogue_rollout(
             state.extra, y0s, uh, dt, batch_tile=bt,
-            read_noise=self.spec.read_noise, noise_seed=self.read_seed)
+            read_noise=self.spec.read_noise, noise_seed=self.read_seed,
+            step_offset=step_offset)
 
 
 DEFAULT_BACKEND = DigitalBackend()

@@ -4,8 +4,10 @@ All steppers share one contract, ``f(t, y, *f_args) -> dy/dt`` on a
 state ``y`` that is a tensor of any shape (a fleet is a leading batch
 axis) or a tree of tensors (the adjoint's augmented state), and keep the
 JAX package's arithmetic order so results agree to float32 rounding.
-``odeint`` is a plain Python loop; the adaptive ``dopri5`` solver is not
-ported yet (ROADMAP queue 1).
+``odeint`` is a plain Python loop over one time grid, or over one grid per
+row of a fleet state (a resumed fleet's windows, which the JAX package
+vmaps); the adaptive ``dopri5`` solver is not ported yet (ROADMAP queue
+1).
 """
 from __future__ import annotations
 
@@ -86,17 +88,27 @@ def odeint(f: VectorField, y0: torch.Tensor, ts: torch.Tensor, *f_args,
     ``steps_per_interval`` sub-divides each [t_i, t_{i+1}] for accuracy
     without densifying the output grid.  As in the JAX package, each
     interval's step is ``(t_{i+1} - t_i) / sub`` in the grid's dtype.
+
+    ``ts`` of shape (T+1, N) gives row n of an (N, D) state its own grid
+    ``ts[:, n]``: each row steps with its own ``dt`` and the field sees an
+    (N,) time, the arithmetic of N single-row solves.
     """
     if method not in STEP_FNS:
         raise ValueError(f"unknown method {method!r}; have {sorted(STEP_FNS)}")
     step = STEP_FNS[method]
     sub = int(steps_per_interval)
     ts = torch.as_tensor(ts).to(y0.device)
+    field = f
+    if ts.ndim == 2:            # one grid per row: (T+1, N, 1) broadcasts
+        ts = ts[..., None]
+
+        def field(t, y, *a):
+            return f(t[..., 0], y, *a)
     ys, y = [y0], y0
     for i in range(ts.shape[0] - 1):
         t0, t1 = ts[i], ts[i + 1]
         dt = (t1 - t0) / sub
         for j in range(sub):
-            y = step(f, t0 + j * dt, y, dt, *f_args)
+            y = step(field, t0 + j * dt, y, dt, *f_args)
         ys.append(y)
     return torch.stack(ys)

@@ -3,9 +3,8 @@
 A twin = (vector field, integrator, gradient mode) + a pluggable
 execution backend (digital tensor ops, the fused CUDA kernel, or the
 analogue crossbars — see :mod:`repro_torch.core.backends`).
-``TwinFleet`` scales it to N independent twins in one program.
-
-Not ported yet: ``rollout_batch_resumed`` (ROADMAP.md, queue 1).
+``TwinFleet`` scales it to N independent twins in one program, and
+resumes each from a carried state for streaming serving.
 """
 from __future__ import annotations
 
@@ -112,6 +111,30 @@ class TwinFleet:
         return self.twin.simulate_batch(params, y0s, ts,
                                         drive_family=self.drive_family,
                                         drive_params=drive_params)
+
+    def rollout_batch_resumed(self, params: Params, ys: torch.Tensor, *,
+                              dt: float, num_steps: int, t0: float = 0.0,
+                              start_steps=None,
+                              drive_params: Optional[torch.Tensor] = None,
+                              **kw) -> torch.Tensor:
+        """Resume-from-state fleet rollout: advance each twin
+        ``num_steps`` RK4 steps from its carried state ``ys[i]`` at its
+        own global step ``start_steps[i]`` on the canonical grid
+        ``t = t0 + dt*k`` -> (N, num_steps+1, D).  The streaming server's
+        primitive: a twin served over ``[0, k)`` then ``[k, T)`` through a
+        state store gets the trajectory of one request over ``[0, T)``,
+        bitwise (see
+        :meth:`repro_torch.core.backends.BaseBackend.rollout_batch_resumed`)."""
+        if (drive_params is None) != (self.drive_family is None):
+            raise ValueError(
+                "drive_params and drive_family must be given together")
+        node = self.twin.node
+        backend = resolve_backend(node.backend)
+        state = backend.program(node.field, params)
+        return backend.rollout_batch_resumed(
+            state, ys, dt=dt, num_steps=num_steps, t0=t0,
+            start_steps=start_steps, drive_family=self.drive_family,
+            drive_params=drive_params, **{**node._solver_kw(), **kw})
 
 
 def make_driven_twin(state_dim: int, drive: Callable, hidden: int = 14,

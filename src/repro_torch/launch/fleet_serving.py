@@ -2,10 +2,19 @@
 
 Layers (bottom-up):
 
-  ``FleetServer``   programmed server: weights placed on the device once,
-                    request batches in, trajectories out
-  ``serve_fleet``   end-to-end pipeline: checkpoint -> server -> streamed
-                    request batches -> results, in order
+  ``fallback_chain``        degradation tiers of an analogue fleet
+                            (primary -> quiet analogue -> digital)
+  ``FleetServer``           programmed server: weights placed on the
+                            device once, request batches in,
+                            trajectories out; with a ``ServingSLO``,
+                            health probes and retries down the chain
+  ``serve_fleet``           end-to-end pipeline: checkpoint -> server ->
+                            streamed request batches -> results, in order
+  ``StreamingFleetServer``  continuous batching over a resident twin
+                            population: per-twin state carried between
+                            requests in a host-paged ``TwinStateStore``,
+                            one fused launch per batch, admission
+                            control, SLO fallback and quarantine
 
 On the ``fused_cuda`` backend each request batch is one launch of the
 hand-written CUDA kernel K1 (:mod:`repro_torch.kernels.fused_ode_mlp`); on
@@ -13,8 +22,8 @@ hand-written CUDA kernel K1 (:mod:`repro_torch.kernels.fused_ode_mlp`); on
 each batch is one launch of K4 (:mod:`repro_torch.kernels.fused_analogue`).
 
 Not ported yet (ROADMAP.md, queue 1): the multi-device mesh
-(``shard_rollout_batch``), ``ServingSLO`` with its ``fallback_chain``
-(they come with the analogue tiers) and ``StreamingFleetServer``.
+(``shard_rollout_batch``, item 11) and the streaming server's crash
+recovery (journal, snapshots, ``recover``, item 9b).
 
 CLI (Lorenz96 fleet; ``--device cpu`` runs the kernel's plain version):
 
@@ -24,7 +33,9 @@ CLI (Lorenz96 fleet; ``--device cpu`` runs the kernel's plain version):
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
+import os
 import tempfile
 import time
 from typing import Any, Iterable, Iterator, Optional, Union
@@ -32,7 +43,12 @@ from typing import Any, Iterable, Iterator, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.core.backends import (AnalogueBackend, DigitalBackend,
+                                      FusedAnalogueCudaBackend,
+                                      resolve_backend)
 from repro_torch.device import resolve_device
+from repro_torch.launch import chaos
+from repro_torch.launch.state_store import StoreStats, TwinStateStore
 from repro_torch.train import checkpoint as ckpt_lib
 
 Params = Any
@@ -108,14 +124,123 @@ def pad_fleet_inputs(y0s: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Programmed fleet server
+# Serving SLO + graceful degradation
 # ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ServingSLO:
+    """Correctness contract for analogue serving.
+
+    ``max_rel_error``: worst tolerated deviation of a health probe from
+    the digital reference, relative to the reference's peak magnitude.
+    ``probe_every``: probe every this many requests (1 = every one).
+    ``probe_horizon`` / ``probe_fleet``: the probe rolls the request's
+    first ``probe_fleet`` rows over its first ``probe_horizon`` grid
+    points.  ``max_retries``: extra tiers one request may fall through
+    when its output comes back non-finite.  ``timeout_s``: wall-clock
+    budget per attempt (None = unbounded); overruns are counted, not
+    killed.
+    """
+    max_rel_error: float = 0.05
+    probe_every: int = 8
+    probe_horizon: int = 11
+    probe_fleet: int = 2
+    max_retries: int = 2
+    timeout_s: Optional[float] = None
+
+    def __post_init__(self):
+        if self.max_rel_error <= 0:
+            raise ValueError(f"ServingSLO.max_rel_error must be > 0, "
+                             f"got {self.max_rel_error}")
+        for f in ("probe_every", "probe_horizon", "probe_fleet"):
+            if getattr(self, f) < 1:
+                raise ValueError(f"ServingSLO.{f} must be >= 1, "
+                                 f"got {getattr(self, f)}")
+        if self.max_retries < 0:
+            raise ValueError(f"ServingSLO.max_retries must be >= 0, "
+                             f"got {self.max_retries}")
+        if self.timeout_s is not None and self.timeout_s <= 0:
+            raise ValueError(f"ServingSLO.timeout_s must be > 0 or None, "
+                             f"got {self.timeout_s}")
+
 
 @dataclasses.dataclass
 class ServingStats:
-    """What a server has done."""
+    """Counters the degradation machinery maintains (one per server)."""
     requests: int = 0
+    probes: int = 0
+    probe_demotions: int = 0
+    probe_recoveries: int = 0
+    nan_rescues: int = 0
+    retries: int = 0
+    transient_retries: int = 0
+    timeouts: int = 0
+    served_by: dict = dataclasses.field(default_factory=dict)
+    probe_errors: dict = dataclasses.field(default_factory=dict)
 
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def fallback_chain(fleet) -> list:
+    """Ordered degradation tiers ``[(name, fleet_variant), ...]``: the
+    primary substrate, then the noise-free fused analogue substrate (the
+    same programmed array and faults, read noise off) on K4, then the
+    digital reference.  Each tier strips one failure mode; the last
+    cannot be degraded by array health at all."""
+    primary = resolve_backend(fleet.backend)
+    tiers = [(primary.name, fleet)]
+    if isinstance(primary, (AnalogueBackend, FusedAnalogueCudaBackend)):
+        spec = primary.spec
+        if spec.read_noise > 0.0 or isinstance(primary, AnalogueBackend):
+            clean_spec = dataclasses.replace(spec, read_noise=0.0)
+            if isinstance(primary, FusedAnalogueCudaBackend):
+                clean = dataclasses.replace(primary, spec=clean_spec)
+            else:
+                # simulator primary: the quiet tier is the fused substrate
+                # with the same programming physics
+                clean = FusedAnalogueCudaBackend(
+                    spec=clean_spec, prog_seed=primary.prog_seed,
+                    storage=primary.storage, faults=primary.faults,
+                    verify=primary.verify, n_reads=primary.n_reads)
+            tiers.append((f"{clean.name}_clean", fleet.with_backend(clean)))
+    if not isinstance(primary, DigitalBackend):
+        tiers.append(("digital", fleet.with_backend(DigitalBackend())))
+    return tiers
+
+
+def _primary_tier(fleet) -> list:
+    return [(getattr(resolve_backend(fleet.backend), "name", "primary"),
+             fleet)]
+
+
+def _program_tiers(tiers, params) -> list:
+    """Program every tier once (the "write the crossbars" step):
+    ``[(backend, ExecState), ...]``."""
+    out = []
+    for _, tier_fleet in tiers:
+        backend = resolve_backend(tier_fleet.backend)
+        out.append((backend, backend.program(tier_fleet.twin.node.field,
+                                             params)))
+    return out
+
+
+def _params_to(params, device) -> list:
+    return [{k: torch.as_tensor(v).to(device) for k, v in layer.items()}
+            for layer in params]
+
+
+def _bump(counter: dict, key: str) -> None:
+    counter[key] = counter.get(key, 0) + 1
+
+
+def _rel_err(out: torch.Tensor, ref: torch.Tensor, scale: float) -> float:
+    return float((out - ref).abs().max()) / scale
+
+
+# ---------------------------------------------------------------------------
+# Programmed fleet server
+# ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
 class FleetServer:
@@ -123,21 +248,78 @@ class FleetServer:
 
     Construction places ``params`` on ``device`` (default ``cuda``) once
     and freezes the time grid; each :meth:`serve` call validates a
-    request batch, rolls it out under ``torch.inference_mode()`` and
-    returns the (N, T+1, D) trajectories on the device.
+    request batch, rolls it out without autograd and returns the (N, T+1,
+    D) trajectories on the device.  Without an SLO each batch is served
+    through ``fleet.rollout_batch``, which programs the substrate per
+    batch (as the JAX package's eager path does).
+
+    Passing a :class:`ServingSLO` arms graceful degradation: the
+    :func:`fallback_chain` tiers are programmed once, here; every
+    ``probe_every`` requests a short golden rollout of the request's own
+    leading rows on each tier is held against the digital reference, and
+    requests are served from the first tier that meets the SLO (probing
+    restarts from the primary, so a recovered array is promoted back).  A
+    request whose trajectories come back non-finite is retried down the
+    chain; ``RuntimeError`` only when even the digital tier fails.
+    ``stats`` counts what happened.  One device: the JAX package's
+    ``mesh=`` is ROADMAP.md queue 1 item 11.
     """
     fleet: Any                        # repro_torch.core.twin.TwinFleet
     params: Params
     ts: Any                           # concrete uniform time grid
     device: Any = None                # None -> cuda
+    slo: Optional[ServingSLO] = None  # None -> no degradation machinery
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.ts = torch.as_tensor(self.ts).detach().cpu()
         validate_fleet_request("FleetServer", ts=self.ts)
-        self.params = [{k: v.to(self.device) for k, v in layer.items()}
-                       for layer in self.params]
+        self.params = _params_to(self.params, self.device)
         self.stats = ServingStats()
+        self._tiers = (_primary_tier(self.fleet) if self.slo is None
+                       else fallback_chain(self.fleet))
+        self._programs = (None if self.slo is None
+                          else _program_tiers(self._tiers, self.params))
+        self._active = 0
+
+    @property
+    def active_tier(self) -> str:
+        """Name of the tier requests are currently served from."""
+        return self._tiers[self._active][0]
+
+    def _rollout(self, i: int, y0s, ts, thetas) -> torch.Tensor:
+        backend, state = self._programs[i]
+        tier_fleet = self._tiers[i][1]
+        with torch.inference_mode():
+            return backend.rollout_batch(
+                state, y0s, ts, drive_family=tier_fleet.drive_family,
+                drive_params=thetas, **tier_fleet.twin.node._solver_kw())
+
+    def _probe(self, y0s, thetas) -> None:
+        """Golden-trajectory health check: roll the request's first
+        ``probe_fleet`` rows over ``ts[:probe_horizon]`` on each tier and
+        activate the first whose worst deviation from the digital
+        reference (the last tier) meets the SLO."""
+        s = self.slo
+        self.stats.probes += 1
+        h = min(s.probe_horizon, int(self.ts.shape[0]))
+        ts_p = self.ts[:h]
+        yp = y0s[: s.probe_fleet]
+        tp = None if thetas is None else thetas[: s.probe_fleet]
+        ref = self._rollout(len(self._tiers) - 1, yp, ts_p, tp)
+        scale = float(ref.abs().max()) + 1e-9
+        prev, chosen = self._active, len(self._tiers) - 1
+        for i, (name, _) in enumerate(self._tiers[:-1]):
+            err = _rel_err(self._rollout(i, yp, ts_p, tp), ref, scale)
+            self.stats.probe_errors[name] = err
+            if np.isfinite(err) and err <= s.max_rel_error:
+                chosen = i
+                break
+        if chosen > prev:
+            self.stats.probe_demotions += 1
+        elif chosen < prev:
+            self.stats.probe_recoveries += 1
+        self._active = chosen
 
     def serve(self, y0s: torch.Tensor,
               drive_params: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -147,11 +329,38 @@ class FleetServer:
             drive_params = torch.as_tensor(drive_params, device=self.device)
         validate_fleet_request("FleetServer.serve", y0s=y0s,
                                drive_params=drive_params)
-        with torch.inference_mode():
-            out = self.fleet.rollout_batch(self.params, y0s, self.ts,
-                                           drive_params)
+        s = self.slo
+        if s is None:
+            with torch.inference_mode():
+                out = self.fleet.rollout_batch(self.params, y0s, self.ts,
+                                               drive_params)
+            self.stats.requests += 1
+            _bump(self.stats.served_by, "primary")
+            return out
+
+        if len(self._tiers) > 1 and self.stats.requests % s.probe_every == 0:
+            self._probe(y0s, drive_params)
         self.stats.requests += 1
-        return out
+        first = self._active
+        last = min(first + s.max_retries, len(self._tiers) - 1)
+        for i in range(first, last + 1):
+            if i > first:
+                self.stats.retries += 1
+            t0 = time.perf_counter()
+            out = self._rollout(i, y0s, self.ts, drive_params)
+            finite = bool(torch.isfinite(out).all())     # syncs the device
+            if (s.timeout_s is not None
+                    and time.perf_counter() - t0 > s.timeout_s):
+                self.stats.timeouts += 1
+            if finite:
+                if i > first:
+                    self.stats.nan_rescues += 1
+                _bump(self.stats.served_by, self._tiers[i][0])
+                return out
+        raise RuntimeError(
+            "FleetServer: every fallback tier (including digital) "
+            "returned non-finite trajectories — the request itself is "
+            "pathological, not the substrate")
 
 
 def serve_fleet(ckpt_dir: str, fleet, ts, requests: Iterable[Request], *,
@@ -180,6 +389,552 @@ def serve_fleet(ckpt_dir: str, fleet, ts, requests: Iterable[Request], *,
     for req in requests:
         y0s, thetas = req if isinstance(req, tuple) else (req, None)
         yield server.serve(y0s, thetas)
+
+
+# ---------------------------------------------------------------------------
+# Streaming stateful serving: continuous batching over a resident population
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class StreamRequest:
+    """One queued streaming request: advance ``twin_id`` by ``horizon``
+    RK4 steps from its carried state.  ``seq`` is the server-assigned
+    arrival index; ``remaining`` counts the steps still unserved (a request
+    longer than the server's window is split across batches).
+    ``deadline`` is the latest virtual time the request may still be
+    started; a request that has begun runs to completion."""
+    seq: int
+    twin_id: Any
+    horizon: int
+    remaining: int
+    t_arrival: float = 0.0
+    deadline: Optional[float] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Completed:
+    """A finished request: ``trajectory`` is the (horizon+1, D) host array
+    with row 0 the state the request started from; ``tier`` names the
+    substrate that served its final window."""
+    seq: int
+    twin_id: Any
+    trajectory: np.ndarray
+    start_step: int
+    tier: str
+    t_arrival: float
+    t_done: float
+
+
+@dataclasses.dataclass
+class StreamStats:
+    """Continuous-batching counters.  Conservation: every submitted
+    request lands in exactly one terminal bucket, ``enqueued == served +
+    failed + shed + expired + quarantined + pending``."""
+    enqueued: int = 0
+    served: int = 0
+    failed: int = 0
+    shed: int = 0            # load-shedding victims (bounded queue)
+    expired: int = 0         # deadline passed before assembly
+    quarantined: int = 0     # poison requests parked with a diagnostic
+    batches: int = 0
+    twin_steps: int = 0      # real (unpadded) RK4 steps served
+    padded_steps: int = 0    # max_batch * H - twin_steps, summed
+    splits: int = 0          # requests split across serving windows
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class Quarantined:
+    """A poison request, parked instead of served: even the digital tier
+    produced non-finite output for its batch.  ``reason`` records what
+    every tier said; the twin's carried state is untouched."""
+    seq: int
+    twin_id: Any
+    horizon: int
+    remaining: int
+    t_arrival: float
+    reason: str
+
+
+@dataclasses.dataclass
+class ServerStats:
+    """One observability snapshot (:meth:`StreamingFleetServer.stats`):
+    stream, degradation and paging counters under one ``as_dict``."""
+    stream: StreamStats
+    serving: ServingStats
+    store: StoreStats
+
+    def as_dict(self) -> dict:
+        return {"stream": self.stream.as_dict(),
+                "serving": self.serving.as_dict(),
+                "store": self.store.as_dict()}
+
+
+class StreamingFleetServer:
+    """Continuous batching for a resident twin population.
+
+    Where :class:`FleetServer` rolls fixed request batches from t0, this
+    server keeps each twin's ODE state alive between requests: sensor
+    windows (``submit``) feed a queue; each ``pump`` assembles the longest
+    admissible batch (one request per twin: a twin's next window starts
+    from its previous one's end state), fetches the carried states from
+    the :class:`TwinStateStore` (host-paged, LRU), pads the batch to
+    ``max_batch`` rows and its ragged horizons to one window of H steps
+    (``horizon_quantum`` multiples up to ``max_window``), solves it in one
+    launch on a fused tier (K1 on ``fused_cuda``, K4 on the analogue
+    tiers), scatters the end states back and advances each twin's global
+    step.
+
+    Determinism contract (``docs/serving.md``): every time value a twin
+    sees is the canonical float64 grid ``t0 + dt*k`` rounded to float32
+    once, keyed by the twin's own global step, so what a twin accumulates
+    over any sequence of windows is bitwise one uninterrupted rollout,
+    however the scheduler batched, split or paged it.  On the fused tiers
+    a window's solve passes ``step_offset`` 0, as the JAX package's does:
+    a noisy analogue window is deterministic per batch, not a replay of
+    one uninterrupted noise stream.
+
+    Passing a :class:`ServingSLO` arms the degradation machinery of
+    :class:`FleetServer`: the :func:`fallback_chain` tiers are programmed
+    once, at construction; a golden window probe re-picks the healthiest
+    tier every ``probe_every`` batches, and a batch whose trajectories
+    come back non-finite is retried down the chain.  A request that even
+    the digital tier cannot serve is quarantined with a per-tier
+    diagnostic, its carried state left untouched.
+
+    Admission control: ``max_queue`` bounds the queue; an arrival past it
+    is shed per ``shed_policy``: ``"reject_new"`` (``submit`` returns
+    None) or ``"drop_oldest"`` (the twin's oldest unstarted request
+    goes).  Deadlines are checked at assembly; a tier that raises a
+    :class:`~repro_torch.launch.chaos.TransientFault` is retried
+    ``transient_retries`` times with exponential backoff before the batch
+    falls down the chain.  Any other exception, such as a kernel that
+    fails to build or launch, raises out of ``pump``.  ``REPRO_STORE_AUDIT=1`` audits the
+    store after every pump.  One device; crash recovery
+    (``durability_dir``, journal, snapshots) is ROADMAP.md queue 1 item
+    9b.
+    """
+
+    def __init__(self, fleet, params, *, dt: float, t0: float = 0.0,
+                 hot_capacity: int = 64, max_batch: int = 32,
+                 max_window: int = 64, horizon_quantum: int = 8,
+                 slo: Optional[ServingSLO] = None,
+                 max_queue: Optional[int] = None,
+                 shed_policy: str = "reject_new",
+                 transient_retries: int = 2,
+                 backoff_base_s: float = 0.01,
+                 durability_dir: Optional[str] = None, device=None):
+        if durability_dir is not None:
+            raise NotImplementedError(
+                "StreamingFleetServer(durability_dir=): the journal, "
+                "snapshots and recover are not ported yet (ROADMAP.md, "
+                "queue 1 item 9b)")
+        if dt <= 0:
+            raise ValueError(f"StreamingFleetServer: dt must be > 0, "
+                             f"got {dt}")
+        if not 1 <= max_batch <= hot_capacity:
+            raise ValueError(
+                f"StreamingFleetServer: need 1 <= max_batch <= "
+                f"hot_capacity, got max_batch={max_batch}, "
+                f"hot_capacity={hot_capacity}")
+        if max_window < 1 or horizon_quantum < 1:
+            raise ValueError(
+                "StreamingFleetServer: max_window and horizon_quantum "
+                "must be >= 1")
+        if max_queue is not None and max_queue < 1:
+            raise ValueError(f"StreamingFleetServer: max_queue must be "
+                             f">= 1 or None, got {max_queue}")
+        if shed_policy not in ("reject_new", "drop_oldest"):
+            raise ValueError(
+                f"StreamingFleetServer: shed_policy must be 'reject_new'"
+                f" or 'drop_oldest', got {shed_policy!r}")
+        if transient_retries < 0 or backoff_base_s < 0:
+            raise ValueError(
+                "StreamingFleetServer: transient_retries and "
+                "backoff_base_s must be >= 0")
+        self.device = resolve_device(device)
+        self.fleet = fleet
+        self.params = _params_to(params, self.device)
+        self.dt = float(dt)
+        self.t0 = float(t0)
+        self.max_batch = int(max_batch)
+        self.max_window = int(max_window)
+        self.horizon_quantum = int(horizon_quantum)
+        self.slo = slo
+        self.max_queue = None if max_queue is None else int(max_queue)
+        self.shed_policy = shed_policy
+        self.transient_retries = int(transient_retries)
+        self.backoff_base_s = float(backoff_base_s)
+        self.store = TwinStateStore(fleet.twin.state_dim, hot_capacity,
+                                    device=self.device)
+        self.stream_stats = StreamStats()
+        self.serving_stats = ServingStats()
+        self.quarantine: dict = {}             # seq -> Quarantined
+        self._audit = os.environ.get("REPRO_STORE_AUDIT", "") == "1"
+        self._tiers = (fallback_chain(fleet) if slo is not None
+                       else _primary_tier(fleet))
+        self._programs = _program_tiers(self._tiers, self.params)
+        self._active = 0
+        self._queue: list = []                 # FIFO of StreamRequest
+        self._partial: dict = {}               # seq -> list of row blocks
+        self._seq = 0
+
+    # -- population / ingest -------------------------------------------------
+    @property
+    def active_tier(self) -> str:
+        return self._tiers[self._active][0]
+
+    @property
+    def pending(self) -> int:
+        return len(self._queue)
+
+    def stats(self) -> ServerStats:
+        """One snapshot of the stream, serving and store counters (deep
+        copies: mutating it cannot touch the live counters)."""
+        return ServerStats(stream=copy.deepcopy(self.stream_stats),
+                           serving=copy.deepcopy(self.serving_stats),
+                           store=copy.deepcopy(self.store.stats))
+
+    def register_twin(self, twin_id, y0, *, theta=None) -> None:
+        """Admit a twin with its initial condition (and its drive
+        parameters for a driven fleet), host-side.  Non-finite or
+        mis-shaped ``y0`` and ``theta`` raise naming the argument."""
+        if (theta is None) != (self.fleet.drive_family is None):
+            raise ValueError(
+                "register_twin: theta must be given exactly when the "
+                "fleet has a drive_family")
+        if theta is not None:
+            th = np.asarray(theta)
+            if not np.issubdtype(th.dtype, np.floating):
+                raise ValueError(
+                    f"register_twin: theta has non-floating dtype "
+                    f"{th.dtype}")
+            if not np.isfinite(th).all():
+                raise ValueError(
+                    f"register_twin: theta for twin {twin_id!r} contains "
+                    f"non-finite (NaN/Inf) values")
+        self.store.register(twin_id, y0, theta=theta)
+
+    def submit(self, twin_id, horizon: int, t_arrival: float = 0.0, *,
+               deadline: Optional[float] = None) -> Optional[int]:
+        """Enqueue a request to advance ``twin_id`` by ``horizon`` RK4
+        steps; returns its ``seq``, or None if the bounded queue shed it
+        (``shed_policy="reject_new"``).  Per-twin FIFO order holds.
+        ``deadline`` (the clock of ``t_arrival`` and ``pump(now)``) is
+        the latest the request may still be started.  Malformed arguments
+        raise ``ValueError`` naming the argument."""
+        if twin_id not in self.store:
+            raise KeyError(f"submit: twin {twin_id!r} is not registered")
+        if isinstance(horizon, bool) or not isinstance(
+                horizon, (int, np.integer)):
+            raise ValueError(
+                f"submit: horizon must be an integer step count, got "
+                f"{type(horizon).__name__} {horizon!r}")
+        horizon = int(horizon)
+        if horizon < 1:
+            raise ValueError(f"submit: horizon must be >= 1, got {horizon}")
+        t_arrival = float(t_arrival)
+        if not np.isfinite(t_arrival):
+            raise ValueError(
+                f"submit: t_arrival must be finite, got {t_arrival}")
+        if deadline is not None:
+            deadline = float(deadline)
+            if not np.isfinite(deadline):
+                raise ValueError(
+                    f"submit: deadline must be finite (omit it for "
+                    f"no deadline), got {deadline}")
+            if deadline < t_arrival:
+                raise ValueError(
+                    f"submit: deadline {deadline} precedes t_arrival "
+                    f"{t_arrival} — the request is dead on arrival")
+        seq = self._seq
+        self._seq += 1
+        self.stream_stats.enqueued += 1
+        if (self.max_queue is not None
+                and len(self._queue) >= self.max_queue):
+            victim = None
+            if self.shed_policy == "drop_oldest":
+                # this twin's oldest unstarted request: a half-served
+                # continuation is never shed
+                victim = next(
+                    (r for r in self._queue if r.twin_id == twin_id
+                     and r.remaining == r.horizon), None)
+            if victim is None:
+                self.stream_stats.shed += 1
+                return None
+            self._queue.remove(victim)
+            self.stream_stats.shed += 1
+        self._queue.append(StreamRequest(
+            seq=seq, twin_id=twin_id, horizon=horizon, remaining=horizon,
+            t_arrival=t_arrival, deadline=deadline))
+        return seq
+
+    # -- batch assembly ------------------------------------------------------
+    def _assemble(self):
+        """Pop the next batch: the FIRST queued request of each twin, in
+        FIFO order, up to ``max_batch`` (a twin's later requests wait for
+        its start state).  Returns the requests and the window length H."""
+        picked, skipped, seen = [], [], set()
+        for req in self._queue:
+            if req.twin_id in seen or len(picked) == self.max_batch:
+                skipped.append(req)
+            else:
+                seen.add(req.twin_id)
+                picked.append(req)
+        self._queue = skipped
+        if not picked:
+            return [], 0
+        h_max = min(self.max_window, max(r.remaining for r in picked))
+        q = self.horizon_quantum
+        return picked, min(self.max_window, -(-h_max // q) * q)
+
+    def _run_tier(self, tier_idx: int, ys, starts: np.ndarray, thetas,
+                  H: int) -> torch.Tensor:
+        """Serve one assembled window on one tier: the backend's
+        :meth:`solve_window` at ``step_offset`` 0, as the JAX package's
+        window does.  A fused tier launches its kernel once; the digital
+        and simulator tiers integrate each row on its own grid."""
+        backend, state = self._programs[tier_idx]
+        tier_fleet = self._tiers[tier_idx][1]
+        kw = {**tier_fleet.twin.node._solver_kw(), "gradient": "stopgrad"}
+        with torch.no_grad():
+            return backend.solve_window(
+                state, ys, dt=self.dt, num_steps=H, t0=self.t0,
+                starts=starts, step_offset=0,
+                drive_family=tier_fleet.drive_family, drive_params=thetas,
+                **kw)
+
+    def _probe(self, ys, starts, thetas, H: int) -> None:
+        """Golden-window health check: roll the batch's first
+        ``probe_fleet`` rows over a short window on every non-digital
+        tier, compare with the digital reference (the last tier) and
+        activate the first tier that meets the SLO.  The probe goes
+        through ``rollout_batch_resumed``, as the JAX package's does: a
+        probe whose rows share one step keys a noisy tier's draws at that
+        step, where the served window keys them at 0."""
+        s = self.slo
+        self.serving_stats.probes += 1
+        nf = min(s.probe_fleet, int(ys.shape[0]))
+        h = min(s.probe_horizon - 1, H)
+        yp, sp = ys[:nf], starts[:nf]
+        tp = None if thetas is None else thetas[:nf]
+
+        def window(i):
+            backend, state = self._programs[i]
+            with torch.no_grad():
+                return backend.rollout_batch_resumed(
+                    state, yp, dt=self.dt, num_steps=h, t0=self.t0,
+                    start_steps=sp,
+                    drive_family=self._tiers[i][1].drive_family,
+                    drive_params=tp, gradient="stopgrad")
+
+        ref = window(len(self._tiers) - 1)
+        scale = float(ref.abs().max()) + 1e-9
+        prev, chosen = self._active, len(self._tiers) - 1
+        for i, (name, _) in enumerate(self._tiers[:-1]):
+            err = _rel_err(window(i), ref, scale)
+            self.serving_stats.probe_errors[name] = err
+            if np.isfinite(err) and err <= s.max_rel_error:
+                chosen = i
+                break
+        if chosen > prev:
+            self.serving_stats.probe_demotions += 1
+        elif chosen < prev:
+            self.serving_stats.probe_recoveries += 1
+        self._active = chosen
+
+    # -- the serving loop ----------------------------------------------------
+    def _fetch_padded(self, ids):
+        """Fetch a batch's carried state and pad it to ``max_batch`` rows
+        (the last row replicated; results are sliced back).  Returns
+        ``(ys, starts, thetas, n)`` with ``n`` the real row count."""
+        ys, starts, thetas = self.store.fetch(ids)
+        n = len(ids)
+        pad = self.max_batch - n
+        if pad:
+            ys = torch.cat([ys, ys[-1:].expand(pad, *ys.shape[1:])])
+            starts = np.concatenate([starts, np.repeat(starts[-1:], pad)])
+            if thetas is not None:
+                thetas = torch.cat(
+                    [thetas, thetas[-1:].expand(pad, *thetas.shape[1:])])
+        return ys, starts, thetas, n
+
+    def _expire(self, now: float) -> None:
+        """Drop queued requests whose deadline passed before they were
+        started.  A split continuation is exempt: its state has already
+        advanced, so it runs to completion."""
+        stale = {r.seq for r in self._queue
+                 if r.deadline is not None and r.remaining == r.horizon
+                 and now > r.deadline}
+        if stale:
+            self._queue = [r for r in self._queue if r.seq not in stale]
+            self.stream_stats.expired += len(stale)
+
+    def _attempt_tier(self, tier_idx: int, ys, starts, thetas, H: int):
+        """One tier's solve, retried with exponential backoff on a
+        :class:`~repro_torch.launch.chaos.TransientFault`.  Any other
+        exception (a kernel that fails to build or launch) and an injected
+        ``SimulatedCrash`` pass straight through.  Raises the last fault
+        when the retries run out."""
+        s = self.slo
+        delay = self.backoff_base_s
+        last_exc: Optional[chaos.TransientFault] = None
+        for attempt in range(self.transient_retries + 1):
+            if attempt:
+                time.sleep(delay)
+                delay *= 2.0
+                self.serving_stats.transient_retries += 1
+            try:
+                chaos.fault_point("pump:run_tier")
+                t_start = time.perf_counter()
+                out = self._run_tier(tier_idx, ys, starts, thetas, H)
+                if out.is_cuda:
+                    torch.cuda.synchronize(out.device)
+                if (s is not None and s.timeout_s is not None
+                        and time.perf_counter() - t_start > s.timeout_s):
+                    self.serving_stats.timeouts += 1
+                return out
+            except chaos.TransientFault as e:
+                last_exc = e
+        raise last_exc
+
+    def _solve_batch(self, ys, starts, thetas, H: int, n: int):
+        """Run the fallback chain over one window.  Returns ``(traj,
+        tier_idx, diags)``; ``traj is None`` when even the last tier gave
+        non-finite output, ``diags`` naming what each tier said.  A tier
+        whose attempts all raise a transient fault falls through to the
+        next; the last tier re-raises (infrastructure failure, not a
+        poison request), and every other exception propagates at once."""
+        s = self.slo
+        first = self._active
+        last = (len(self._tiers) - 1 if s is None
+                else min(first + s.max_retries, len(self._tiers) - 1))
+        diags = []
+        for i in range(first, last + 1):
+            name = self._tiers[i][0]
+            if i > first:
+                self.serving_stats.retries += 1
+            try:
+                out = self._attempt_tier(i, ys, starts, thetas, H)
+            except chaos.TransientFault as e:
+                if i == last:
+                    raise
+                diags.append(f"{name}: raised {type(e).__name__}: {e}")
+                continue
+            if bool(torch.isfinite(out[:n]).all()):
+                if i > first:
+                    self.serving_stats.nan_rescues += 1
+                return out, i, diags
+            diags.append(f"{name}: non-finite output")
+        return None, None, diags
+
+    def _commit_batch(self, picked, ids, traj, starts, n: int, H: int,
+                      tier_idx: int, now: float) -> list:
+        """Apply one solved window: scatter the end states into the store,
+        advance the step counters, stitch the requests' trajectories (one
+        device-to-host copy of the window) and re-queue split
+        continuations at the front."""
+        tier_name = self._tiers[tier_idx][0]
+        traj_h = traj[:n].cpu().numpy()
+        served = [min(r.remaining, H) for r in picked]
+        rows = torch.arange(n, device=traj.device)
+        end_states = traj[rows, torch.as_tensor(served, device=traj.device)]
+        self.store.commit(ids, end_states, starts[:n] + np.asarray(served))
+        chaos.kill_point("pump:post_commit")
+        self.stream_stats.twin_steps += int(sum(served))
+        self.stream_stats.padded_steps += int(
+            self.max_batch * H - sum(served))
+        self.serving_stats.requests += 1
+        _bump(self.serving_stats.served_by, tier_name)
+        done = []
+        for i, req in enumerate(picked):
+            h = served[i]
+            blocks = self._partial.setdefault(req.seq, [])
+            blocks.append(traj_h[i, : h + 1] if not blocks
+                          else traj_h[i, 1: h + 1])
+            if h < req.remaining:
+                self.stream_stats.splits += 1
+                self._queue.insert(0, dataclasses.replace(
+                    req, remaining=req.remaining - h))
+                continue
+            done.append(Completed(
+                seq=req.seq, twin_id=req.twin_id,
+                trajectory=np.concatenate(self._partial.pop(req.seq)),
+                start_step=int(starts[i]) - (req.horizon - h),
+                tier=tier_name, t_arrival=req.t_arrival, t_done=now))
+            self.stream_stats.served += 1
+        return done
+
+    def pump(self, now: float = 0.0) -> list:
+        """Assemble and serve ONE batch; returns the :class:`Completed`
+        requests it finished (possibly none: a window that only partly
+        serves long requests completes nothing)."""
+        done = self._pump(now)
+        if self._audit:
+            self.store.check_invariants()
+        return done
+
+    def _pump(self, now: float) -> list:
+        self._expire(now)
+        picked, H = self._assemble()
+        if not picked:
+            return []
+        ids = [r.twin_id for r in picked]
+        ys, starts, thetas, n = self._fetch_padded(ids)
+        s = self.slo
+        if (s is not None and len(self._tiers) > 1
+                and self.stream_stats.batches % s.probe_every == 0):
+            self._probe(ys[:n], starts[:n],
+                        None if thetas is None else thetas[:n], H)
+        self.stream_stats.batches += 1
+        traj, tier_idx, diags = self._solve_batch(ys, starts, thetas, H, n)
+        chaos.kill_point("pump:pre_commit")
+        if traj is None:
+            # even the digital tier is non-finite: the requests themselves
+            # are poison; park them, carried states untouched
+            reason = "; ".join(diags) or "non-finite on every tier"
+            for req in picked:
+                self.stream_stats.quarantined += 1
+                self._partial.pop(req.seq, None)
+                self.quarantine[req.seq] = Quarantined(
+                    seq=req.seq, twin_id=req.twin_id, horizon=req.horizon,
+                    remaining=req.remaining, t_arrival=req.t_arrival,
+                    reason=reason)
+            return []
+        return self._commit_batch(picked, ids, traj, starts, n, H,
+                                  tier_idx, now)
+
+    def drain(self, now: float = 0.0) -> list:
+        """Pump until the queue is empty; returns all completions."""
+        done = []
+        while self._queue:
+            done.extend(self.pump(now))
+        return done
+
+    def serve_trace(self, trace, *, y0_of, theta_of=None,
+                    auto_register: bool = True) -> list:
+        """Replay an arrival trace (:mod:`repro_torch.launch.traffic`):
+        arrivals are submitted in order, a batch is pumped whenever the
+        queue can fill one, and the tail is drained at the end.
+        ``y0_of(twin_id)`` (and ``theta_of`` for driven fleets) registers
+        first-contact twins.  Returns the completions in service order."""
+        done = []
+        for arrival in trace:
+            if auto_register and arrival.twin_id not in self.store:
+                theta = None if theta_of is None else theta_of(
+                    arrival.twin_id)
+                self.register_twin(arrival.twin_id, y0_of(arrival.twin_id),
+                                   theta=theta)
+            self.submit(arrival.twin_id, arrival.horizon,
+                        t_arrival=arrival.time,
+                        deadline=getattr(arrival, "deadline", None))
+            if self.pending >= self.max_batch:
+                done.extend(self.pump(now=arrival.time))
+        t_end = trace[-1].time if trace else 0.0
+        done.extend(self.drain(now=t_end))
+        return done
 
 
 # ---------------------------------------------------------------------------
