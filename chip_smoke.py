@@ -210,6 +210,27 @@ result line:
    solve, ``_commit_batch``, the audit), K1's CUDA-event ms per pump at
    the pumps' shapes, ``FleetServer`` on the same 1024 x 200 request,
    and a ``torch.profiler`` trace of 10 pumps (device idle share).
+21. P8, crash recovery: phase 20's Poisson stream (4096 twins, hot slab
+   2048, batches of 1024, windows up to 200 steps) with the write-ahead
+   journal (every acknowledged append fsync'd) and a snapshot every 4
+   pumps, in a temporary directory on the machine's disk, on
+   ``fused_cuda`` (K1) and on P2's noisy faulty ``analogue_fused_cuda``
+   (K4 + K3, no SLO).  The crash-free durable run is bitwise phase 20's
+   run without durability (states, steps, completions, order); then one
+   crash at each of the five kill points, its hit half the kill point's
+   executions in the crash-free run (printed), ``recover(...,
+   device=cuda)`` and the rest of the trace fed again: every twin's state
+   and step, every delivered completion's trajectory and the completion
+   set bitwise the crash-free durable run; K1 (or K4 and its pre-pass)
+   launched during ``recover`` exactly once per replayed commit record
+   (counted from the journal), K3 masks once for the programming of the
+   analogue tier, and the replayed windows within 1e-4 of the kernel's
+   plain version.  Printed, not gated: journal records and bytes, host
+   ms per pump of the journal (records plus the group commit's fsync)
+   with ``fsync=True`` and with ``fsync=False``, acknowledged appends'
+   ms, snapshot ms and bytes, recover ms split into journal read, build
+   and programming, snapshot load and replay (ms per replayed commit),
+   and pumps/s with durability on beside the same stream without it.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record, the
 last line ``{"ok": true, "device": {...}}``.
@@ -257,6 +278,7 @@ from repro_torch.kernels import (_build, crossbar_vmm,  # noqa: E402
                                  fused_ode_mlp, fused_ode_mlp_bwd, noise, ops,
                                  ref, softdtw, ssm_scan)
 from repro_torch.launch import chaos, traffic  # noqa: E402
+from repro_torch.launch import journal as journal_lib  # noqa: E402
 from repro_torch.launch.fleet_serving import (FleetServer,  # noqa: E402
                                               ServingSLO,
                                               StreamingFleetServer,
@@ -1767,18 +1789,20 @@ def record_windows(name: str, rows: int, into: dict):
     return lambda: setattr(ops, name, fn)
 
 
-def hold_windows(smi, what: str, into: dict, kernel, plain) -> None:
+def hold_windows(smi, what: str, into: dict, kernel, plain,
+                 phase: str = "P7") -> None:
     """Hold the kernel against its plain version on every recorded
     window's inputs, within TOL of the peak."""
     errs = {}
     for H, (a, k) in sorted(into.items()):
         errs[H] = rel_err(kernel(*a, **k), plain(*a, **k))[1]
-    print(f"[{smi}] P7 {what} vs plain on a pump's recorded inputs, max "
+    print(f"[{smi}] {phase} {what} vs plain on a pump's recorded inputs, max "
           f"error of the peak by H: " + ", ".join(
               f"{H}: {e:.3e}" for H, e in errs.items()) + f" (limit {TOL:g})")
-    check(bool(errs), f"P7 {what}: no window recorded")
-    check(max(errs.values()) <= TOL, f"P7 {what}: disagrees with its plain "
-                                     f"version at H {max(errs, key=errs.get)}")
+    check(bool(errs), f"{phase} {what}: no window recorded")
+    check(max(errs.values()) <= TOL,
+          f"{phase} {what}: disagrees with its plain version at H "
+          f"{max(errs, key=errs.get)}")
 
 
 def k1_window_plain(params, y0, u, dt, **_):
@@ -1799,10 +1823,12 @@ def stitched_by_twin(done) -> dict:
             for tid, p in parts.items()}
 
 
-def p7_streaming(dev, smi, noisy_faulty, zero_counts, read_counts) -> dict:
+def p7_streaming(dev, smi, noisy_faulty, zero_counts, read_counts):
     """Phase 20: the Lorenz96 fleet (6->64->64->6, phase 4's seeded
     weights) streamed by ``StreamingFleetServer`` on the card.  Returns
-    the launch counts of its paths."""
+    the launch counts of its paths, and per tier the Poisson trace's
+    completions and the store's ``export_state`` after it (phase 21's
+    reference)."""
     cfg = recipes.FLEET
     fleet = recipes.make_l96_fleet(
         backend=FusedCudaBackend(batch_tile=cfg.batch_tile))
@@ -1817,7 +1843,7 @@ def p7_streaming(dev, smi, noisy_faulty, zero_counts, read_counts) -> dict:
 
     poisson = traffic.poisson_trace(population=P7_POPULATION, **P7_POISSON)
     ragged = traffic.ragged_trace(population=P7_POPULATION, **P7_RAGGED)
-    counts = {}
+    counts, refs = {}, {}
 
     def make(backend, **kw):
         return StreamingFleetServer(fleet.with_backend(backend), params,
@@ -1849,6 +1875,8 @@ def p7_streaming(dev, smi, noisy_faulty, zero_counts, read_counts) -> dict:
         pumps = srv.stream_stats.batches - b0
         steps = srv.stream_stats.twin_steps - s0
         runs[name] = done
+        if name == "poisson":
+            refs["fused_cuda"] = (done, srv.store.export_state())
         done_a += done
         check(len(done) == len(trace), f"P7 {name}: {len(done)} of "
                                        f"{len(trace)} requests served")
@@ -1934,6 +1962,7 @@ def p7_streaming(dev, smi, noisy_faulty, zero_counts, read_counts) -> dict:
     torch.cuda.synchronize()
     sec = time.perf_counter() - t_r
     undo()
+    refs["analogue_fused_cuda"] = (done_b, nb.store.export_state())
     st = nb.stats()
     nbatch, probes = st.stream.batches, st.serving.probes
     check(probes == -(-nbatch // nb.slo.probe_every),
@@ -2083,6 +2112,290 @@ def p7_streaming(dev, smi, noisy_faulty, zero_counts, read_counts) -> dict:
     else:
         print("P7 trace: the profiler recorded no device time (device idle "
               "share not measured)")
+    return counts, refs
+
+
+# -- phase 21: P8, crash recovery (K1, K4, K3) ---------------------------------
+
+#: Phase 21's durable server: phase 20's, every acknowledged journal append
+#: fsync'd and a snapshot every 4 pumps.
+P8_DURABLE = dict(fsync=True, snapshot_every=4)
+
+
+def journal_timers(server) -> dict:
+    """Wrap the server's journal with host clocks.  Inside a pump: the
+    seconds and bytes of its records (commit, complete, expire) and of the
+    group commit's one sync, summed per pump.  Outside: the seconds of
+    each acknowledged append (register, submit), each with its own
+    fsync when the journal has ``fsync=True``."""
+    acc = {"pump_s": [], "pump_bytes": [], "ack_s": []}
+    j, pump = server._journal, server._pump
+    cur = []                    # [seconds, bytes] of the pump under way
+
+    def timed(fn, ack: bool):
+        def run(*a, **k):
+            b0, t0 = j.nbytes, time.perf_counter()
+            out = fn(*a, **k)
+            dt = time.perf_counter() - t0
+            if cur:
+                cur[0] += dt
+                cur[1] += j.nbytes - b0
+            elif ack:
+                acc["ack_s"].append(dt)
+            return out
+        return run
+
+    j.append, j.sync = timed(j.append, True), timed(j.sync, False)
+
+    def run_pump(now):
+        cur[:] = [0.0, 0]
+        try:
+            return pump(now)
+        finally:
+            acc["pump_s"].append(cur[0])
+            acc["pump_bytes"].append(cur[1])
+            cur.clear()
+    server._pump = run_pump
+    return acc
+
+
+def snapshot_timer(server) -> list:
+    """Wrap ``server.snapshot``; returns the list of (seconds, bytes on
+    disk) per snapshot."""
+    out, fn = [], server.snapshot
+
+    def run():
+        t0 = time.perf_counter()
+        path = fn()
+        sec = time.perf_counter() - t0
+        out.append((sec, sum(f.stat().st_size for f in Path(path).iterdir())))
+        return path
+    server.snapshot = run
+    return out
+
+
+def count_kill_points():
+    """Count each kill point's executions; returns (counts, undo)."""
+    seen, fn = {}, chaos.kill_point
+
+    def run(name, partial=None):
+        seen[name] = seen.get(name, 0) + 1
+        return fn(name, partial)
+    chaos.kill_point = run
+    return seen, lambda: setattr(chaos, "kill_point", fn)
+
+
+def same_run(got_done, got_states, want_done, want_states) -> tuple:
+    """(states and steps bitwise, completion set equal, trajectories
+    bitwise) of a run against a reference; ``*_states`` are
+    ``export_state`` tuples, ``got_done`` may repeat a completion
+    (at-least-once delivery after a recovery)."""
+    ref = {c.seq: c.trajectory for c in want_done}
+    traj = all(c.seq in ref and np.array_equal(c.trajectory, ref[c.seq])
+               for c in got_done)
+    seqs = {c.seq for c in got_done} == set(ref)
+    ids, ys, steps, _ = want_states
+    gids, gys, gsteps, _ = got_states
+    row = {tid: i for i, tid in enumerate(gids)}
+    states = (sorted(gids) == sorted(ids) and all(
+        gsteps[row[t]] == steps[i] and np.array_equal(gys[row[t]], ys[i])
+        for i, t in enumerate(ids)))
+    return states, seqs, traj
+
+
+def p8_recovery(dev, smi, noisy_faulty, zero_counts, read_counts,
+                p7_refs) -> dict:
+    """Phase 21: phase 20's Poisson stream with the journal and snapshots
+    on, crashed at each kill point on ``fused_cuda`` (K1) and on P2's
+    noisy faulty ``analogue_fused_cuda`` (K4 + K3), recovered on the card
+    and resumed.  Returns the launch counts of its paths."""
+    t_phase = time.perf_counter()
+    cfg = recipes.FLEET
+    fleet = recipes.make_l96_fleet(
+        backend=FusedCudaBackend(batch_tile=cfg.batch_tile))
+    params = fleet.twin.init(torch.Generator().manual_seed(SEED),
+                             device="cpu")
+    y0_table = (cfg.y0_spread * torch.randn(
+        (P7_POPULATION, cfg.state_dim),
+        generator=torch.Generator().manual_seed(SEED + 20))).numpy()
+
+    def y0_of(tid):
+        return y0_table[tid]
+
+    poisson = traffic.poisson_trace(population=P7_POPULATION, **P7_POISSON)
+    none = {"K1": 0, "K4": 0, "K4_noise": 0, "K3_masks": 0, "K3": 0,
+            "K7": 0}
+    tiers = {
+        "fused_cuda": (FusedCudaBackend(batch_tile=cfg.batch_tile),
+                       "fused_node_rollout", k1_window_plain,
+                       lambda n: {**none, "K1": n}),
+        "analogue_fused_cuda": (
+            FusedAnalogueCudaBackend(batch_tile=cfg.batch_tile,
+                                     prog_seed=SEED, read_seed=SEED,
+                                     **noisy_faulty),
+            "fused_analogue_rollout", k4_window_plain,
+            lambda n: {**none, "K4": n, "K4_noise": n}),
+    }
+    counts = {}
+    root = tempfile.mkdtemp(prefix="p8_serve_")
+    try:
+        for name, (backend, entry, plain, want) in tiers.items():
+            tier_fleet = fleet.with_backend(backend)
+            masks = int(name != "fused_cuda")   # one programming, stuck cells
+
+            def make(**kw):
+                return StreamingFleetServer(tier_fleet, params, dt=cfg.dt,
+                                            device=dev, **P7_SERVER, **kw)
+
+            def timed_serve(srv, **kw):
+                torch.cuda.synchronize()
+                t_r = time.perf_counter()
+                done = srv.serve_trace(poisson, y0_of=y0_of, **kw)
+                torch.cuda.synchronize()
+                return done, time.perf_counter() - t_r
+
+            if name == "fused_cuda":
+                # the same stream without durability, for the rate beside
+                off = make()
+                _, sec_off = timed_serve(off)
+                pumps_off = off.stream_stats.batches / sec_off
+            # the crash-free durable run: bitwise phase 20's, and the
+            # counts that place each kill point's crash mid-trace
+            zero_counts()
+            srv = make(durability_dir=os.path.join(root, f"{name}_clean"),
+                       **P8_DURABLE)
+            jt, snaps = journal_timers(srv), snapshot_timer(srv)
+            seen, undo = count_kill_points()
+            try:
+                done, sec = timed_serve(srv)
+            finally:
+                undo()
+            jbytes, nrec = srv._journal.nbytes, srv._journal.lsn
+            srv.close()
+            pumps = srv.stream_stats.batches
+            counts[f"P8_durable_{name}"] = read_counts(
+                f"P8 {name}: durable crash-free stream",
+                {**want(pumps), "K3_masks": masks})
+            ref_states = srv.store.export_state()
+            ok = same_run(done, ref_states, *p7_refs[name])
+            order = [c.seq for c in done] == [c.seq for c in
+                                              p7_refs[name][0]]
+            print(f"P8 {name}: durable crash-free run vs phase 20's run "
+                  f"without durability: states bitwise {ok[0]}, completion "
+                  f"set {ok[1]}, trajectories bitwise {ok[2]}, order "
+                  f"{order}")
+            check(all(ok) and order, f"P8 {name}: the durable run is not "
+                                     f"bitwise phase 20's")
+            conservation(srv, f"P8 {name} durable")
+            pj, ack = np.asarray(jt["pump_s"]) * 1e3, np.asarray(
+                jt["ack_s"]) * 1e3
+            snap_ms = [1e3 * a for a, _ in snaps]
+            print(f"[{smi}] P8 {name} journal, fsync=True: {nrec} records, "
+                  f"{jbytes} bytes ({jbytes / nrec:.1f} a record), "
+                  f"{np.mean(jt['pump_bytes']):.0f} bytes a pump; host ms "
+                  f"per pump (records + one group fsync) mean {pj.mean():.4f}"
+                  f", median {np.median(pj):.4f}, max {pj.max():.4f} over "
+                  f"{pj.size} pumps; acknowledged appends (register, submit,"
+                  f" fsync each) ms mean {ack.mean():.4f}, median "
+                  f"{np.median(ack):.4f}, max {ack.max():.4f} over "
+                  f"{ack.size}")
+            print(f"[{smi}] P8 {name} snapshots: {len(snaps)} of "
+                  f"{P7_POPULATION} twins, ms each " + ", ".join(
+                      f"{m:.3f}" for m in snap_ms) + f"; bytes "
+                  f"{[b for _, b in snaps]}")
+            line = (f"[{smi}] P8 {name} durable stream: {pumps} pumps in "
+                    f"{sec:.3f} s ({pumps / sec:.2f} pumps/s, fsync=True, "
+                    f"snapshot every 4)")
+            if name == "fused_cuda":
+                # once more with fsync=False: the durability's price
+                nf = make(durability_dir=os.path.join(root, "nofsync"),
+                          fsync=False, snapshot_every=4)
+                jf = journal_timers(nf)
+                done_nf, sec_nf = timed_serve(nf)
+                nf.close()
+                check(all(same_run(done_nf, nf.store.export_state(), done,
+                                   ref_states)),
+                      "P8: the fsync=False run differs")
+                pf = np.asarray(jf["pump_s"]) * 1e3
+                af = np.asarray(jf["ack_s"]) * 1e3
+                print(f"[{smi}] P8 {name} journal, fsync=False: host ms per "
+                      f"pump mean {pf.mean():.4f}, median "
+                      f"{np.median(pf):.4f}; appends ms mean "
+                      f"{af.mean():.4f}")
+                line += (f"; fsync=False {nf.stream_stats.batches / sec_nf:.2f}"
+                         f" pumps/s; without durability {pumps_off:.2f} "
+                         f"pumps/s")
+            print(line)
+            hits = {k: max(1, seen.get(k, 0) // 2) for k in chaos.KILL_POINTS}
+            print(f"P8 {name}: kill points' executions in the crash-free run "
+                  f"{seen}; crash hits (mid-trace) {hits}")
+
+            for kill in chaos.KILL_POINTS:
+                tag = f"P8 {name} {kill}"
+                d = os.path.join(root, f"{name}_{kill.replace(':', '_')}")
+                live = make(durability_dir=d, **P8_DURABLE)
+                delivered, fired = [], False
+                try:
+                    with chaos.crash_at(kill, hit=hits[kill]):
+                        live.serve_trace(poisson, y0_of=y0_of,
+                                         sink=delivered)
+                except chaos.SimulatedCrash:
+                    fired = True
+                live.close()
+                check(fired, f"{tag}: hit {hits[kill]} never fired")
+                # the commits recovery must replay, read independently
+                records, _, _ = journal_lib.read_journal(
+                    journal_lib.journal_path(d))
+                snap = journal_lib.load_latest_snapshot(d)
+                start = 1 if snap is None else snap[0]
+                replayed = sum(r["t"] == "commit" for r in records[start:])
+                windows = {}
+                zero_counts()
+                undo = record_windows(entry, P7_SERVER["max_batch"], windows)
+                try:
+                    t_r = time.perf_counter()
+                    rec, redelivered = StreamingFleetServer.recover(
+                        d, tier_fleet, params, device=dev)
+                    torch.cuda.synchronize()
+                    rec_ms = (time.perf_counter() - t_r) * 1e3
+                finally:
+                    undo()
+                counts[f"P8_recover_{name}_{kill}"] = read_counts(
+                    f"{tag}: recover", {**want(replayed), "K3_masks": masks})
+                r = rec.recovery
+                check(r.commits == replayed,
+                      f"{tag}: recover replayed {r.commits} commits of "
+                      f"{replayed}")
+                if windows:
+                    hold_windows(smi, f"{name} {kill}: replayed windows",
+                                 windows,
+                                 getattr(ops, entry), plain, phase="P8")
+                zero_counts()
+                b0 = rec.stream_stats.batches
+                resumed = rec.serve_trace(poisson, y0_of=y0_of,
+                                          start=rec.stream_stats.enqueued)
+                rec.close()
+                counts[f"P8_resume_{name}_{kill}"] = read_counts(
+                    f"{tag}: resume", want(rec.stream_stats.batches - b0))
+                got = delivered + list(redelivered) + list(resumed)
+                ok = same_run(got, rec.store.export_state(), done, ref_states)
+                print(f"[{smi}] {tag}: crashed at hit {hits[kill]} after "
+                      f"{len(delivered)} deliveries; recover {rec_ms:.3f} ms "
+                      f"(journal read {1e3 * r.journal_read_s:.3f}, build and "
+                      f"program {1e3 * r.build_s:.3f}, snapshot load "
+                      f"{1e3 * r.snapshot_load_s:.3f}, replay "
+                      f"{1e3 * r.replay_s:.3f} of {r.records} records, "
+                      f"{r.commits} commits: "
+                      f"{1e3 * r.replay_s / max(r.commits, 1):.3f} ms a "
+                      f"commit); {len(redelivered)} redelivered, "
+                      f"{len(resumed)} served after the resume")
+                print(f"{tag}: states bitwise {ok[0]}, completion set "
+                      f"{ok[1]}, trajectories bitwise {ok[2]}")
+                check(all(ok), f"{tag}: recovery is not the crash-free run")
+                conservation(rec, tag)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[{smi}] phase 21 took {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -3250,8 +3563,14 @@ def main() -> int:
     lm_entries = lm_slice(dev, smi, hmma["flash_attention"], sass["ssm_scan"])
 
     # -- 20. P7: streaming serving (K1, K4, K3) ---------------------------------
-    p7 = p7_streaming(dev, smi, noisy_faulty, zero_counts, read_counts)
+    p7, p7_refs = p7_streaming(dev, smi, noisy_faulty, zero_counts,
+                               read_counts)
     path_counts.update(p7)
+
+    # -- 21. P8: crash recovery (K1, K4, K3) ------------------------------------
+    p8 = p8_recovery(dev, smi, noisy_faulty, zero_counts, read_counts,
+                     p7_refs)
+    path_counts.update(p8)
 
     k1_paths = {"serve_fleet": launches, "train_hp_twin": hp_counts[0],
                 "hp_40_steps_fused_cuda": hp40_counts["fused_cuda"][0],
@@ -3259,7 +3578,8 @@ def main() -> int:
                 **{f"P4_segment_{seg}": c[0]["K1"] for seg, c in p4.items()},
                 "P4_10_steps_fused_cuda": p4_cmp["K1"],
                 **{p: c["K1"] for p, c in p6["counts"].items()},
-                **{p: c["K1"] for p, c in p7.items() if c["K1"]}}
+                **{p: c["K1"] for p, c in p7.items() if c["K1"]},
+                **{p: c["K1"] for p, c in p8.items() if c["K1"]}}
     k2_paths = {"train_hp_twin": hp_counts[1],
                 **{p: c["K2"] for p, c in p6["counts"].items()},
                 "hp_40_steps_fused_cuda": hp40_counts["fused_cuda"][1],

@@ -14,7 +14,9 @@ Layers (bottom-up):
                             population: per-twin state carried between
                             requests in a host-paged ``TwinStateStore``,
                             one fused launch per batch, admission
-                            control, SLO fallback and quarantine
+                            control, SLO fallback and quarantine; with a
+                            ``durability_dir``, a write-ahead journal,
+                            snapshots and ``recover``
 
 On the ``fused_cuda`` backend each request batch is one launch of the
 hand-written CUDA kernel K1 (:mod:`repro_torch.kernels.fused_ode_mlp`); on
@@ -22,8 +24,7 @@ hand-written CUDA kernel K1 (:mod:`repro_torch.kernels.fused_ode_mlp`); on
 each batch is one launch of K4 (:mod:`repro_torch.kernels.fused_analogue`).
 
 Not ported yet (ROADMAP.md, queue 1): the multi-device mesh
-(``shard_rollout_batch``, item 11) and the streaming server's crash
-recovery (journal, snapshots, ``recover``, item 9b).
+(``shard_rollout_batch``, item 11).
 
 CLI (Lorenz96 fleet; ``--device cpu`` runs the kernel's plain version):
 
@@ -48,6 +49,7 @@ from repro_torch.core.backends import (AnalogueBackend, DigitalBackend,
                                       resolve_backend)
 from repro_torch.device import resolve_device
 from repro_torch.launch import chaos
+from repro_torch.launch import journal as journal_lib
 from repro_torch.launch.state_store import StoreStats, TwinStateStore
 from repro_torch.train import checkpoint as ckpt_lib
 
@@ -459,6 +461,24 @@ class Quarantined:
 
 
 @dataclasses.dataclass
+class RecoveryStats:
+    """What :meth:`StreamingFleetServer.recover` did and how long each
+    part took (host seconds): reading the journal, building the server
+    (programming its tiers), loading and restoring the snapshot, and
+    replaying the records after it, ``commits`` of them windows re-run."""
+    snapshot_lsn: Optional[int] = None
+    records: int = 0
+    commits: int = 0
+    journal_read_s: float = 0.0
+    build_s: float = 0.0
+    snapshot_load_s: float = 0.0
+    replay_s: float = 0.0
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass
 class ServerStats:
     """One observability snapshot (:meth:`StreamingFleetServer.stats`):
     stream, degradation and paging counters under one ``as_dict``."""
@@ -511,10 +531,22 @@ class StreamingFleetServer:
     :class:`~repro_torch.launch.chaos.TransientFault` is retried
     ``transient_retries`` times with exponential backoff before the batch
     falls down the chain.  Any other exception, such as a kernel that
-    fails to build or launch, raises out of ``pump``.  ``REPRO_STORE_AUDIT=1`` audits the
-    store after every pump.  One device; crash recovery
-    (``durability_dir``, journal, snapshots) is ROADMAP.md queue 1 item
-    9b.
+    fails to build or launch, raises out of ``pump``.
+    ``REPRO_STORE_AUDIT=1`` audits the store after every pump.  One
+    device.
+
+    Durability: ``durability_dir`` arms the write-ahead journal and the
+    snapshots (:mod:`repro_torch.launch.journal`): every externally
+    visible event is fsync'd before it is acknowledged (``fsync=False``
+    trades that for latency), the pump's records are one group commit, a
+    snapshot is published every ``snapshot_every`` pumps (0: only by
+    :meth:`snapshot`) and the newest ``snapshot_keep`` are kept.
+    :meth:`recover` rebuilds the server from the directory after a crash
+    at any point, bitwise (float32) the crash-free run: it replays the
+    journal's windows through the same tier solve that served them.  The
+    journal holds no device, so a directory recovers on any device (and
+    in the JAX package: the formats are the same).  Twin ids must be
+    JSON-serialisable scalars when durability is armed.
     """
 
     def __init__(self, fleet, params, *, dt: float, t0: float = 0.0,
@@ -525,12 +557,9 @@ class StreamingFleetServer:
                  shed_policy: str = "reject_new",
                  transient_retries: int = 2,
                  backoff_base_s: float = 0.01,
-                 durability_dir: Optional[str] = None, device=None):
-        if durability_dir is not None:
-            raise NotImplementedError(
-                "StreamingFleetServer(durability_dir=): the journal, "
-                "snapshots and recover are not ported yet (ROADMAP.md, "
-                "queue 1 item 9b)")
+                 durability_dir: Optional[str] = None,
+                 snapshot_every: int = 16, snapshot_keep: int = 3,
+                 fsync: bool = True, device=None):
         if dt <= 0:
             raise ValueError(f"StreamingFleetServer: dt must be > 0, "
                              f"got {dt}")
@@ -554,6 +583,10 @@ class StreamingFleetServer:
             raise ValueError(
                 "StreamingFleetServer: transient_retries and "
                 "backoff_base_s must be >= 0")
+        if snapshot_every < 0 or snapshot_keep < 1:
+            raise ValueError(
+                "StreamingFleetServer: need snapshot_every >= 0 "
+                "(0 = manual snapshots only) and snapshot_keep >= 1")
         self.device = resolve_device(device)
         self.fleet = fleet
         self.params = _params_to(params, self.device)
@@ -567,12 +600,18 @@ class StreamingFleetServer:
         self.shed_policy = shed_policy
         self.transient_retries = int(transient_retries)
         self.backoff_base_s = float(backoff_base_s)
+        self.snapshot_every = int(snapshot_every)
+        self.snapshot_keep = int(snapshot_keep)
         self.store = TwinStateStore(fleet.twin.state_dim, hot_capacity,
                                     device=self.device)
         self.stream_stats = StreamStats()
         self.serving_stats = ServingStats()
         self.quarantine: dict = {}             # seq -> Quarantined
         self._audit = os.environ.get("REPRO_STORE_AUDIT", "") == "1"
+        self._journal: Optional[journal_lib.Journal] = None
+        self._serve_dir: Optional[str] = None
+        self._pumps_since_snapshot = 0
+        self.recovery: Optional[RecoveryStats] = None   # set by recover
         self._tiers = (fallback_chain(fleet) if slo is not None
                        else _primary_tier(fleet))
         self._programs = _program_tiers(self._tiers, self.params)
@@ -580,6 +619,9 @@ class StreamingFleetServer:
         self._queue: list = []                 # FIFO of StreamRequest
         self._partial: dict = {}               # seq -> list of row blocks
         self._seq = 0
+        if durability_dir is not None:
+            self._attach_durability(durability_dir, fsync=fsync,
+                                    resume=False)
 
     # -- population / ingest -------------------------------------------------
     @property
@@ -616,6 +658,15 @@ class StreamingFleetServer:
                     f"register_twin: theta for twin {twin_id!r} contains "
                     f"non-finite (NaN/Inf) values")
         self.store.register(twin_id, y0, theta=theta)
+        if self._journal is not None:
+            rec = {"t": "register", "id": twin_id,
+                   "y0": journal_lib.json_floats(
+                       self.store.peek(twin_id)[0])}
+            if theta is not None:
+                th32 = np.asarray(theta, np.float32)
+                rec["theta"] = journal_lib.json_floats(th32)
+                rec["tshape"] = list(th32.shape)
+            self._journal.append(rec)
 
     def submit(self, twin_id, horizon: int, t_arrival: float = 0.0, *,
                deadline: Optional[float] = None) -> Optional[int]:
@@ -652,6 +703,8 @@ class StreamingFleetServer:
         seq = self._seq
         self._seq += 1
         self.stream_stats.enqueued += 1
+        jrec = {"t": "submit", "seq": seq, "id": twin_id, "h": horizon,
+                "ta": t_arrival, "dl": deadline}
         if (self.max_queue is not None
                 and len(self._queue) >= self.max_queue):
             victim = None
@@ -663,12 +716,19 @@ class StreamingFleetServer:
                      and r.remaining == r.horizon), None)
             if victim is None:
                 self.stream_stats.shed += 1
+                if self._journal is not None:
+                    self._journal.append({**jrec, "shed": True})
                 return None
             self._queue.remove(victim)
             self.stream_stats.shed += 1
+            if self._journal is not None:
+                self._journal.append({"t": "shed", "seq": victim.seq},
+                                     sync=False)
         self._queue.append(StreamRequest(
             seq=seq, twin_id=twin_id, horizon=horizon, remaining=horizon,
             t_arrival=t_arrival, deadline=deadline))
+        if self._journal is not None:
+            self._journal.append(jrec)
         return seq
 
     # -- batch assembly ------------------------------------------------------
@@ -771,6 +831,9 @@ class StreamingFleetServer:
         if stale:
             self._queue = [r for r in self._queue if r.seq not in stale]
             self.stream_stats.expired += len(stale)
+            if self._journal is not None:
+                self._journal.append({"t": "expire", "seqs": sorted(stale)},
+                                     sync=False)
 
     def _attempt_tier(self, tier_idx: int, ys, starts, thetas, H: int):
         """One tier's solve, retried with exponential backoff on a
@@ -835,7 +898,9 @@ class StreamingFleetServer:
         """Apply one solved window: scatter the end states into the store,
         advance the step counters, stitch the requests' trajectories (one
         device-to-host copy of the window) and re-queue split
-        continuations at the front."""
+        continuations at the front.  The live pump and journal replay
+        share it, which is what makes a replayed window the crash-free
+        state transition."""
         tier_name = self._tiers[tier_idx][0]
         traj_h = traj[:n].cpu().numpy()
         served = [min(r.remaining, H) for r in picked]
@@ -874,12 +939,18 @@ class StreamingFleetServer:
         done = self._pump(now)
         if self._audit:
             self.store.check_invariants()
+        if self._journal is not None and self.snapshot_every:
+            self._pumps_since_snapshot += 1
+            if self._pumps_since_snapshot >= self.snapshot_every:
+                self.snapshot()
         return done
 
     def _pump(self, now: float) -> list:
         self._expire(now)
         picked, H = self._assemble()
         if not picked:
+            if self._journal is not None:
+                self._journal.sync()        # any expire records
             return []
         ids = [r.twin_id for r in picked]
         ys, starts, thetas, n = self._fetch_padded(ids)
@@ -902,26 +973,321 @@ class StreamingFleetServer:
                     seq=req.seq, twin_id=req.twin_id, horizon=req.horizon,
                     remaining=req.remaining, t_arrival=req.t_arrival,
                     reason=reason)
+            if self._journal is not None:
+                self._journal.append(
+                    {"t": "quarantine", "seqs": [r.seq for r in picked],
+                     "reason": reason}, sync=False)
+                self._journal.sync()
             return []
-        return self._commit_batch(picked, ids, traj, starts, n, H,
+        done = self._commit_batch(picked, ids, traj, starts, n, H,
                                   tier_idx, now)
+        if self._journal is not None:
+            # one group commit: the window's decision and its completions
+            self._journal.append(
+                {"t": "commit", "seqs": [r.seq for r in picked],
+                 "tier": tier_idx, "H": H,
+                 "served": [min(r.remaining, H) for r in picked],
+                 "now": now}, sync=False)
+            for c in done:
+                self._journal.append({"t": "complete", "seq": c.seq},
+                                     sync=False)
+            self._journal.sync()
+        return done
+
+    # -- durability: journal, snapshots, crash recovery ----------------------
+    def _config(self) -> dict:
+        """The constructor arguments the journal's header pins, so that
+        :meth:`recover` rebuilds the same scheduler.  No device: a journal
+        is not tied to the machine that wrote it."""
+        return {"dt": self.dt, "t0": self.t0,
+                "hot_capacity": self.store.hot_capacity,
+                "max_batch": self.max_batch,
+                "max_window": self.max_window,
+                "horizon_quantum": self.horizon_quantum,
+                "max_queue": self.max_queue,
+                "shed_policy": self.shed_policy,
+                "transient_retries": self.transient_retries,
+                "backoff_base_s": self.backoff_base_s,
+                "snapshot_every": self.snapshot_every,
+                "snapshot_keep": self.snapshot_keep}
+
+    def _attach_durability(self, serve_dir: str, *, fsync: bool,
+                           resume: bool) -> None:
+        os.makedirs(serve_dir, exist_ok=True)
+        jrnl = journal_lib.Journal(journal_lib.journal_path(serve_dir),
+                                   fsync=fsync)
+        if jrnl.lsn and not resume:
+            jrnl.close()
+            raise ValueError(
+                f"StreamingFleetServer: {serve_dir!r} already holds a "
+                f"journal with {jrnl.lsn} record(s) — use "
+                f"StreamingFleetServer.recover() to resume it (a fresh "
+                f"server writing over live state would fork history)")
+        self._serve_dir = serve_dir
+        self._journal = jrnl
+        if jrnl.lsn == 0:
+            jrnl.append({"t": "config",
+                         "schema": journal_lib.JOURNAL_SCHEMA,
+                         "cfg": self._config()})
+
+    def close(self) -> None:
+        """Flush and close the journal (a no-op without durability)."""
+        if self._journal is not None:
+            self._journal.close()
+
+    def snapshot(self) -> str:
+        """Atomically publish a full-state snapshot covering every journal
+        record so far: the store (one device-to-host copy of the hot
+        slab), the queue, partial trajectories, quarantine and every
+        counter.  Returns its path.  The pump calls it every
+        ``snapshot_every`` pumps."""
+        if self._journal is None:
+            raise RuntimeError(
+                "snapshot: durability is not armed — construct with "
+                "durability_dir=")
+        self._journal.sync()
+        lsn = self._journal.lsn
+        ids, ys, steps, thetas = self.store.export_state()
+        arrays = {"store_ys": ys, "store_steps": steps}
+        if thetas is not None:
+            arrays["store_thetas"] = thetas
+        for seq, blocks in self._partial.items():
+            for i, b in enumerate(blocks):
+                arrays[f"partial/{seq}/{i}"] = np.asarray(b, np.float32)
+        extra = {
+            "ids": list(ids),
+            "seq": self._seq,
+            "active": self._active,
+            "queue": [[r.seq, r.twin_id, r.horizon, r.remaining,
+                       r.t_arrival, r.deadline] for r in self._queue],
+            "partial": {str(s): len(b) for s, b in self._partial.items()},
+            "quarantine": [dataclasses.asdict(q)
+                           for q in self.quarantine.values()],
+            "stream_stats": self.stream_stats.as_dict(),
+            "serving_stats": self.serving_stats.as_dict(),
+            "store_stats": self.store.stats.as_dict(),
+        }
+        path = journal_lib.write_snapshot(self._serve_dir, lsn, arrays,
+                                          extra, keep=self.snapshot_keep)
+        self._pumps_since_snapshot = 0
+        return path
+
+    def _restore_snapshot(self, arrays: dict, extra: dict) -> None:
+        ys, steps = arrays["store_ys"], arrays["store_steps"]
+        thetas = arrays.get("store_thetas")
+        for i, tid in enumerate(extra["ids"]):
+            self.store.register(
+                tid, ys[i], theta=None if thetas is None else thetas[i],
+                step=int(steps[i]))
+        self._seq = int(extra["seq"])
+        self._active = int(extra["active"])
+        self._queue = [
+            StreamRequest(seq=q[0], twin_id=q[1], horizon=q[2],
+                          remaining=q[3], t_arrival=q[4], deadline=q[5])
+            for q in extra["queue"]]
+        self._partial = {
+            int(s): [arrays[f"partial/{s}/{i}"] for i in range(nb)]
+            for s, nb in extra["partial"].items()}
+        self.quarantine = {q["seq"]: Quarantined(**q)
+                           for q in extra["quarantine"]}
+        self.stream_stats = StreamStats(**extra["stream_stats"])
+        self.serving_stats = ServingStats(**extra["serving_stats"])
+        self.store.stats = StoreStats(**extra["store_stats"])
+
+    def _drop_seqs(self, seqs) -> list:
+        want = set(seqs)
+        dropped = [r for r in self._queue if r.seq in want]
+        if len(dropped) != len(want):
+            have = {r.seq for r in dropped}
+            raise ValueError(
+                f"recover: journal references request seq(s) "
+                f"{sorted(want - have)} that are not pending — the "
+                f"journal is inconsistent beyond its torn tail")
+        self._queue = [r for r in self._queue if r.seq not in want]
+        return dropped
+
+    def _replay(self, rec: dict) -> list:
+        """Apply one journal record during recovery.  Decision records
+        (register, submit, shed, expire, quarantine) are applied as they
+        stand; a ``commit`` re-runs its window on the recorded tier.
+        Returns the completions the record (re)produces."""
+        t = rec["t"]
+        if t == "register":
+            theta = None
+            if "theta" in rec:
+                theta = journal_lib.from_json_floats(rec["theta"],
+                                                     rec["tshape"])
+            self.store.register(
+                rec["id"],
+                journal_lib.from_json_floats(rec["y0"],
+                                             (self.store.state_dim,)),
+                theta=theta)
+            return []
+        if t == "submit":
+            self.stream_stats.enqueued += 1
+            self._seq = max(self._seq, rec["seq"] + 1)
+            if rec.get("shed"):
+                self.stream_stats.shed += 1
+                return []
+            self._queue.append(StreamRequest(
+                seq=rec["seq"], twin_id=rec["id"], horizon=rec["h"],
+                remaining=rec["h"], t_arrival=rec["ta"],
+                deadline=rec["dl"]))
+            return []
+        if t == "shed":
+            self._drop_seqs([rec["seq"]])
+            self.stream_stats.shed += 1
+            return []
+        if t == "expire":
+            self._drop_seqs(rec["seqs"])
+            self.stream_stats.expired += len(rec["seqs"])
+            return []
+        if t == "quarantine":
+            for req in self._drop_seqs(rec["seqs"]):
+                self.stream_stats.quarantined += 1
+                self._partial.pop(req.seq, None)
+                self.quarantine[req.seq] = Quarantined(
+                    seq=req.seq, twin_id=req.twin_id,
+                    horizon=req.horizon, remaining=req.remaining,
+                    t_arrival=req.t_arrival, reason=rec["reason"])
+            return []
+        if t == "commit":
+            return self._replay_commit(rec)
+        if t == "complete":
+            return []                   # checked by recover()
+        raise ValueError(f"recover: unknown journal record type {t!r}")
+
+    def _replay_commit(self, rec: dict) -> list:
+        """Re-run one journalled window: the recorded requests, fetched
+        and padded as the pump did, through :meth:`_run_tier` on the
+        recorded tier (the solve the live pump's :meth:`_solve_batch`
+        makes), then :meth:`_commit_batch`."""
+        by_seq = {r.seq: r for r in self._queue}
+        missing = [s for s in rec["seqs"] if s not in by_seq]
+        if missing:
+            raise ValueError(
+                f"recover: commit record references seq(s) {missing} "
+                f"that are not pending — the journal is inconsistent")
+        picked = [by_seq[s] for s in rec["seqs"]]
+        taken = set(rec["seqs"])
+        self._queue = [r for r in self._queue if r.seq not in taken]
+        ids = [r.twin_id for r in picked]
+        ys, starts, thetas, n = self._fetch_padded(ids)
+        H, tier_idx = int(rec["H"]), int(rec["tier"])
+        served = [min(r.remaining, H) for r in picked]
+        if served != [int(x) for x in rec["served"]]:
+            raise ValueError(
+                "recover: replayed window disagrees with the journalled "
+                "served step counts — scheduler state diverged")
+        self.stream_stats.batches += 1
+        traj = self._run_tier(tier_idx, ys, starts, thetas, H)
+        if not bool(torch.isfinite(traj[:n]).all()):
+            raise ValueError(
+                "recover: a journalled commit re-executed to non-finite "
+                "output — the substrate changed since the crash")
+        return self._commit_batch(picked, ids, traj, starts, n, H,
+                                  tier_idx, float(rec.get("now", 0.0)))
+
+    @classmethod
+    def recover(cls, serve_dir: str, fleet, params, *,
+                slo: Optional[ServingSLO] = None, fsync: bool = True,
+                device=None):
+        """Rebuild a crashed server from its serving directory on
+        ``device`` (default ``cuda``).
+
+        Builds the server from the journal's config header (its tiers
+        programmed again, from their seeds), loads the newest loadable
+        snapshot (a damaged one is skipped for an older one), replays the
+        journal after it through the recorded tiers, and reopens the
+        journal (torn tail truncated) so serving appends where the crash
+        left off.  With an SLO, the active tier is the snapshot's:
+        probes are not replayed, as in the JAX package.
+
+        Returns ``(server, redelivered)``: ``redelivered`` holds the
+        :class:`Completed` results that replayed commits produce again,
+        which the caller may or may not have received before the crash
+        (at-least-once delivery; the state advances exactly once).  The
+        server's store, queue, partials and counters are bitwise
+        (float32) a crash-free run's; ``server.recovery`` says what the
+        recovery did and what each part cost.
+        """
+        stats = RecoveryStats()
+        t_0 = time.perf_counter()
+        records, _, _ = journal_lib.read_journal(
+            journal_lib.journal_path(serve_dir))
+        if not records or records[0].get("t") != "config":
+            raise ValueError(
+                f"recover: {serve_dir!r} has no usable journal (missing "
+                f"or torn config header) — nothing to recover")
+        if records[0].get("schema") != journal_lib.JOURNAL_SCHEMA:
+            raise ValueError(
+                f"recover: journal schema {records[0].get('schema')!r} "
+                f"!= supported {journal_lib.JOURNAL_SCHEMA}")
+        t_1 = time.perf_counter()
+        server = cls(fleet, params, slo=slo, device=device,
+                     **records[0]["cfg"])
+        t_2 = time.perf_counter()
+        snap = journal_lib.load_latest_snapshot(serve_dir)
+        start = 1                       # past the config header
+        if snap is not None:
+            lsn, arrays, extra = snap
+            server._restore_snapshot(arrays, extra)
+            start = stats.snapshot_lsn = lsn
+        t_3 = time.perf_counter()
+        redelivered, completed_seqs = [], set()
+        for rec in records[start:]:
+            out = server._replay(rec)
+            stats.commits += rec["t"] == "commit"
+            completed_seqs.update(c.seq for c in out)
+            redelivered.extend(out)
+            if rec["t"] == "complete" and rec["seq"] not in completed_seqs:
+                raise ValueError(
+                    f"recover: journal records completion of seq "
+                    f"{rec['seq']} that replay never produced — the "
+                    f"journal is inconsistent beyond its torn tail")
+        if server.device.type == "cuda":
+            torch.cuda.synchronize(server.device)
+        t_4 = time.perf_counter()
+        stats.records = len(records) - start
+        stats.journal_read_s = t_1 - t_0
+        stats.build_s = t_2 - t_1
+        stats.snapshot_load_s = t_3 - t_2
+        stats.replay_s = t_4 - t_3
+        server._attach_durability(serve_dir, fsync=fsync, resume=True)
+        server.recovery = stats
+        return server, redelivered
 
     def drain(self, now: float = 0.0) -> list:
-        """Pump until the queue is empty; returns all completions."""
+        """Pump until the queue is empty; returns all completions (also
+        right after :meth:`recover`: replay leaves the queue as the
+        crash-free schedule would have)."""
         done = []
         while self._queue:
             done.extend(self.pump(now))
         return done
 
     def serve_trace(self, trace, *, y0_of, theta_of=None,
-                    auto_register: bool = True) -> list:
+                    auto_register: bool = True, start: int = 0,
+                    sink: Optional[list] = None) -> list:
         """Replay an arrival trace (:mod:`repro_torch.launch.traffic`):
         arrivals are submitted in order, a batch is pumped whenever the
         queue can fill one, and the tail is drained at the end.
         ``y0_of(twin_id)`` (and ``theta_of`` for driven fleets) registers
-        first-contact twins.  Returns the completions in service order."""
-        done = []
-        for arrival in trace:
+        first-contact twins.  Returns the completions in service order.
+
+        ``start`` skips the first ``start`` arrivals: a recovered server
+        holds every arrival its journal acknowledged, so the caller feeds
+        the trace again from ``server.stream_stats.enqueued`` (an arrival
+        whose submit never reached the journal is submitted again, the
+        client-retry contract).  ``sink``, a list, also receives each
+        pump's completions as the pump returns them, so a consumer that
+        may die mid-trace keeps what it got before the death (the JAX
+        package's ``serve_trace`` hands over the final drain's completions
+        only when the drain ends, so a crash in the drain loses those of
+        its earlier pumps: covered by a snapshot, they are not
+        redelivered either)."""
+        done = [] if sink is None else sink
+        for arrival in trace[start:]:
             if auto_register and arrival.twin_id not in self.store:
                 theta = None if theta_of is None else theta_of(
                     arrival.twin_id)
@@ -933,7 +1299,10 @@ class StreamingFleetServer:
             if self.pending >= self.max_batch:
                 done.extend(self.pump(now=arrival.time))
         t_end = trace[-1].time if trace else 0.0
-        done.extend(self.drain(now=t_end))
+        while self._queue:
+            # pump by pump, not drain(): a crash in a later pump must not
+            # take the completions of the earlier ones with it
+            done.extend(self.pump(now=t_end))
         return done
 
 

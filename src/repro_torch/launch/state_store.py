@@ -208,7 +208,26 @@ class TwinStateStore:
             self._step[i] = int(s)
         self.stats.commits += 1
 
-    # -- inspection --------------------------------------------------------
+    # -- inspection and snapshots ------------------------------------------
+    def export_state(self):
+        """The whole population on the host, for a snapshot: ``(ids, ys,
+        steps, thetas)`` in registration order, the hot rows read out of
+        the slab in one device-to-host copy (LRU order untouched).
+        ``ys`` is (N, D) float32, ``steps`` (N,) int64, ``thetas`` None
+        for an undriven population, else (N, ...) float32."""
+        ids = list(self._step)
+        if not ids:
+            return ids, np.zeros((0, self.state_dim), np.float32), \
+                np.zeros((0,), np.int64), None
+        hot = self._hot.cpu().numpy() if self._slot_of else None
+        ys = np.stack([hot[self._slot_of[i]] if i in self._slot_of
+                       else self._cold[i] for i in ids])
+        steps = np.asarray([self._step[i] for i in ids], np.int64)
+        th = [self._theta[i] for i in ids]
+        thetas = None if all(t is None for t in th) else \
+            np.stack(th).astype(np.float32)
+        return ids, ys, steps, thetas
+
     def peek(self, twin_id: TwinId):
         """Read one twin's ``(y, step)`` without touching LRU order."""
         if twin_id not in self:

@@ -6,21 +6,27 @@ One directory per step, ``step_XXXXXXXXXX/``, holding ``manifest.json``
 ``arr_XXXXX.npy`` per leaf.  Leaves are numbered in the JAX package's
 flattening order (dict keys sorted, lists by index), so a twin saved by
 either package loads in the other.  Writes are atomic: a temporary
-directory, renamed into place once complete.
-
-Not ported yet: the asynchronous writer thread and the ``chaos``
-kill-point hook (the serving-robustness slice).
+directory, renamed into place once complete; the kill point
+``snapshot:pre_rename`` (:mod:`repro_torch.launch.chaos`) sits between
+the two.  ``save(..., blocking=False)`` copies the tensors to the host at
+once and leaves the file writes to one writer thread
+(:func:`wait_for_async` waits for it).  ``extra`` rides in the manifest:
+the streaming server's snapshots keep their queue and counters there.
 """
 from __future__ import annotations
 
 import itertools
 import json
 import os
+import queue
 import shutil
+import threading
 from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.launch import chaos
 
 Tree = Any
 
@@ -62,29 +68,93 @@ def _to_numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def save(ckpt_dir: str, step: int, tree: Tree, *, keep: int = 3) -> str:
+def save(ckpt_dir: str, step: int, tree: Tree, *, keep: int = 3,
+         blocking: bool = True, extra: Optional[dict] = None) -> str:
     """Atomically persist a tree of tensors; returns the step directory.
-    Retention keeps the newest ``keep`` steps."""
+    Retention keeps the newest ``keep`` steps.  ``extra`` (JSON-ready) is
+    stored in the manifest and published with the arrays.  With
+    ``blocking=False`` the device-to-host copies happen here and the
+    writes on the writer thread."""
     host = [(n, _to_numpy(x)) for n, x in _flatten(tree)]
     final = os.path.join(ckpt_dir, f"step_{step:010d}")
     tmp = final + f".tmp{os.getpid()}_{next(_TMP_COUNTER)}"
-    os.makedirs(tmp, exist_ok=True)
-    manifest = {}
-    for i, (name, arr) in enumerate(host):
-        fname = f"arr_{i:05d}.npy"
-        np.save(os.path.join(tmp, fname), arr)
-        manifest[name] = {"file": fname, "dtype": str(arr.dtype),
-                          "shape": list(arr.shape)}
-    body = {"schema": SCHEMA_VERSION, "step": step, "leaves": manifest}
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(body, f)
-    try:
-        os.replace(tmp, final)          # atomic publish
-    except OSError:
-        # a concurrent save already published this step — drop ours
-        shutil.rmtree(tmp, ignore_errors=True)
-    _apply_retention(ckpt_dir, keep)
+
+    def write():
+        os.makedirs(tmp, exist_ok=True)
+        manifest = {}
+        for i, (name, arr) in enumerate(host):
+            fname = f"arr_{i:05d}.npy"
+            np.save(os.path.join(tmp, fname), arr)
+            manifest[name] = {"file": fname, "dtype": str(arr.dtype),
+                              "shape": list(arr.shape)}
+        body = {"schema": SCHEMA_VERSION, "step": step, "leaves": manifest}
+        if extra is not None:
+            body["extra"] = extra
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(body, f)
+        chaos.kill_point("snapshot:pre_rename")
+        try:
+            os.replace(tmp, final)      # atomic publish
+        except OSError:
+            # a concurrent save already published this step — drop ours
+            shutil.rmtree(tmp, ignore_errors=True)
+        _apply_retention(ckpt_dir, keep)
+
+    if blocking:
+        write()
+    else:
+        _writer().submit(write)
     return final
+
+
+class _Writer:
+    """One daemon thread that runs submitted writes in order.  A write
+    that dies at a kill point (``chaos.SimulatedCrash``) ends that job
+    with nothing renamed, as a killed process would leave it, and the
+    thread goes on: a dead writer would make :func:`wait_for_async` wait
+    for ever."""
+
+    def __init__(self):
+        self.q: queue.Queue = queue.Queue()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        while True:
+            job = self.q.get()
+            try:
+                job()
+            except chaos.SimulatedCrash as e:
+                print(f"[checkpoint] async write died: {e}")
+            except Exception as e:
+                print(f"[checkpoint] async write failed: {e}")
+            finally:
+                self.q.task_done()
+
+    def submit(self, job):
+        self.q.put(job)
+
+    def wait(self):
+        self.q.join()
+
+
+_WRITER: Optional[_Writer] = None
+_WRITER_LOCK = threading.Lock()
+
+
+def _writer() -> _Writer:
+    global _WRITER
+    with _WRITER_LOCK:
+        if _WRITER is None:
+            _WRITER = _Writer()
+        return _WRITER
+
+
+def wait_for_async() -> None:
+    """Block until every ``save(..., blocking=False)`` so far is on disk
+    (or has died at a kill point)."""
+    if _WRITER is not None:
+        _WRITER.wait()
 
 
 def _apply_retention(ckpt_dir: str, keep: int):
@@ -202,11 +272,12 @@ def restore(ckpt_dir: str, step: int, target: Tree, *,
 
 
 def save_twin(ckpt_dir: str, params: Tree, *, step: int = 0,
-              keep: int = 3) -> str:
+              blocking: bool = True, keep: int = 3) -> str:
     """Persist a trained twin's weights under the canonical
     ``{"params": ...}`` layout that :func:`load_twin` (and the JAX
     package's ``load_twin``) expects."""
-    return save(ckpt_dir, step, {"params": params}, keep=keep)
+    return save(ckpt_dir, step, {"params": params}, blocking=blocking,
+                keep=keep)
 
 
 def load_twin(ckpt_dir: str, params_template: Tree, *,

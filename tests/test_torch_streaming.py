@@ -645,11 +645,6 @@ def test_streaming_front_door_and_submit_validation_name_the_argument():
             small_server(**kw)
 
 
-def test_streaming_durability_dir_is_not_ported_yet(tmp_path):
-    with pytest.raises(NotImplementedError, match="9b"):
-        small_server(durability_dir=str(tmp_path))
-
-
 def test_streaming_backpressure_reject_new():
     server = small_server(max_queue=2, shed_policy="reject_new")
     rng = np.random.default_rng(3)
