@@ -231,6 +231,29 @@ result line:
    ms, snapshot ms and bytes, recover ms split into journal read, build
    and programming, snapshot load and replay (ms per replayed commit),
    and pumps/s with durability on beside the same stream without it.
+22. P9, the training engines: five training paths from the same params
+   and seed, HP on fused_cuda (9 x 50, K1 + K2), Lorenz96 on fused_cuda
+   (14 x 60), P4's ``l1+softdtw`` at 29 x 60 and 8 x 200 (K1, K2, K5,
+   K6), P6's hardware-aware HP step (the K3 write path + K1/K2 per draw)
+   and HP on the digital adjoint (no kernel of the port), each 45 steps
+   three ways: the eager loop ``trainer.fit_eager`` (the oracle), the
+   per-step CUDA graph (``fit_per_step``) and the chunk graphs
+   (``fit(scan_chunk=37)``: graphs of 8 and 5 steps); loss histories and
+   final params bitwise the oracle's, launches equal to the per-step
+   counts times 45 on all three runs, the graphs captured and replayed;
+   printed, not gated: ms a step of each (host clock to a device sync,
+   and CUDA events), steady state for the two graphs, and a
+   ``torch.profiler`` trace of one replayed 8-step chunk (kernels and
+   copies a step, device busy ms, the card's idle share of the traced
+   wall and of the device span, and 1 - busy / the untraced chunk's
+   time: tracing slows a replay, so the traced shares overstate it).
+
+Training (phases 7, 12, 15, 16 and 22) runs through the training engines
+by default, as the JAX package's does through its scan engine: on the
+card every step is a replay of a CUDA graph, and the engines add what a
+graph launches to the kernels' launch counters at every replay (its
+capture and the warm-up step before it, on copies that are thrown away,
+count nothing), so each check of a count per step keeps its meaning.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record, the
 last line ``{"ok": true, "device": {...}}``.
@@ -325,6 +348,12 @@ NORMAL_ATOL = 1e-6  # K3 normals, kernel vs plain (precise logf/cosf)
 #: (~10 ms at the H100's 1.98 GHz boost clock; longer than the host
 #: takes to enqueue 50 wrapper calls).
 QUEUE_AHEAD_CYCLES = 20_000_000
+#: Idle seconds at each end of a profiler session that counts device
+#: events: the profiler keeps only the device events whose converted
+#: timestamps fall inside its session, and a kernel that ends just before
+#: the session stops can land outside it (one run lost the last of 65
+#: events of phase 16's term and most of its glue's).
+PROFILER_GUARD_S = 0.02
 
 
 def check(cond: bool, msg: str) -> None:
@@ -577,9 +606,11 @@ def k3_write_check(gen, dev) -> float:
     """Phase 9 (b): the write path against ``ref.hw_write_path_ref`` at each
     case of K3_WRITE_CASES, noisy (within WRITE_TOL of each layer's peak)
     and noise-free (bitwise: the levels, stuck cells and drift are the
-    plain version's bits), at step 0 and K3_WRAP_STEP, the straight-through
-    value too; two calls bitwise; one layer's own launch bitwise the
-    batched one.  Returns the worst (max abs err, error of the peak)."""
+    plain version's bits), at step 0, K3_WRAP_STEP and 2^32 - 1, the
+    straight-through value too; two calls bitwise; the step as an int32
+    device counter bitwise the int step; one layer's own launch bitwise
+    the batched one.  Returns the worst (max abs err, error of the
+    peak)."""
     worst = (0.0, 0.0)
     for name, sizes, k in K3_WRITE_CASES:
         ws, bs = k3_write_inputs(gen, sizes, dev)
@@ -587,7 +618,7 @@ def k3_write_check(gen, dev) -> float:
         for noisy in (True, False):
             cfg = k3_write_config(k, noisy)
             wp = hw_aware._write_path(cfg, L, k)
-            for step in (0, K3_WRAP_STEP):
+            for step in (0, K3_WRAP_STEP, (1 << 32) - 1):
                 salt = ref.hw_salt(k, L, step, k - 1, L - 1, 1, 1)
                 for ste in (False, True):
                     before = noise.WRITE_LAUNCHES
@@ -606,6 +637,22 @@ def k3_write_check(gen, dev) -> float:
                                  zip(got, again) for a, b in zip(ga, aa))
                     finite = all(bool(torch.isfinite(a).all())
                                  for a, _ in pairs)
+                    # the step as the training engines' int32 device
+                    # counter (read by the kernel, as uint32): bitwise the
+                    # int step, kernel and plain version alike
+                    counter = torch.tensor(
+                        step - (1 << 32 if step >= 1 << 31 else 0),
+                        dtype=torch.int32, device=dev)
+                    by_counter = folded_of(noise.hw_write_path(
+                        ws, bs, wp, counter, range(k), ste=ste))
+                    plain_counter = folded_of(ref.hw_write_path_ref(
+                        ws, bs, wp, counter, range(k), ste=ste))
+                    same_counter = all(
+                        torch.equal(a, b) for ga, ca in zip(got, by_counter)
+                        for a, b in zip(ga, ca)) and all(
+                        torch.equal(a, b) for wa, ca in zip(want,
+                                                            plain_counter)
+                        for a, b in zip(wa, ca))
                     errs = layer_errs(got, want)
                     rel = max(r for _, r in errs)
                     worst = (max(worst[0], max(a for a, _ in errs)),
@@ -617,10 +664,15 @@ def k3_write_check(gen, dev) -> float:
                           f"launch; max abs err "
                           f"{max(a for a, _ in errs):.3e}, worst of a "
                           f"layer's peak {rel:.3e} (limit {WRITE_TOL:g}); "
-                          f"bitwise {bitwise}; repeat bitwise {repeat}")
+                          f"bitwise {bitwise}; repeat bitwise {repeat}; the "
+                          f"step as an int32 device counter bitwise the int "
+                          f"(kernel and plain): {same_counter}")
                     check(launches == 1 and finite and repeat,
                           f"K3 write path {name}: launches {launches}, "
                           f"finite {finite}, repeat bitwise {repeat}")
+                    check(same_counter, f"K3 write path {name}: the step "
+                                        f"as a device counter differs from "
+                                        f"the int step")
                     if noisy:
                         check(rel <= WRITE_TOL,
                               f"K3 write path {name}: kernel disagrees with "
@@ -2399,6 +2451,272 @@ def p8_recovery(dev, smi, noisy_faulty, zero_counts, read_counts,
     return counts
 
 
+
+# -- phase 22: P9, the training engines (CUDA graphs of the step) --------------
+
+#: Steps of each P9 run, and the chunk of the chunked fit: 37 is not a
+#: multiple of the engine's unroll (8), so a remainder graph runs (blocks
+#: of 8 and 5 for the first chunk, one of 8 for the second).
+P9_STEPS = 45
+P9_CHUNK = 37
+P9_UNROLL = 8
+#: Replays timed after the bitwise runs: the step graph, and the 8-step
+#: graph of the chunk engine.
+P9_TIMED_STEPS = 16
+P9_TIMED_CHUNKS = 3
+#: P9's launch counters (phase 22 holds each to its per-step count times
+#: the steps).
+P9_COUNTERS = {"K1": (fused_ode_mlp, "LAUNCHES"),
+               "K2": (fused_ode_mlp_bwd, "LAUNCHES"),
+               "K3_write": (noise, "WRITE_LAUNCHES"),
+               "K5": (softdtw, "LAUNCHES"),
+               "K6": (softdtw, "BWD_LAUNCHES")}
+
+
+def p9_paths(dev, l96_twin, l96_params, l96_data, data96) -> list:
+    """Phase 22's training paths: (name, shape, loss_fn, params, optimizer,
+    generator seed, kernel launches per step)."""
+    ts, xs, _, _ = hp.generate("sine", num_points=500, dt=1e-3,
+                               amp=recipes.HP_AMP, freq=recipes.HP_FREQ,
+                               device=dev)
+    tw = make_driven_twin(1, hp.WAVEFORMS["sine"](
+        amp=recipes.HP_AMP, freq=recipes.HP_FREQ), hidden=14)
+    p0 = tw.init(torch.Generator().manual_seed(42), device=dev)
+    hp_seg = trainer.make_segments(ts, xs[:, None], 50)
+    cfg = HwAwareConfig(spec=spec_from_calibration(CALIBRATION),
+                        k_draws=P6_DRAWS)
+    l96_ts, l96_ys, l96_split = l96_data
+    l96_seg = trainer.make_segments(l96_ts[:l96_split], l96_ys[:l96_split], 60)
+    ts96, ys96, split96 = data96
+    fused = {"K1": 1, "K2": 1}
+    paths = [
+        ("hp_fused", "9 x 50", trainer.segment_loss_fn(
+            tw, *hp_seg, "l1", noise_std=0.002, backend="fused_cuda"),
+         p0, adam(1e-3), 1, fused),
+        ("l96_fused", "14 x 60", trainer.segment_loss_fn(
+            l96_twin, *l96_seg, "l1", noise_std=0.02, backend="fused_cuda"),
+         l96_params, adam(1e-3, weight_decay=1e-4), SEED + 22, fused)]
+    for seg in (60, 200):
+        segs = trainer.make_segments(ts96[:split96], ys96[:split96], seg)
+        paths.append((
+            f"p4_{seg}", f"{segs[0].shape[0]} x {seg}",
+            trainer.segment_loss_fn(
+                l96_twin, *segs, L96_CONFIG.loss, 0.1,
+                noise_std=L96_CONFIG.noise_regulariser, backend="fused_cuda"),
+            l96_params, adam(4e-4), SEED + seg,
+            {"K1": 1, "K2": 1, "K5": 1, "K6": 1}))
+    paths += [
+        ("p6_hw_aware", f"9 x 50, k_draws {P6_DRAWS}",
+         trainer.segment_loss_fn(tw, *hp_seg, "l1", noise_std=0.002,
+                                 backend="fused_cuda", hw_aware=cfg),
+         p0, adam(1e-3), 1, {"K3_write": 1, "K1": P6_DRAWS,
+                             "K2": P6_DRAWS}),
+        ("hp_digital_adjoint", "9 x 50", trainer.segment_loss_fn(
+            tw, *hp_seg, "l1", noise_std=0.002), p0, adam(1e-3), 1, {})]
+    return paths
+
+
+def p9_blocks() -> tuple:
+    """The graph lengths ``fit(scan_chunk=P9_CHUNK)`` captures over
+    P9_STEPS steps at the engine's unroll, and its replays."""
+    lengths, replays, done = set(), 0, 0
+    while done < P9_STEPS:
+        n = min(P9_CHUNK, P9_STEPS - done)
+        u = min(P9_UNROLL, n)
+        lengths.add(u)
+        replays += n // u
+        if n % u:
+            lengths.add(n % u)
+            replays += 1
+        done += n
+    return sorted(lengths), replays
+
+
+def p9_trace(fn, steps: int) -> dict:
+    """``fn`` (``steps`` training steps) under ``torch.profiler``: the host
+    wall ms to a device sync, the device busy ms (kernels and copies, the
+    union of their intervals), the span from the first device event's
+    start to the last one's end, the kernels and copies per step, and the
+    idle shares of the wall and of the span (the wall carries the trace's
+    own host cost; the span only the gaps between device events)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_GUARD_S)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILER_GUARD_S)
+    dev_events = [ev for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA]
+    copies = sum(ev.name.startswith(("Memcpy", "Memset"))
+                 for ev in dev_events)
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in dev_events)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:                     # the union of the intervals
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy /= 1e3
+    span = (spans[-1][1] - spans[0][0]) / 1e3 if spans else 0.0
+    return dict(wall_ms=wall, busy_ms=busy, span_ms=span,
+                kernels_per_step=(len(dev_events) - copies) / steps,
+                copies_per_step=copies / steps,
+                idle=(1 - busy / wall) if busy > 0 else None,
+                idle_span=(1 - busy / span) if busy > 0 else None)
+
+
+def p9_engines(dev, smi, l96_twin, l96_params, l96_data, data96) -> dict:
+    """Phase 22 (P9): each training path 45 steps three ways from the same
+    params and seed: the eager loop (``fit_eager``, the oracle), the
+    per-step graph (``fit_per_step``) and the chunk graphs (``fit`` at
+    ``scan_chunk=37``); histories and final params bitwise, launches equal
+    to the per-step counts times the steps on both replayed runs; then ms
+    per step of each (host clock to a sync, and CUDA events), the graphs
+    captured and replayed, and a profiler trace of one replayed 8-step
+    chunk (kernels per step, busy ms, idle shares).
+    Returns the replayed runs' launch counts and the numbers by path."""
+    t_phase = time.perf_counter()
+    engines = {"step": [], "chunk": []}
+    real = {"step": trainer.make_step_fn, "chunk": trainer.make_scan_engine}
+
+    def spy(kind):
+        def make(*a, **kw):
+            fn = real[kind](*a, **kw)
+            engines[kind].append(fn.engine)
+            return fn
+        return make
+
+    def zero():
+        for mod, name in P9_COUNTERS.values():
+            setattr(mod, name, 0)
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k: getattr(mod, name) for k, (mod, name) in
+                P9_COUNTERS.items()}
+
+    def timed(fn, steps):
+        """fn() over ``steps`` steps: (host ms, CUDA-event ms) a step."""
+        torch.cuda.synchronize()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev0.record()
+        out = fn()
+        ev1.record()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3 / steps
+        return out, host, ev0.elapsed_time(ev1) / steps
+
+    out, launch_counts = {}, {}
+    trainer.make_step_fn = spy("step")
+    trainer.make_scan_engine = spy("chunk")
+    try:
+        for name, shape, loss, p0, opt, seed, per_step in p9_paths(
+                dev, l96_twin, l96_params, l96_data, data96):
+            def gen():
+                return torch.Generator().manual_seed(seed)
+            want = {k: P9_STEPS * per_step.get(k, 0) for k in P9_COUNTERS}
+            zero()
+            (pe, he), eager_host, eager_ev = timed(
+                lambda: trainer.fit_eager(loss, p0, opt, P9_STEPS, gen()),
+                P9_STEPS)
+            eager_counts = counts()
+            runs = {}
+            for kind, run in (
+                    ("step", lambda: trainer.fit_per_step(
+                        loss, p0, opt, P9_STEPS, gen())),
+                    ("chunk", lambda: trainer.fit(
+                        loss, p0, opt, P9_STEPS, gen(),
+                        scan_chunk=P9_CHUNK))):
+                zero()
+                (pr, hr), host, ev = timed(run, P9_STEPS)
+                c = counts()
+                eng = engines[kind][-1]
+                same_h = torch.equal(hr, he)
+                same_p = all(torch.equal(a, b) for a, b in
+                             zip(tree_leaves(pr), tree_leaves(pe)))
+                runs[kind] = dict(counts=c, first_host_ms=host,
+                                  first_event_ms=ev, engine=eng,
+                                  bitwise=same_h and same_p)
+                launch_counts[f"P9_{name}_{kind}_graph"] = c
+                print(f"P9 {name} ({shape}) {kind} graph: loss history "
+                      f"bitwise the eager loop's: {same_h}; final params "
+                      f"bitwise: {same_p}; launches {c} (want {want}; eager "
+                      f"loop {eager_counts}); graphs captured "
+                      f"{eng.captures} (lengths {sorted(eng.blocks)}), "
+                      f"replayed {eng.replays}")
+                check(same_h and same_p, f"P9 {name}: the {kind} graph's "
+                                         f"run differs from the eager loop")
+                check(c == want and eager_counts == want,
+                      f"P9 {name}: {kind} graph launches {c}, eager "
+                      f"{eager_counts}, want {want}")
+            eng_s, eng_c = runs["step"]["engine"], runs["chunk"]["engine"]
+            check(eng_s.captures == 1 and eng_s.replays == P9_STEPS,
+                  f"P9 {name}: step graph captured {eng_s.captures} times, "
+                  f"replayed {eng_s.replays}")
+            lengths, replays = p9_blocks()
+            check(sorted(eng_c.blocks) == lengths
+                  and eng_c.captures == len(lengths)
+                  and eng_c.replays == replays,
+                  f"P9 {name}: chunk graphs of lengths "
+                  f"{sorted(eng_c.blocks)}, {eng_c.captures} captures, "
+                  f"{eng_c.replays} replays; want {lengths}, {replays}")
+            # steady state: replays of the captured graphs alone
+            _, step_host, step_ev = timed(
+                lambda: [eng_s.run(1) for _ in range(P9_TIMED_STEPS)],
+                P9_TIMED_STEPS)
+            _, chunk_host, chunk_ev = timed(
+                lambda: [eng_c.run(P9_UNROLL) for _ in range(P9_TIMED_CHUNKS)],
+                P9_TIMED_CHUNKS * P9_UNROLL)
+            tr_chunk = p9_trace(lambda: eng_c.run(P9_UNROLL), P9_UNROLL)
+            idle = ("not measured (no device time in the trace)"
+                    if tr_chunk["idle"] is None
+                    else f"{100 * tr_chunk['idle']:.1f}% of the wall, "
+                         f"{100 * tr_chunk['idle_span']:.1f}% of the device "
+                         f"span ({tr_chunk['span_ms']:.3f} ms)")
+            print(f"[{smi}] P9 {name} ({shape}), ms a step: eager "
+                  f"{eager_host:.4f} host / {eager_ev:.4f} events; step graph "
+                  f"{step_host:.4f} / {step_ev:.4f}; chunk graph "
+                  f"{chunk_host:.4f} / {chunk_ev:.4f} (eager / chunk "
+                  f"{eager_host / chunk_host:.2f}x on the host clock); "
+                  f"whole 45-step runs with warm-up and capture: step "
+                  f"{runs['step']['first_host_ms']:.4f}, chunk "
+                  f"{runs['chunk']['first_host_ms']:.4f}")
+            busy_step = tr_chunk["busy_ms"] / P9_UNROLL
+            print(f"[{smi}] P9 {name} trace of one replayed {P9_UNROLL}-step "
+                  f"chunk: wall {tr_chunk['wall_ms']:.3f} ms, device busy "
+                  f"{tr_chunk['busy_ms']:.3f} ms ({busy_step:.4f} a step "
+                  f"against {chunk_ev:.4f} untraced: idle "
+                  f"{100 * (1 - busy_step / chunk_ev):.1f}% untraced), "
+                  f"traced idle {idle}; "
+                  f"{tr_chunk['kernels_per_step']:.1f} kernels and "
+                  f"{tr_chunk['copies_per_step']:.2f} copies a step")
+            out[name] = dict(
+                shape=shape, eager_ms=eager_host, eager_event_ms=eager_ev,
+                step_graph_ms=step_host, step_graph_event_ms=step_ev,
+                chunk_graph_ms=chunk_host, chunk_graph_event_ms=chunk_ev,
+                chunk_idle=tr_chunk["idle"],
+                chunk_idle_of_span=tr_chunk["idle_span"],
+                chunk_busy_ms_per_step=busy_step,
+                chunk_idle_untraced=1 - busy_step / chunk_ev,
+                chunk_kernels_per_step=tr_chunk["kernels_per_step"],
+                chunk_copies_per_step=tr_chunk["copies_per_step"],
+                captures={k: runs[k]["engine"].captures for k in runs},
+                replays={k: runs[k]["engine"].replays for k in runs})
+            del runs, eng_s, eng_c
+            engines["step"].clear()
+            engines["chunk"].clear()
+    finally:
+        trainer.make_step_fn = real["step"]
+        trainer.make_scan_engine = real["chunk"]
+    print(f"[{smi}] phase 22 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(counts=launch_counts, paths=out)
+
 def main() -> int:
     # -- 1. environment ----------------------------------------------------
     if not torch.cuda.is_available():
@@ -3493,18 +3811,22 @@ def main() -> int:
         for name, fn in (("term", sdtw_term), ("glue", glue)):
             with torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CUDA]) as prof_t:
+                time.sleep(PROFILER_GUARD_S)
                 for _ in range(5):
                     fn()
                 torch.cuda.synchronize()
+                time.sleep(PROFILER_GUARD_S)
             counts[name] = sum(
                 1 for ev in prof_t.events()
                 if ev.device_type == torch.autograd.DeviceType.CUDA) / 5
         # the glue's pairwise cost is not part of the parent's extra work
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CUDA]) as prof_c:
+            time.sleep(PROFILER_GUARD_S)
             for _ in range(5):
                 _pairwise_dist(preds, targets)
             torch.cuda.synchronize()
+            time.sleep(PROFILER_GUARD_S)
         cost_kernels = sum(
             1 for ev in prof_c.events()
             if ev.device_type == torch.autograd.DeviceType.CUDA) / 5
@@ -3572,6 +3894,12 @@ def main() -> int:
                      p7_refs)
     path_counts.update(p8)
 
+    # -- 22. P9: the training engines (K1, K2, K3 write path, K5, K6) --------
+    p9 = p9_engines(dev, smi, l96_twin, l96_params, data, data96)
+
+    def p9_paths_of(key):
+        return {p: c[key] for p, c in p9["counts"].items() if c[key]}
+
     k1_paths = {"serve_fleet": launches, "train_hp_twin": hp_counts[0],
                 "hp_40_steps_fused_cuda": hp40_counts["fused_cuda"][0],
                 "train_l96_twin": l96_counts[0],
@@ -3579,13 +3907,15 @@ def main() -> int:
                 "P4_10_steps_fused_cuda": p4_cmp["K1"],
                 **{p: c["K1"] for p, c in p6["counts"].items()},
                 **{p: c["K1"] for p, c in p7.items() if c["K1"]},
-                **{p: c["K1"] for p, c in p8.items() if c["K1"]}}
+                **{p: c["K1"] for p, c in p8.items() if c["K1"]},
+                **p9_paths_of("K1")}
     k2_paths = {"train_hp_twin": hp_counts[1],
                 **{p: c["K2"] for p, c in p6["counts"].items()},
                 "hp_40_steps_fused_cuda": hp40_counts["fused_cuda"][1],
                 "train_l96_twin": l96_counts[1],
                 **{f"P4_segment_{seg}": c[0]["K2"] for seg, c in p4.items()},
-                "P4_10_steps_fused_cuda": p4_cmp["K2"]}
+                "P4_10_steps_fused_cuda": p4_cmp["K2"],
+                **p9_paths_of("K2")}
 
     def ffma_lds(src):
         return {fn: {k: c[k] for k in ("FFMA", "LDS", "dense")}
@@ -3614,6 +3944,7 @@ def main() -> int:
         "library_ms": None,
         "shapes": k1_times,
         "sass": ffma_lds("fused_ode_mlp"),
+        "training_engines": p9["paths"],
     }, {
         "name": "fused_node_rollout_bwd",
         "route": "cuda",
@@ -3669,8 +4000,13 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/counter_noise.cu",
         "replaces": "src/repro/kernels/noise.py:100",
-        "launches": sum(by_path("K3_write").values()),
-        "launches_by_path": by_path("K3_write"),
+        "launches": sum(by_path("K3_write").values())
+        + sum(p9_paths_of("K3_write").values()),
+        "launches_by_path": {**by_path("K3_write"),
+                             **p9_paths_of("K3_write")},
+        "step": "an int, or the training engines' int32 counter read from "
+                "device memory (step_ptr), so a replayed CUDA graph of the "
+                "step draws at each replay's step",
         "shape": "HP step: 2-14-14-1, k_draws 2",
         "max_abs_err": k3_write_err[0],
         "max_rel_err_of_peak": k3_write_err[1],
@@ -3743,9 +4079,11 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/softdtw.cu",
         "replaces": replaces,
-        "launches": sum(c[0][key] for c in p4.values()),
-        "launches_by_path": {f"P4_segment_{seg}": c[0][key]
-                             for seg, c in p4.items()},
+        "launches": sum(c[0][key] for c in p4.values())
+        + sum(p9_paths_of(key).values()),
+        "launches_by_path": {**{f"P4_segment_{seg}": c[0][key]
+                                for seg, c in p4.items()},
+                             **p9_paths_of(key)},
         "shape": "B=29 n=61 m=61 gamma=0.1 (L96 training, segments of 60)",
         "max_abs_err": max(v[0] for e in sdtw_errs.values()
                            for k, v in e.items() if k.startswith(key)),

@@ -41,7 +41,11 @@
 // uint32 that wraps, as JAX's: salt_base + ((step k + draw) L + layer) 4
 // + 2 pair + channel; the normal's id is the row-major flat index of the
 // folded array; under the fault ensemble the stuck seed is
-// splitmix32(seed ^ (step k + draw)).  Uniforms, masks and quantised
+// splitmix32(seed ^ (step k + draw)).  The step is the launch struct's
+// ``step`` or, when ``step_ptr`` is set, the int32 counter it points to in
+// device memory, read as uint32 (so -1 is step 2^32 - 1): a training step
+// captured in a CUDA graph keeps its kernel arguments by value, and the
+// counter is what advances between replays.  Uniforms, masks and quantised
 // levels are therefore bitwise the plain version's; the normals use
 // counter_noise.cuh's precise logf/cosf (within ~1e-6 of torch's).
 //
@@ -209,6 +213,7 @@ struct HwWrite {
   float g_min, g_max, g_step, g_range, clip_hi, levels_m1;
   float prog_noise, read_sigma, stuck_rate, on_frac;
   long long draw_stride;         // floats between two draws' outputs
+  const int* step_ptr;           // device int32 step counter, or null: step
 };
 
 __device__ __forceinline__ float hw_folded(const HwLayer& L, long long i) {
@@ -258,7 +263,9 @@ k3_hw_write_kernel(const HwWrite p, float* __restrict__ out) {
 
   const uint32_t draw = (uint32_t)(p.draw0 + dl);
   const uint32_t layer = (uint32_t)(p.layer0 + li);
-  const uint32_t sd = p.step * p.k_draws + draw;
+  const uint32_t step =
+      p.step_ptr != nullptr ? (uint32_t)__ldg(p.step_ptr) : p.step;
+  const uint32_t sd = step * p.k_draws + draw;
   const uint32_t s0 =
       p.salt_base + (sd * (uint32_t)p.salt_layers + layer) * 4u;
   const uint32_t bp_prog = cn_base(p.noise_seed, s0);        // pair 0, prog

@@ -85,7 +85,8 @@ class _HwWrite(ctypes.Structure):
                     "g_min", "g_max", "g_step", "g_range", "clip_hi",
                     "levels_m1", "prog_noise", "read_sigma", "stuck_rate",
                     "on_frac")]
-                + [("draw_stride", ctypes.c_longlong)])
+                + [("draw_stride", ctypes.c_longlong),
+                   ("step_ptr", ctypes.c_void_p)])
 
 
 _ARGTYPES = {
@@ -296,7 +297,7 @@ def _write_params(wp: ref.WritePath, shapes: tuple, draw0: int,
     return p, sizes * ndraws
 
 
-def hw_write_path(weights, biases, wp: ref.WritePath, step: int, draws, *,
+def hw_write_path(weights, biases, wp: ref.WritePath, step, draws, *,
                   layer0: int = 0, ste: bool = False) -> list:
     """Every layer's folded weights ``[w; b]`` through the hardware-aware
     write path for each draw of ``draws`` (a ``range``), at training step
@@ -305,9 +306,22 @@ def hw_write_path(weights, biases, wp: ref.WritePath, step: int, draws, *,
     gives the straight-through value ``folded + (w_hw - folded)``.  On
     CUDA one K3 launch computes them all into one buffer (chunks of
     MAX_LAYERS layers and MAX_DRAWS draws past those sizes) and nothing is
-    read back to the host."""
+    read back to the host.
+
+    ``step`` is a Python int or a 0-dim int32 tensor on the weights'
+    device, read as uint32 (-1 is step 2^32 - 1): the training engines'
+    step counter, which the kernel reads from device memory, so that a
+    CUDA graph of the step draws each replay's noise at the counter's
+    value rather than at the capture's."""
     device = _placed("hw_write_path", weights[0].device)
     draws = range(draws.start, draws.stop)
+    if isinstance(step, torch.Tensor) and (
+            step.dtype != torch.int32 or step.ndim != 0
+            or step.device != device):
+        raise ValueError(
+            f"hw_write_path: a tensor step must be a 0-dim int32 tensor on "
+            f"{device}, got {step.dtype} {tuple(step.shape)} on "
+            f"{step.device}")
     if device.type == "cpu":
         return ref.hw_write_path_ref(weights, biases, wp, step, draws,
                                      layer0=layer0, ste=ste)
@@ -332,7 +346,10 @@ def hw_write_path(weights, biases, wp: ref.WritePath, step: int, draws, *,
                              ste)
     for i, (w, b) in enumerate(zip(ws, bs)):
         p.layer[i].w, p.layer[i].b = w.data_ptr(), b.data_ptr()
-    p.step = int(step) & U32_MASK
+    if isinstance(step, torch.Tensor):
+        p.step, p.step_ptr = 0, step.data_ptr()
+    else:
+        p.step, p.step_ptr = int(step) & U32_MASK, None
     out = torch.empty(len(draws) * p.draw_stride, dtype=torch.float32,
                       device=device)
     _launch("k3_hw_write_path", device, ctypes.addressof(p), out.data_ptr())

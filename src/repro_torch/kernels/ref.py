@@ -151,10 +151,12 @@ def splitmix32_ref(x):
     return x ^ (x >> 16)
 
 
-def stream_base(seed: int, salt):
+def stream_base(seed, salt):
     """The stream's key ``splitmix32(seed * 0x9E3779B9 + splitmix32(salt))``;
-    ``salt`` a Python int or an int64 tensor of per-element salts."""
-    mixed = _mul32(int(seed) & U32_MASK, _GOLDEN) + splitmix32_ref(salt)
+    ``seed`` and ``salt`` Python ints or int64 tensors (a seed or salt that
+    depends on a device-side step counter)."""
+    seed = (seed if isinstance(seed, torch.Tensor) else int(seed)) & U32_MASK
+    mixed = _mul32(seed, _GOLDEN) + splitmix32_ref(salt)
     return splitmix32_ref(mixed & U32_MASK)
 
 
@@ -178,7 +180,7 @@ def counter_normal_at_ref(seed: int, salt, idx: torch.Tensor) -> torch.Tensor:
     h1 = splitmix32_ref(stream_base(seed, salt) ^ idx)
     h2 = splitmix32_ref(h1 ^ _H2_SALT)
     u1, u2 = bits_to_unit_ref(h1), bits_to_unit_ref(h2)
-    two_pi = torch.tensor(TWO_PI, dtype=F32, device=u2.device)
+    two_pi = torch.full((), TWO_PI, dtype=F32, device=u2.device)
     return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(two_pi * u2)
 
 
@@ -211,8 +213,8 @@ def stuck_cell_masks_ref(seed: int, salt: int, shape, rate: float,
     ``rate`` (both rounded to float32), and stuck at G_on where its
     polarity draw is below ``on_frac``."""
     idx = global_cell_index(shape, row0, col0, ncols, device)
-    r = torch.tensor(rate, dtype=F32, device=device)
-    f = torch.tensor(on_frac, dtype=F32, device=device)
+    r = torch.full((), rate, dtype=F32, device=device)
+    f = torch.full((), on_frac, dtype=F32, device=device)
     is_stuck = counter_uniform_at_ref(seed, salt, idx) < r
     stuck_on = counter_uniform_at_ref(
         seed, int(salt) + POLARITY_SALT_OFFSET, idx) < f
@@ -225,8 +227,9 @@ def pin_stuck_ref(g: torch.Tensor, seed: int, salt: int, rate: float,
     ``g_off``."""
     is_stuck, stuck_on = stuck_cell_masks_ref(seed, salt, tuple(g.shape),
                                               rate, on_frac, device=g.device)
-    val = torch.where(stuck_on, torch.tensor(g_on, dtype=F32, device=g.device),
-                      torch.tensor(g_off, dtype=F32, device=g.device))
+    on = torch.full((), g_on, dtype=F32, device=g.device)
+    off = torch.full((), g_off, dtype=F32, device=g.device)
+    val = torch.where(stuck_on, on, off)
     return torch.where(is_stuck, val.to(g.dtype), g)
 
 
@@ -274,15 +277,25 @@ class WritePath:
         return (self.g_max - self.g_min) / (self.levels - 1)
 
 
-def hw_salt(k_draws: int, num_layers: int, step: int, draw: int,
-            layer: int, pair: int, channel: int) -> int:
+def _step_u32(step):
+    """A training step as uint32: a Python int, or a 0-dim integer tensor
+    (the engines' int32 counter, -1 being 2^32 - 1) as int64 on its own
+    device, so that nothing is read back to the host."""
+    if isinstance(step, torch.Tensor):
+        return step.to(torch.int64) & U32_MASK
+    return int(step) & U32_MASK
+
+
+def hw_salt(k_draws: int, num_layers: int, step, draw: int,
+            layer: int, pair: int, channel: int):
     """``HW_SALT_BASE + ((step k + draw) L + layer) 4 + 2 pair + channel`` in
-    uint32 that wraps, as the JAX package forms it."""
-    s = (int(step) * k_draws + draw) * num_layers + layer
+    uint32 that wraps, as the JAX package forms it; an int, or an int64
+    tensor for a tensor ``step``."""
+    s = (_step_u32(step) * k_draws + draw) * num_layers + layer
     return (HW_SALT_BASE + s * 4 + 2 * pair + channel) & U32_MASK
 
 
-def hw_write_tensor_ref(folded: torch.Tensor, wp: WritePath, step: int,
+def hw_write_tensor_ref(folded: torch.Tensor, wp: WritePath, step,
                         draw: int, layer: int, *,
                         ste: bool = False) -> torch.Tensor:
     """One folded array (bias as the last row) through the write path, in
@@ -328,7 +341,7 @@ def hw_write_tensor_ref(folded: torch.Tensor, wp: WritePath, step: int,
         seed = wp.fault_seed & U32_MASK
         if wp.fault_ensemble:
             seed = splitmix32_ref(
-                seed ^ ((int(step) * wp.k_draws + draw) & U32_MASK))
+                seed ^ ((_step_u32(step) * wp.k_draws + draw) & U32_MASK))
         pinned = []
         for pair, g in ((0, gp), (1, gm)):
             is_stuck, stuck_on = stuck_cell_masks_ref(
@@ -349,7 +362,7 @@ def hw_write_tensor_ref(folded: torch.Tensor, wp: WritePath, step: int,
 
 def hw_write_path_ref(weights: Sequence[torch.Tensor],
                       biases: Sequence[torch.Tensor], wp: WritePath,
-                      step: int, draws, *, layer0: int = 0,
+                      step, draws, *, layer0: int = 0,
                       ste: bool = False) -> list:
     """Every layer's folded weights through the write path, for each draw
     of ``draws``: a list (per draw) of lists (per layer) of ``(w_hw,

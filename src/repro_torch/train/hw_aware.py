@@ -22,10 +22,13 @@ gives the same loss history.
 On CUDA tensors the write path is K3's write-path kernel
 (:func:`repro_torch.kernels.noise.hw_write_path`): the trainer's loss
 draws all ``k_draws`` realisations of a step, every layer, in one launch,
-and nothing is read back to the host (the weights' NaN check of
-``conductance_pair`` is a synchronisation and stays out of the per-step
-path, as it is out of JAX's traced one).  On CPU tensors the plain
-version :func:`repro_torch.kernels.ref.hw_write_path_ref` runs.
+keyed by the step as an int or as the training engines' int32 device
+counter (which the kernel reads, so a CUDA graph of the step draws at
+each replay's step), and nothing is read back to the host (the weights'
+NaN check of ``conductance_pair`` is a synchronisation and stays out of
+the per-step path, as it is out of JAX's traced one).  On CPU tensors the
+plain version :func:`repro_torch.kernels.ref.hw_write_path_ref` runs,
+with the same step, a tensor step as tensor arithmetic.
 """
 from __future__ import annotations
 
@@ -186,7 +189,9 @@ def _draws(params, cfg: HwAwareConfig, step, draws: range) -> list:
     bs = [_require_floating(p["b"], f"params[{i}] (w|b folded)")
           for i, p in enumerate(params)]
     wp = _write_path(cfg, L, draws.stop)
-    flat = _WritePathSTE.apply(wp, int(step), draws, *ws, *bs)
+    if not isinstance(step, torch.Tensor):
+        step = int(step)
+    flat = _WritePathSTE.apply(wp, step, draws, *ws, *bs)
     return [[{"w": flat[d * 2 * L + i], "b": flat[d * 2 * L + L + i]}
              for i in range(L)] for d in range(len(draws))]
 

@@ -11,6 +11,8 @@ package's step for step.  The same small GradientTransformation-style API:
 Params, grads and updates are trees of tensors (the MLP's list of
 ``{"w", "b"}`` dicts); nothing is updated in place.  Step counters are
 int32 tensors and schedules compute in float32, as in the JAX package.
+``update`` reads nothing back to the host and copies nothing from it, so
+the training engines can capture it in a CUDA graph.
 """
 from __future__ import annotations
 
@@ -47,8 +49,10 @@ def clip_by_global_norm(tree: Tree, max_norm: float) -> Tree:
 
 
 def constant_schedule(lr: float) -> Callable:
-    return lambda step: torch.tensor(lr, dtype=torch.float32,
-                                     device=step.device)
+    """``lr`` as a float32 scalar on the step's device, made by a fill on
+    the device (no host-to-device copy, so a CUDA graph can hold it)."""
+    return lambda step: torch.full((), lr, dtype=torch.float32,
+                                   device=step.device)
 
 
 def warmup_cosine_schedule(peak_lr: float, warmup_steps: int,

@@ -21,11 +21,20 @@ substrate that serves; its soft-DTW objectives run through the wavefront
 kernels K5 (forward) and K6 (E-matrix backward), where the digital path
 differentiates the reference DP by autograd.
 
-The engines are plain loops: PyTorch runs eagerly, so the JAX package's
-scan-compiled chunks have no counterpart.  Random state noise draws from
-a ``torch.Generator`` handed to ``fit`` (the JAX package splits a
-``jax.random`` key per step), on the CPU and then moved, so one seed
-gives the same noise on every device.
+The engines are the JAX package's: :func:`make_step_fn` (one step a
+dispatch) and :func:`make_scan_engine` (a chunk of steps, the
+counterpart of its ``lax.scan`` in one jit), under :func:`fit` and
+:func:`fit_per_step`.  On the card a step is captured once as a CUDA
+graph over static buffers (params, optimizer state, the int32 step
+counter, the losses and the state noise) and replayed, so the host
+issues one graph launch per ``unroll`` steps instead of every kernel of
+every step; on CPU tensors the same step runs uncaptured.
+:func:`fit_eager` is the eager loop the graphs are held to bit for bit.
+Random state noise draws from a ``torch.Generator`` handed to ``fit``
+(the JAX package splits a ``jax.random`` key per step), on the CPU, so
+one seed gives the same noise on every device; the engines draw a
+block's noise before the block and hand it over in one copy
+(:class:`StepNoise`).
 
 Hardware-aware training (``hw_aware=``, :mod:`repro_torch.train.hw_aware`)
 passes the weights through the analogue write path inside the loss,
@@ -39,7 +48,11 @@ Not ported yet (ROADMAP.md, queue 1): the baseline trainers
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import importlib
+import math
 from typing import Any, Callable, Optional
 
 import torch
@@ -54,17 +67,23 @@ from repro_torch.tree import tree_leaves, tree_unflatten
 Tree = Any
 
 
-def normal_like(generator: torch.Generator,
-                like: torch.Tensor) -> torch.Tensor:
+def normal_like(generator, like: torch.Tensor) -> torch.Tensor:
     """Standard normal noise of ``like``'s shape from a CPU generator,
-    placed on ``like``'s device."""
+    placed on ``like``'s device.
+
+    Inside the training engines a loss is handed a :class:`StepNoise` in
+    place of its generator: the draw is then a slot of a buffer the engine
+    filled from the generator before the step (the same numbers, drawn in
+    the same order, without a host-to-device copy inside the step)."""
+    if isinstance(generator, StepNoise):
+        return generator.take(like)
     return torch.randn(like.shape, generator=generator,
                        dtype=like.dtype).to(like.device)
 
 
 def _step_body(loss_fn: Callable, optimizer: Optimizer, params, opt_state,
                generator, step=None):
-    """One descent step — the shared body of both engines: the loss and
+    """One descent step — the shared body of every engine: the loss and
     its gradient at ``params``, then the optimizer update.  ``step``, the
     global step counter, is passed on to step-keyed losses only."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
@@ -84,18 +103,459 @@ def _wants_step(loss_fn: Callable) -> bool:
     return bool(getattr(loss_fn, "wants_step", False))
 
 
+# ---------------------------------------------------------------------------
+# Training engines: the step body as CUDA graphs on the card
+# ---------------------------------------------------------------------------
+
+#: The kernels' launch counters (module of ``repro_torch.kernels``, name):
+#: each wrapper adds one where it launches, so a graph's launches are
+#: counted once at its capture and added again at every replay.
+_COUNTERS = (("fused_ode_mlp", "LAUNCHES"), ("fused_ode_mlp_bwd", "LAUNCHES"),
+             ("softdtw", "LAUNCHES"), ("softdtw", "BWD_LAUNCHES"),
+             ("noise", "LAUNCHES"), ("noise", "MASK_LAUNCHES"),
+             ("noise", "WRITE_LAUNCHES"), ("fused_analogue", "LAUNCHES"),
+             ("fused_analogue", "NOISE_LAUNCHES"),
+             ("crossbar_vmm", "LAUNCHES"), ("crossbar_vmm", "READ_LAUNCHES"),
+             ("flash_attention", "LAUNCHES"), ("ssm_scan", "LAUNCHES"))
+
+#: Alignment of each request's slab in a noise buffer, in bytes.
+_SLAB_ALIGN = 256
+
+
+@functools.cache
+def _counter_modules() -> tuple:
+    return tuple((importlib.import_module(f"repro_torch.kernels.{mod}"), name)
+                 for mod, name in _COUNTERS)
+
+
+def _launch_counts() -> dict:
+    """Every launch counter's value, keyed by (module, name)."""
+    return {(m, name): getattr(m, name) for m, name in _counter_modules()}
+
+
+def _set_launch_counts(counts: dict) -> None:
+    for (m, name), v in counts.items():
+        setattr(m, name, v)
+
+
+class StepNoise:
+    """The state noise of the engines' steps, handed to a loss in place of
+    its generator: :func:`normal_like` takes each draw from a slot of a
+    device buffer that the engine fills from the generator on the host
+    before a block of steps, one host-to-device copy a block.
+
+    The draws are the generator's, in the loss's order, one block after
+    another, so the noise is bitwise that of the eager loop.  A warm-up
+    step records the loss's requests (shape, dtype, device) while drawing
+    from a copy of the generator; every later step must make the same
+    requests.  A loss that draws from the generator in another way fails:
+    this object is not a ``torch.Generator``."""
+
+    def __init__(self, generator: Optional[torch.Generator]):
+        self.generator = generator
+        self.requests: Optional[list] = None   # recorded by the warm-up
+        self.views: Optional[list] = None      # per request, (u, *shape)
+        self.slot = 0
+        self.calls = 0
+
+    def take(self, like: torch.Tensor) -> torch.Tensor:
+        key = (tuple(like.shape), like.dtype, like.device)
+        if self.views is None:              # recording: the warm-up step
+            self.requests.append(key)
+            return torch.randn(key[0], generator=self.generator,
+                               dtype=key[1]).to(key[2])
+        k = self.calls
+        if k >= len(self.requests) or self.requests[k] != key:
+            raise RuntimeError(
+                f"training engine: the loss's noise draw {k} is {key}; the "
+                f"warm-up step recorded {self.requests}: a loss must draw "
+                f"the same noise every step")
+        self.calls += 1
+        return self.views[k][self.slot]
+
+    def at(self, views: list, slot: int) -> "StepNoise":
+        """Point the draws of the next step at ``slot`` of ``views``."""
+        self.views, self.slot, self.calls = views, slot, 0
+        return self
+
+    def done(self) -> None:
+        if self.calls != len(self.requests):
+            raise RuntimeError(
+                f"training engine: the loss drew {self.calls} of the "
+                f"{len(self.requests)} noise tensors the warm-up step drew")
+
+
+class _Block:
+    """``length`` steps run as one unit: on the card one CUDA graph (its
+    launches counted at capture), on the CPU the same steps uncaptured.
+    ``losses`` and the noise buffer are the block's static buffers."""
+
+    def __init__(self, length: int, losses: torch.Tensor, noise,
+                 views: list, host_views):
+        self.length = length
+        self.losses = losses
+        self.noise, self.views, self.host_views = noise, views, host_views
+        self.graph = None
+        self.launches: dict = {}
+
+
+class _Engine:
+    """The capturable training step over static buffers.
+
+    Params, optimizer state and the int32 step counter live in buffers the
+    step updates in place; a block of ``u`` steps writes its losses into a
+    static (u,) buffer and reads its noise from a static buffer.  On CUDA
+    tensors each block length is captured once as a CUDA graph (after one
+    warm-up step on copies that are thrown away, on the capture's side
+    stream) and replayed; a capture that fails raises.  On CPU tensors the
+    same steps run uncaptured: the plain version of the graph."""
+
+    def __init__(self, loss_fn: Callable, optimizer: Optimizer,
+                 has_key: bool, donate: bool = False):
+        self.loss_fn, self.optimizer = loss_fn, optimizer
+        self.has_key, self.donate = has_key, donate
+        self.keyed = _wants_step(loss_fn)
+        self.bufs = None            # params' and state's leaves
+        self.noise = None
+        self.blocks: dict = {}
+        self.captures = self.replays = 0
+        self.stream = self.pool = None
+
+    # -- buffers --------------------------------------------------------------
+    def load(self, params, opt_state, generator, step=None) -> None:
+        """Make the buffers hold ``params``, ``opt_state`` and ``step``
+        (the first call allocates them; an argument that is already the
+        engine's buffer is not copied)."""
+        leaves = tree_leaves(params) + tree_leaves(opt_state)
+        if self.bufs is None:
+            self.p_tmpl, self.s_tmpl = params, opt_state
+            self.n_params = len(tree_leaves(params))
+            self.bufs = [None if x is None else
+                         x.detach() if self.donate else x.detach().clone()
+                         for x in leaves]
+            self.device = self.bufs[0].device
+            self.step_t = torch.zeros((), dtype=torch.int32,
+                                      device=self.device)
+            self.noise = StepNoise(None)
+        else:
+            with torch.no_grad():
+                for b, x in zip(self.bufs, leaves):
+                    if b is not None and x is not b:
+                        b.copy_(x)
+        if step is not None and step is not self.step_t:
+            with torch.no_grad():
+                if isinstance(step, torch.Tensor):
+                    self.step_t.copy_(step)
+                else:
+                    self.step_t.fill_(int(step))
+        self.generator = generator
+
+    def params(self):
+        return tree_unflatten(self.p_tmpl, self.bufs[:self.n_params])
+
+    def opt_state(self):
+        return tree_unflatten(self.s_tmpl, self.bufs[self.n_params:])
+
+    # -- the step -------------------------------------------------------------
+    def _body(self, bufs, step_t, generator, losses, slot) -> None:
+        """One step from ``bufs`` into ``bufs``, its loss into
+        ``losses[slot]``; the step counter advanced by one."""
+        n = self.n_params
+        params = tree_unflatten(self.p_tmpl, bufs[:n])
+        state = tree_unflatten(self.s_tmpl, bufs[n:])
+        params, state, loss = _step_body(
+            self.loss_fn, self.optimizer, params, state,
+            generator if self.has_key else None,
+            step_t if self.keyed else None)
+        with torch.no_grad():
+            for b, x in zip(bufs, tree_leaves(params) + tree_leaves(state)):
+                if b is not None:
+                    b.copy_(x)
+            losses[slot].copy_(loss)
+            if self.keyed:
+                step_t.add_(1)
+
+    def _warm_up(self) -> None:
+        """One step on copies of the buffers, the counter and the
+        generator, all thrown away: records the loss's noise requests and,
+        on the card, runs the step's first launches (kernel builds, cuBLAS
+        handles, autograd's device threads) outside the capture."""
+        gen = self.generator
+        if gen is not None:
+            gen = torch.Generator(device=gen.device)
+            gen.set_state(self.generator.get_state())
+        noise = StepNoise(gen)
+        noise.requests = []
+        bufs = [None if b is None else b.clone() for b in self.bufs]
+        losses = torch.empty((1,), dtype=torch.float32, device=self.device)
+        try:
+            with self._on_side_stream():
+                self._body(bufs, self.step_t.clone(), noise, losses, 0)
+        except TypeError as e:
+            raise TypeError(
+                f"training engine: the loss's step failed ({e}); inside the "
+                f"engines a loss's generator argument is a StepNoise, so "
+                f"state noise must be drawn with trainer.normal_like") from e
+        if self.stream is not None:
+            torch.cuda.current_stream(self.device).wait_stream(self.stream)
+        self.noise.requests = noise.requests
+
+    def _on_side_stream(self):
+        if self.device.type != "cuda":
+            return contextlib.nullcontext()
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(self.device)
+            self.pool = torch.cuda.graph_pool_handle()
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        return torch.cuda.stream(self.stream)
+
+    def _new_block(self, u: int) -> _Block:
+        """A block of ``u`` steps: its loss buffer and noise buffers (one
+        slab per recorded request, (u, *shape), in one flat byte buffer,
+        pinned on the host when the steps run on the card)."""
+        slabs, total = [], 0
+        for shape, dtype, device in self.noise.requests:
+            if device != self.device:
+                raise RuntimeError(
+                    f"training engine: the loss draws noise on {device}, "
+                    f"its params are on {self.device}")
+            n = u * math.prod(shape) * torch.empty((), dtype=dtype
+                                                   ).element_size()
+            slabs.append((total, n, shape, dtype))
+            total += -(-n // _SLAB_ALIGN) * _SLAB_ALIGN
+
+        def views(flat):
+            return [flat[o:o + n].view(dtype).view(u, *shape)
+                    for o, n, shape, dtype in slabs]
+
+        noise = torch.empty((total,), dtype=torch.uint8, device=self.device)
+        losses = torch.empty((u,), dtype=torch.float32, device=self.device)
+        return _Block(u, losses, noise, views(noise), views)
+
+    def _capture(self, blk: _Block) -> None:
+        """Capture ``blk``'s steps as one CUDA graph; restore the launch
+        counters and keep what the capture added as the graph's launches."""
+        before = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                self._steps(blk)
+        except (RuntimeError, TypeError) as e:
+            raise RuntimeError(
+                f"training engine: capturing {blk.length} training step(s) "
+                f"as a CUDA graph failed ({type(e).__name__}: {e}).  A "
+                f"captured step may do no host work: no read of a device "
+                f"value (.item(), float(), int(), bool()), no copy from "
+                f"host memory, no draw from a CPU generator moved to the "
+                f"card (draw state noise with trainer.normal_like from the "
+                f"generator the engine hands the loss)") from e
+        after = _launch_counts()
+        blk.launches = {k: after[k] - before[k] for k in after}
+        _set_launch_counts(before)
+        blk.graph = graph
+        self.captures += 1
+
+    def _steps(self, blk: _Block) -> None:
+        for j in range(blk.length):
+            self._body(self.bufs, self.step_t,
+                       self.noise.at(blk.views, j), blk.losses, j)
+            self.noise.done()
+
+    def block(self, u: int) -> _Block:
+        """The block of ``u`` steps, made (and on the card captured) at
+        its first use."""
+        blk = self.blocks.get(u)
+        if blk is None:
+            if self.noise.requests is None:
+                counts = _launch_counts()
+                self._warm_up()
+                _set_launch_counts(counts)
+            blk = self.blocks[u] = self._new_block(u)
+            if self.device.type == "cuda":
+                self._capture(blk)
+        return blk
+
+    def run(self, u: int) -> torch.Tensor:
+        """Run ``u`` steps from the buffers as one block: draw the block's
+        noise from the generator, hand it over, replay (or run on the CPU).
+        Returns the block's (u,) loss buffer, overwritten by its next run."""
+        blk = self.block(u)
+        if self.noise.requests:
+            on_card = self.device.type == "cuda"
+            host = (torch.empty(blk.noise.shape, dtype=torch.uint8,
+                                pin_memory=True) if on_card else blk.noise)
+            hv = blk.host_views(host)
+            for j in range(u):
+                for k, (shape, dtype, _) in enumerate(self.noise.requests):
+                    hv[k][j].copy_(torch.randn(shape, generator=self.generator,
+                                               dtype=dtype))
+            if on_card:
+                blk.noise.copy_(host, non_blocking=True)
+        if blk.graph is None:
+            self._steps(blk)
+        else:
+            blk.graph.replay()
+            for (m, name), d in blk.launches.items():
+                if d:
+                    setattr(m, name, getattr(m, name) + d)
+        self.replays += 1
+        return blk.losses
+
+
+def make_step_fn(loss_fn: Callable, optimizer: Optimizer,
+                 has_key: bool) -> Callable:
+    """Single step: (params, opt_state, generator) -> same + loss.
+
+    The per-step engine, one replay per optimisation step: on the card the
+    step is one CUDA graph, captured at the first call (the counterpart of
+    the JAX package's jitted step); on CPU tensors the same step runs
+    uncaptured.  For step-keyed losses (``loss_fn.wants_step``) the
+    signature gains the step counter, an int or the returned int32 tensor:
+    (params, opt_state, generator, step) -> same + loss.
+
+    The returned params, optimizer state and step are the engine's
+    buffers, which the next call updates in place (clone one to keep it);
+    passing them back costs no copy.  The caller's own tensors are copied
+    in, never written.  The loss is a new 0-dim tensor."""
+    eng = _Engine(loss_fn, optimizer, has_key)
+
+    def step(params, opt_state, generator):
+        eng.load(params, opt_state, generator)
+        loss = eng.run(1)[0].clone()
+        return eng.params(), eng.opt_state(), generator, loss
+
+    def step_keyed(params, opt_state, generator, step):
+        eng.load(params, opt_state, generator, step)
+        loss = eng.run(1)[0].clone()
+        return eng.params(), eng.opt_state(), generator, eng.step_t, loss
+
+    fn = step_keyed if eng.keyed else step
+    fn.engine = eng
+    return fn
+
+
+def make_scan_engine(loss_fn: Callable, optimizer: Optimizer, has_key: bool,
+                     donate: bool = False, unroll: int = 8) -> Callable:
+    """Chunk engine: (params, opt_state, generator, n) -> carries + losses.
+
+    Runs ``n`` optimisation steps with one host dispatch per ``u =
+    min(unroll, n)`` steps: on the card the graph of ``u`` steps, captured
+    once, replayed ``n // u`` times, and a graph of the ``n % u`` that
+    remain (the counterpart of the JAX package's ``lax.scan`` unrolled
+    ``unroll`` times in one jit; graphs are kept per length, so a fit
+    captures at most two).  The losses come back as one (n,) device tensor.
+    ``donate=True`` makes the first call's param and state tensors the
+    engine's buffers, updated in place; otherwise they are copied.
+
+    For step-keyed losses (``loss_fn.wants_step``) the engine is
+    (params, opt_state, generator, step0, n) -> carries + step + losses,
+    the int32 step counter advanced in device memory by every step, so
+    each draw of the device model is keyed by the absolute step,
+    independent of chunking.  The returned carries are the engine's
+    buffers, as :func:`make_step_fn`'s."""
+    eng = _Engine(loss_fn, optimizer, has_key, donate=donate)
+
+    def chunk(n):
+        losses = torch.empty((max(n, 0),), dtype=torch.float32,
+                             device=eng.device)
+        u, done = min(unroll, n), 0
+        while done < n:             # blocks of u, then the remainder
+            length = min(u, n - done)
+            losses[done:done + length].copy_(eng.run(length))
+            done += length
+        return losses
+
+    def run_chunk(params, opt_state, generator, n):
+        eng.load(params, opt_state, generator)
+        losses = chunk(n)
+        return eng.params(), eng.opt_state(), generator, losses
+
+    def run_chunk_keyed(params, opt_state, generator, step0, n):
+        eng.load(params, opt_state, generator, step0)
+        losses = chunk(n)
+        return eng.params(), eng.opt_state(), generator, eng.step_t, losses
+
+    fn = run_chunk_keyed if eng.keyed else run_chunk
+    fn.engine = eng
+    return fn
+
+
 def fit(loss_fn: Callable, params: Tree, optimizer: Optimizer,
-        num_steps: int, generator: Optional[torch.Generator] = None
+        num_steps: int, generator: Optional[torch.Generator] = None,
+        log_every: int = 0, scan_chunk: Optional[int] = None
         ) -> tuple[Tree, torch.Tensor]:
     """Full-batch descent; ``loss_fn(params, generator) -> scalar``, or
     ``loss_fn(params, generator, step)`` with the global step from 0 when
     ``loss_fn.wants_step``.
 
-    The loss history stays on the device and comes back to the host once
-    at the end, as the JAX package's scan engine syncs only at chunk
-    boundaries.  Step semantics are those of :func:`fit_per_step`.
-    Returns ``(params, losses)`` with ``losses`` the (num_steps,) float32
-    history."""
+    Runs :func:`make_scan_engine` over chunks of ``scan_chunk`` steps: on
+    the card CUDA graphs of the step, replayed; the host syncs only at a
+    chunk boundary, and only to log, from the chunk's loss history.
+    ``scan_chunk=None`` runs one chunk when not logging, else chunks of
+    ``max(log_every, 100)``.  Numerics are step for step those of the
+    eager loop (:func:`fit_eager`, the oracle) and of :func:`fit_per_step`.
+    The caller's params are not written.  Returns ``(params, losses)``
+    with ``losses`` the (num_steps,) float32 history."""
+    opt_state = optimizer.init(params)
+    if num_steps <= 0:
+        return params, torch.zeros((0,), dtype=torch.float32)
+    if scan_chunk is None:
+        scan_chunk = num_steps if not log_every else max(log_every, 100)
+    scan_chunk = max(1, min(scan_chunk, num_steps))
+    run_chunk = make_scan_engine(loss_fn, optimizer, generator is not None)
+    keyed = _wants_step(loss_fn)
+    step = 0
+    chunks, done = [], 0
+    while done < num_steps:
+        n = min(scan_chunk, num_steps - done)
+        if keyed:
+            params, opt_state, generator, step, losses = run_chunk(
+                params, opt_state, generator, step, n)
+        else:
+            params, opt_state, generator, losses = run_chunk(
+                params, opt_state, generator, n)
+        if log_every:
+            hist = losses.cpu()             # one host sync per chunk
+            for t in range(n):
+                i = done + t
+                if i % log_every == 0 or i == num_steps - 1:
+                    print(f"  step {i:5d}  loss {float(hist[t]):.6f}")
+        chunks.append(losses)
+        done += n
+    return params, torch.cat(chunks)
+
+
+def fit_per_step(loss_fn: Callable, params: Tree, optimizer: Optimizer,
+                 num_steps: int, generator: Optional[torch.Generator] = None,
+                 log_every: int = 0) -> tuple[Tree, torch.Tensor]:
+    """The per-step loop over :func:`make_step_fn`, one replay a step; the
+    equivalence oracle of :func:`fit` among the engines."""
+    opt_state = optimizer.init(params)
+    step_fn = make_step_fn(loss_fn, optimizer, generator is not None)
+    keyed = _wants_step(loss_fn)
+    step, losses = 0, []
+    for i in range(num_steps):
+        if keyed:
+            params, opt_state, generator, step, loss = step_fn(
+                params, opt_state, generator, step)
+        else:
+            params, opt_state, generator, loss = step_fn(
+                params, opt_state, generator)
+        losses.append(loss)
+        if log_every and (i % log_every == 0 or i == num_steps - 1):
+            print(f"  step {i:5d}  loss {float(loss):.6f}")
+    if not losses:
+        return params, torch.zeros((0,), dtype=torch.float32)
+    return params, torch.stack(losses)
+
+
+def fit_eager(loss_fn: Callable, params: Tree, optimizer: Optimizer,
+              num_steps: int, generator: Optional[torch.Generator] = None
+              ) -> tuple[Tree, torch.Tensor]:
+    """The eager loop, no engine: :func:`_step_body` once a step on fresh
+    tensors, the step a Python int, the noise drawn and copied to the
+    device inside the loss.  The oracle the engines' graphs are held to,
+    bit for bit."""
     opt_state = optimizer.init(params)
     keyed = _wants_step(loss_fn)
     losses = []
@@ -107,22 +567,6 @@ def fit(loss_fn: Callable, params: Tree, optimizer: Optimizer,
     if not losses:
         return params, torch.zeros((0,), dtype=torch.float32)
     return params, torch.stack(losses)
-
-
-def fit_per_step(loss_fn: Callable, params: Tree, optimizer: Optimizer,
-                 num_steps: int, generator: Optional[torch.Generator] = None
-                 ) -> tuple[Tree, torch.Tensor]:
-    """Reference loop that reads every step's loss back to the host; the
-    equivalence oracle for :func:`fit`."""
-    opt_state = optimizer.init(params)
-    keyed = _wants_step(loss_fn)
-    losses = []
-    for i in range(num_steps):
-        params, opt_state, loss = _step_body(loss_fn, optimizer, params,
-                                             opt_state, generator,
-                                             i if keyed else None)
-        losses.append(float(loss))
-    return params, torch.tensor(losses, dtype=torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -311,7 +755,8 @@ def train_twin(twin, params, ts: torch.Tensor, ys: torch.Tensor, *,
                segment_len: int = 50, loss: str = "l1",
                gamma: float = 0.1, noise_std: float = 0.0,
                generator: Optional[torch.Generator] = None,
-               backend=None, hw_aware=None):
+               log_every: int = 0, backend=None,
+               scan_chunk: Optional[int] = None, hw_aware=None):
     """Train a twin on one observed trajectory (paper's training setup).
 
     ``backend`` selects the training substrate (see
@@ -321,14 +766,16 @@ def train_twin(twin, params, ts: torch.Tensor, ys: torch.Tensor, *,
     through K5 and K6).  ``gamma`` is soft-DTW's smoothing.
     ``generator`` draws the state noise (default: a CPU generator seeded
     with 0).  ``hw_aware`` trains through the analogue write path (see
-    :func:`segment_loss_fn`)."""
+    :func:`segment_loss_fn`).  ``log_every`` and ``scan_chunk`` are
+    :func:`fit`'s."""
     ts_seg, ys_seg = make_segments(ts, ys, segment_len)
     loss_fn = segment_loss_fn(twin, ts_seg, ys_seg, loss=loss, gamma=gamma,
                               noise_std=noise_std, backend=backend,
                               hw_aware=hw_aware)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    return fit(loss_fn, params, optimizer, num_steps, generator)
+    return fit(loss_fn, params, optimizer, num_steps, generator, log_every,
+               scan_chunk=scan_chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -353,7 +800,7 @@ def derivative_matching_loss(field, ts_mid, ys_mid, dys):
 
 
 def pretrain_derivatives(field, params, ts, ys, *, optimizer,
-                         num_steps: int):
+                         num_steps: int, log_every: int = 0):
     ts_mid, ys_mid, dys = finite_difference_derivatives(ts, ys)
     loss_fn = derivative_matching_loss(field, ts_mid, ys_mid, dys)
-    return fit(loss_fn, params, optimizer, num_steps)
+    return fit(loss_fn, params, optimizer, num_steps, log_every=log_every)

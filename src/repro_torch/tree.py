@@ -20,9 +20,17 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
         return {k: tree_map(fn, tree[k], *[r[k] for r in rest])
                 for k in tree}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, x, *[r[i] for r in rest])
-                          for i, x in enumerate(tree))
+        return _rebuild(tree, [tree_map(fn, x, *[r[i] for r in rest])
+                               for i, x in enumerate(tree)])
     return fn(tree, *rest)
+
+
+def _rebuild(seq, items: list):
+    """A list or tuple of ``seq``'s type holding ``items`` (a NamedTuple,
+    such as an optimizer state, takes them as its fields)."""
+    if isinstance(seq, tuple) and hasattr(seq, "_fields"):
+        return type(seq)(*items)
+    return type(seq)(items)
 
 
 def tree_leaves(tree: Tree) -> list:
@@ -45,7 +53,7 @@ def tree_unflatten(template: Tree, leaves) -> Tree:
             built = {k: build(t[k]) for k in sorted(t)}
             return {k: built[k] for k in t}
         if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
+            return _rebuild(t, [build(v) for v in t])
         return next(it)
 
     return build(template)
