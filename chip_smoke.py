@@ -12,7 +12,7 @@ result line:
 1. environment: a CUDA card is required; prints its name and power
    limit; TF32 is switched off so the plain versions run in full float32;
 2. build: every kernel source under ``src/repro_torch/kernels/csrc`` (K1,
-   K2, K3, K4, K5 and K6, K7, K8, K9) is compiled with
+   K2, K3, K4, K5 and K6, K7, K8, K9, and K1w / K4w) is compiled with
    ``nvcc`` (one process per source, in parallel), with ptxas's registers
    and spills printed; then a line per kernel library counting, with
    ``cuobjdump --dump-sass``, the tensor-core ``HMMA`` instructions of
@@ -247,6 +247,29 @@ result line:
    copies a step, device busy ms, the card's idle share of the traced
    wall and of the device span, and 1 - busy / the untraced chunk's
    time: tracing slows a replay, so the traced shares overstate it).
+23. P10, the paper's energy scorecard on the card: K1w and K4w (the wide
+   cluster kernels of ``csrc/fused_wide.cu``, 8-CTA clusters) at the
+   scorecard's Lorenz96 twin 6->512->512->6, at (1, 1800) and at P3's
+   (1024, 50): K1w within 1e-4 of its plain version and bitwise on
+   repeat; K1w forced at 6->64->64->6 within 1e-5 of the resident K1 (one
+   and four twins per cluster); K4w clean float, noisy faulty (uint8, read
+   noise 0.02, 1% stuck, drift) and clean uint8 within 1e-4 of its plain
+   version and bitwise on repeat; clean uint8 K4w at P3's deployment
+   within 1e-4 of P3's ``AnalogueBackend`` run on K7; then
+   ``scorecard.scorecard()`` on the four backends (the main path): every
+   anchor within ``ANCHOR_TOL``, each row's counted MACs equal to the
+   same rollout's count on the host CPU (a process of its own, run beside
+   the card's work), the digital row's equal to ``model_macs``, exactly
+   one K1, K1w, K4 and K4w launch (Lorenz96 on K1w / K4w, HP on the
+   resident kernels), no K7.  Printed, not gated: the rows, the clusters
+   the card holds at once, CUDA-event ms of K1w and K4w (clean, noisy) at
+   both shapes beside their plain versions' ms, their bounds (operations
+   or bytes) and chain bounds (4 T evaluations x what the exchange of the
+   last layer's partials and the cluster and block barriers of one
+   evaluation cost, from a probe kernel's cycles; the resident K1 and K1w
+   forced at 6->64->64->6 over 1800 steps beside them), and the
+   1800-step rollout's wall ms on ``fused_cuda``, ``analogue_fused_cuda``,
+   ``analogue`` and ``digital``.
 
 Training (phases 7, 12, 15, 16 and 22) runs through the training engines
 by default, as the JAX package's does through its scan engine: on the
@@ -284,9 +307,11 @@ from repro_torch.configs.lorenz96_twin import CONFIG as L96_CONFIG  # noqa: E402
 from repro_torch.core.analogue import (AnalogueSpec,  # noqa: E402
                                        drift_from_calibration,
                                        spec_from_calibration)
+from repro_torch.core import scorecard  # noqa: E402
 from repro_torch.core.backends import (AnalogueBackend, DigitalBackend,  # noqa: E402
                                        FusedAnalogueCudaBackend,
-                                       FusedCudaBackend)
+                                       FusedCudaBackend, resolve_backend,
+                                       uniform_dt)
 from repro_torch.core.faults import (FAULT_SALT_BASE, FaultModel,  # noqa: E402
                                      StuckCells, fault_salt,
                                      make_fault_model)
@@ -391,11 +416,7 @@ def k1_bound(sizes, B, T, u):
     """(bound_ms, bound_by, GFLOP, MB) of one K1 call: the MLP's products
     for every twin and RK4 stage; y0, the drive and the weights read once,
     the trajectory written once."""
-    pairs = list(zip(sizes[:-1], sizes[1:]))
-    macs = sum(a * b for a, b in pairs)
-    P = sum(a * b + b for a, b in pairs)
-    flops = 2 * macs * 4 * T * B
-    nbytes = 4 * (B * sizes[-1] + u.numel() + P + (T + 1) * B * sizes[-1])
+    flops, nbytes = fused_ode_mlp.rollout_work(sizes, B, T, u.numel())
     t_ops, t_bytes = flops / FP32_PEAK * 1e3, nbytes / HBM_BW * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
             else "bytes", flops / 1e9, nbytes / 1e6)
@@ -2717,6 +2738,387 @@ def p9_engines(dev, smi, l96_twin, l96_params, l96_data, data96) -> dict:
     print(f"[{smi}] phase 22 took {time.perf_counter() - t_phase:.1f} s")
     return dict(counts=launch_counts, paths=out)
 
+# -- phase 23: P10, the paper's energy scorecard on the card (K1w, K4w) -------
+
+#: The scorecard twin's rollout shapes of phase 23 as (B, T): the
+#: scorecard's single Lorenz96 twin over its 1800 steps, and P3's fleet.
+P10_SHAPES = ((1, 1800), (1024, 50))
+#: K1w forced at the twins' 6->64->64->6 against the resident K1: of the
+#: peak (the two differ in the last layer's summation order only).
+P10_FORCED_TOL = 1e-5
+#: Iterations of each barrier in the cluster-barrier probe.
+P10_PROBE_ITERS = 10_000
+#: The scorecard's counts on the host CPU, in a process of its own that
+#: runs beside the card's work: (workload, backend, counted MACs) rows.
+P10_CPU_COUNTS = r"""
+import json, sys
+import torch
+torch.set_num_threads(2)
+sys.path.insert(0, sys.argv[1])
+from repro_torch.core import scorecard
+rows = scorecard.backend_rows(device="cpu")
+print(json.dumps([[r["workload"], r["backend"], r["counted"]["macs"]]
+                  for r in rows]))
+"""
+
+
+def timed_once(fn):
+    """(``fn()``, the CUDA-event ms of that one call): a plain version that
+    runs for seconds is timed on its checked run."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def kw_sync_cycles(cluster: int, threads: int) -> dict:
+    """SM cycles, on a cluster of ``cluster`` CTAs of ``threads`` threads,
+    of one cluster barrier, one block barrier, and one exchange of the
+    last layer's partials as K1w/K4w make it (a cluster barrier, every
+    rank's partial loaded and summed in rank order, a block barrier;
+    ``exchange_push``: the partials stored into every rank first): the
+    probe ``kw_sync_probe`` of ``csrc/fused_wide.cu``."""
+    fn = _build.load("fused_wide").kw_sync_probe
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    out = torch.zeros(4, dtype=torch.int64, device="cuda")
+    err = fn(cluster, threads, P10_PROBE_ITERS, out.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"P10: the barrier probe failed to launch ({err})")
+    torch.cuda.synchronize()
+    c = [x / P10_PROBE_ITERS for x in out.cpu().tolist()]
+    return dict(zip(("cluster", "block", "exchange", "exchange_push"), c))
+
+
+def kw_barriers(sizes, noisy: bool) -> tuple:
+    """(cluster barriers, block barriers) of one K1w / K4w evaluation: a
+    block barrier after each layer but the last and after the RK4 update,
+    a cluster barrier before the rank sum and before each gather of a
+    hidden vector (MLPs deeper than three layers), a block barrier after
+    each gather; under read noise a block barrier before each layer (its
+    slice of the noisy pairs has landed)."""
+    L = len(sizes) - 1
+    gathers = max(0, L - 3)
+    return 1 + gathers, L + gathers + (L if noisy else 0)
+
+
+def kw_chain_cycles(sizes, noisy: bool, cyc: dict) -> float:
+    """SM cycles one K1w / K4w evaluation cannot go below whatever its
+    products cost: the exchange of the partials (one cluster barrier and
+    one block barrier in it), the other cluster and block barriers."""
+    nc, nb = kw_barriers(sizes, noisy)
+    return (cyc["exchange"] + (nc - 1) * cyc["cluster"]
+            + (nb - 1) * cyc["block"])
+
+
+def p10_scorecard(dev, smi, wide_params, y0_wide, ts_wide, p3,
+                  zero_counts, read_counts) -> dict:
+    """Phase 23: the paper's energy scorecard on the card.  K1w and K4w
+    (the wide cluster kernels) at the scorecard twin's 6->512->512->6
+    against their plain versions, then ``scorecard()`` on the four
+    backends with the counts held against the host CPU's.  P3's fleet
+    (``wide_params``, ``y0_wide`` over ``ts_wide``) and its trajectory on
+    K7 (``p3``) give the fleet shape.  Returns the main path's launch
+    counts, the kernels' JSON entries and the rows."""
+    t_phase = time.perf_counter()
+    cpu = subprocess.Popen([sys.executable, "-c", P10_CPU_COUNTS,
+                            str(ROOT / "src")], stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True)
+    try:
+        out = _p10(dev, smi, wide_params, y0_wide, ts_wide, p3, zero_counts,
+                   read_counts, cpu)
+    finally:
+        if cpu.poll() is None:
+            cpu.kill()
+            cpu.wait()
+    print(f"[{smi}] phase 23 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _p10(dev, smi, wide_params, y0_wide, ts_wide, p3, zero_counts,
+         read_counts, cpu) -> dict:
+    sizes = (6, 512, 512, 6)
+    gen = torch.Generator().manual_seed(SEED + 23)
+    ws = [p["w"] for p in wide_params]
+    bs = [p["b"] for p in wide_params]
+    dt_sc = 1.0 / 1800
+    dt_wide = uniform_dt(ts_wide, "P3")
+    inputs = {}
+    for B, T in P10_SHAPES:
+        y0 = (0.5 * torch.randn((B, 6), generator=gen)).to(dev) if B == 1 \
+            else y0_wide
+        inputs[B, T] = (y0, torch.zeros((2 * T + 1, 0), device=dev),
+                        dt_sc if B == 1 else dt_wide)
+    for (B, T) in P10_SHAPES:
+        g = fused_ode_mlp.launch_geometry(B, sizes)
+        check(g.cluster == fused_ode_mlp.WIDE_CLUSTER,
+              f"P10: {sizes} at B={B} is not on the cluster launch ({g})")
+        n_active = ctypes.c_int(0)
+        fn = _build.load("fused_wide").kw_max_active_clusters
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_longlong,
+                                            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = fn(0, g.cluster, g.twins_per_block, g.threads, g.smem_bytes,
+                 ctypes.byref(n_active))
+        check(err == 0 and n_active.value >= 1,
+              f"P10: no cluster of {g} fits the card ({err})")
+        print(f"P10 K1w at B={B}: {geometry_str(g)}, clusters of "
+              f"{g.cluster} CTAs, {n_active.value} clusters resident at once")
+    entries, times = {}, {}
+
+    # K1w against its plain version, twice bitwise; forced at 6->64->64->6
+    # against the resident K1
+    errs, plain_ms = {}, {}
+    for (B, T), (y0, u, dt) in inputs.items():
+        got = fused_ode_mlp.fused_node_rollout(y0, u, ws, bs, dt,
+                                               batch_tile=B)
+        again = fused_ode_mlp.fused_node_rollout(y0, u, ws, bs, dt,
+                                                 batch_tile=B)
+        want, plain_ms[B, T] = timed_once(
+            lambda: ref.fused_node_rollout_ref(y0, u, ws, bs, dt))
+        errs[B, T] = rel_err(got, want)
+        same = torch.equal(got, again)
+        print(f"[{smi}] P10 K1w ({B}, {T}) vs plain: max abs err "
+              f"{errs[B, T][0]:.3e}, of peak {errs[B, T][1]:.3e} (limit "
+              f"{TOL:g}); repeat bitwise: {same}")
+        check(bool(torch.isfinite(got).all()) and errs[B, T][1] <= TOL,
+              f"P10: K1w disagrees with its plain version at ({B}, {T})")
+        check(same, f"P10: two K1w runs differ at ({B}, {T})")
+    small = (6, 64, 64, 6)
+    params, y0s, us = make_case(gen, small, 1024, 200, "none", dev)
+    sw = [p["w"] for p in params]
+    sb = [p["b"] for p in params]
+    resident = fused_ode_mlp.fused_node_rollout(y0s, us, sw, sb, 0.0025,
+                                                batch_tile=1024)
+    for rt in (4, 1):
+        g = fused_ode_mlp.wide_geometry(1024, small, twins_per_block=rt)
+        forced = fused_ode_mlp.fused_node_rollout_at(g, y0s, us, sw, sb,
+                                                     0.0025)
+        torch.cuda.synchronize()
+        e = rel_err(forced, resident)
+        print(f"[{smi}] P10 K1w forced at {small} (1024, 200), {rt} twin(s) "
+              f"per cluster, vs the resident K1: max abs err {e[0]:.3e}, of "
+              f"peak {e[1]:.3e} (limit {P10_FORCED_TOL:g})")
+        check(e[1] <= P10_FORCED_TOL,
+              f"P10: forced K1w disagrees with the resident K1 ({rt})")
+
+    # K4w against its plain version: clean float, noisy faulty uint8,
+    # clean uint8, each repeat bitwise
+    k4_cases = {
+        "float_clean": (dict(spec=AnalogueSpec()), 0.0),
+        "uint8_noise_stuck_drift": (dict(
+            spec=AnalogueSpec(prog_noise=0.0, read_noise=0.02),
+            storage="uint8", faults=make_fault_model(
+                ("stuck", dict(rate=0.01)), "drift", seed=SEED)), 0.02),
+        "uint8_clean": (dict(spec=AnalogueSpec(prog_noise=0.0),
+                             storage="uint8"), 0.0),
+    }
+    wide_twin = make_autonomous_twin(6, hidden=512)
+    staged = {}
+    k4_errs = {}
+    for name, (kw, noise) in k4_cases.items():
+        be = FusedAnalogueCudaBackend(prog_seed=SEED, read_seed=SEED, **kw)
+        staged[name] = be.program(wide_twin.node.field, wide_params).extra
+        st = staged[name]
+        for (B, T), (y0, u, dt) in inputs.items():
+            run = functools.partial(
+                ops.fused_analogue_rollout, st, y0, u, dt, batch_tile=B,
+                read_noise=noise, noise_seed=SEED)
+            got, again = run(), run()
+            want, plain_ms[name, B, T] = timed_once(
+                lambda: k4_plain(st, y0, u, dt, noise, SEED))
+            e = k4_errs[name, B, T] = rel_err(got, want)
+            same = torch.equal(got, again)
+            print(f"[{smi}] P10 K4w {name} ({B}, {T}) vs plain: max abs err "
+                  f"{e[0]:.3e}, of peak {e[1]:.3e} (limit {TOL:g}); repeat "
+                  f"bitwise: {same}")
+            check(bool(torch.isfinite(got).all()) and e[1] <= TOL,
+                  f"P10: K4w {name} disagrees with its plain version at "
+                  f"({B}, {T})")
+            check(same, f"P10: two K4w {name} runs differ at ({B}, {T})")
+    # clean uint8 K4w at P3's deployment against AnalogueBackend on K7
+    fleet_k4 = TwinFleet(wide_twin.with_backend(FusedAnalogueCudaBackend(
+        spec=AnalogueSpec(prog_noise=0.0), storage="uint8", prog_seed=SEED)))
+    with torch.no_grad():
+        got = fleet_k4.rollout_batch(wide_params, y0_wide, ts_wide)
+    torch.cuda.synchronize()
+    e = rel_err(got, p3)
+    print(f"[{smi}] P10 K4w uint8 clean at P3's deployment (1024 x 50) vs "
+          f"AnalogueBackend on K7 (P3): max abs err {e[0]:.3e}, of peak "
+          f"{e[1]:.3e} (limit {TOL:g})")
+    check(e[1] <= TOL, "P10: K4w disagrees with the simulator on K7")
+
+    # times, bounds and the chain of barriers
+    g1 = fused_ode_mlp.launch_geometry(1, sizes)
+    cyc = kw_sync_cycles(g1.cluster, g1.threads)
+    print(f"[{smi}] P10 on a cluster of {g1.cluster} x {g1.threads} "
+          f"threads, SM cycles: cluster barrier {cyc['cluster']:.1f}, block "
+          f"barrier {cyc['block']:.1f}, exchange of the partials "
+          f"{cyc['exchange']:.1f} (pushed instead: "
+          f"{cyc['exchange_push']:.1f})")
+
+    def chain_ms(T, noisy):
+        return 4 * T * kw_chain_cycles(sizes, noisy, cyc) / SM_CLOCK * 1e3
+
+    for (B, T), (y0, u, dt) in inputs.items():
+        reps = 5 if B == 1 else 10
+        ms = cuda_ms(lambda: fused_ode_mlp.fused_node_rollout(
+            y0, u, ws, bs, dt, batch_tile=B), reps)
+        plain = plain_ms[B, T]
+        bnd, by, gf, mb = k1_bound(sizes, B, T, u)
+        row = {"ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+               "chain_bound_ms": chain_ms(T, False),
+               "max_abs_err": errs[B, T][0],
+               "max_rel_err_of_peak": errs[B, T][1]}
+        times["K1w", B, T] = row
+        print(f"[{smi}] P10 K1w ({B}, {T}): {ms:.4f} ms (CUDA events, "
+              f"{reps} runs), plain {plain:.4f} ms (its checked run); "
+              f"bound {bnd:.4f} ms "
+              f"({by}: {gf:.3f} GFLOP, {mb:.3f} MB), chain bound "
+              f"{row['chain_bound_ms']:.4f} ms ({4 * T} evaluations x "
+              f"{kw_chain_cycles(sizes, False, cyc):.1f} cycles: the "
+              f"exchange and {kw_barriers(sizes, False)} cluster/block "
+              f"barriers in all)")
+        for name, (_, noise) in k4_cases.items():
+            if name == "uint8_clean":
+                continue
+            st = staged[name]
+            ms = cuda_ms(lambda: ops.fused_analogue_rollout(
+                st, y0, u, dt, batch_tile=B, read_noise=noise,
+                noise_seed=SEED), 3 if noise else reps)
+            plain = plain_ms[name, B, T]
+            bnd, by = bound(*k4_work(st, y0, u, T, noise > 0))
+            row = {"ms": ms, "plain_ms": plain, "bound_ms": bnd,
+                   "bound_by": by, "chain_bound_ms": chain_ms(T, noise > 0),
+                   "max_abs_err": k4_errs[name, B, T][0],
+                   "max_rel_err_of_peak": k4_errs[name, B, T][1]}
+            times["K4w", name, B, T] = row
+            print(f"[{smi}] P10 K4w {name} ({B}, {T}): {ms:.4f} ms (CUDA "
+                  f"events, pre-pass and chunks included), plain "
+                  f"{plain:.4f} ms; bound {bnd:.4f} ms ({by}), chain bound "
+                  f"{row['chain_bound_ms']:.4f} ms")
+
+    # what an evaluation costs besides the 512-wide product: K1w forced at
+    # the twins' 6->64->64->6 over the scorecard's 1800 steps, beside the
+    # resident K1 there
+    p_s, y_s, u_s = make_case(gen, small, 1, 1800, "none", dev)
+    w_s = [p["w"] for p in p_s]
+    b_s = [p["b"] for p in p_s]
+    g_s = fused_ode_mlp.wide_geometry(1, small)
+    f_ms = cuda_ms(lambda: fused_ode_mlp.fused_node_rollout_at(
+        g_s, y_s, u_s, w_s, b_s, dt_sc), 5)
+    r_ms = cuda_ms(lambda: fused_ode_mlp.fused_node_rollout(
+        y_s, u_s, w_s, b_s, dt_sc, batch_tile=1), 5)
+    times["K1w_forced_64"] = {"ms": f_ms, "resident_k1_ms": r_ms}
+    print(f"[{smi}] P10 K1w forced at {small} (1, 1800): {f_ms:.4f} ms "
+          f"({f_ms / 7200 * 1e3:.3f} us an evaluation); the resident K1 "
+          f"there {r_ms:.4f} ms")
+
+    # the 1800-step rollout's wall time on each substrate (host clock to a
+    # device sync, deployment excluded; the fused ones warmed up by a first
+    # run, the unfused ones' seconds of small launches run once)
+    wall = {}
+    for name in scorecard.BACKEND_SUBSTRATE:
+        be = resolve_backend(name)
+        twin, params, ts, y0 = scorecard._build_twin(scorecard.LORENZ96,
+                                                     device=dev)
+        state = be.program(twin.node.field, params)
+        fused = isinstance(be, FusedCudaBackend)
+        grad = "stopgrad" if fused else "direct"
+        secs = []
+        for _ in range(2 if fused else 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                be.rollout(state, y0, ts, gradient=grad)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        wall[name] = secs[-1] * 1e3
+        print(f"[{smi}] P10 Lorenz96 1800-step rollout on {name}: "
+              f"{secs[-1] * 1e3:.3f} ms ({len(secs)} run(s), the first "
+              f"{secs[0] * 1e3:.3f} ms)")
+
+    # the main path: scorecard() on the card, counts against the CPU's
+    zero_counts()
+    sc = scorecard.scorecard(device=dev)
+    counts = read_counts("P10 scorecard() on the card", {
+        "K1": 1, "K1w": 1, "K4": 1, "K4w": 1, "K4_noise": 0, "K2": 0,
+        "K7": 0})
+    scorecard.assert_anchors(sc["anchors"])
+    for r in sc["anchors"]:
+        print(f"P10 anchor {r['workload']}/{r['name']}: model "
+              f"{r['model']:.3f} vs paper {r['paper']:.3f} (rel err "
+              f"{r['rel_err']:.4f}, limit {r['tol']:g})")
+    stdout, stderr = cpu.communicate(timeout=900)
+    check(cpu.returncode == 0,
+          f"P10: the CPU count process failed ({cpu.returncode}): {stderr}")
+    cpu_macs = {(w, b): m for w, b, m in json.loads(stdout.splitlines()[-1])}
+    want_kernels = {("hp", "fused_cuda"): {"K1": 1},
+                    ("lorenz96", "fused_cuda"): {"K1w": 1},
+                    ("hp", "analogue_fused_cuda"): {"K4": 1},
+                    ("lorenz96", "analogue_fused_cuda"): {"K4w": 1}}
+    for r in sc["backends"]:
+        key = (r["workload"], r["backend"])
+        c = r["counted"]
+        print(f"P10 row {key}: counted {c['macs']:.6e} MACs (CPU "
+              f"{cpu_macs[key]:.6e}, model {r['model_macs']:.6e}), "
+              f"traffic {c['traffic_bytes']}, kernels {c['kernels']}; "
+              f"projected {r['projected']['time_us']:.3f} us, "
+              f"{r['projected']['energy_uj']:.3f} uJ")
+        check(c["macs"] == cpu_macs[key],
+              f"P10: {key} counts {c['macs']} MACs on the card, "
+              f"{cpu_macs[key]} on the CPU")
+        if r["backend"] == "digital":
+            check(c["macs"] == r["model_macs"],
+                  f"P10: {key} counted MACs differ from the model's")
+        check(c["kernels"] == want_kernels.get(key, {}),
+              f"P10: {key} reported kernels {c['kernels']}")
+
+    one, fleet = P10_SHAPES
+    k1w, k4c = times["K1w", *one], times["K4w", "float_clean", *one]
+    k4n = times["K4w", "uint8_noise_stuck_drift", *one]
+    entries = [{
+        "name": "fused_node_rollout_wide",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_wide.cu",
+        "replaces": "src/repro/kernels/fused_ode_mlp.py:390",
+        "launches": counts["K1w"],
+        "launches_by_path": {"P10_scorecard": counts["K1w"]},
+        "shape": f"scorecard Lorenz96 B={one[0]} T={one[1]} 6-512-512-6",
+        **{k: k1w[k] for k in ("max_abs_err", "max_rel_err_of_peak", "ms",
+                               "plain_ms", "bound_ms", "bound_by",
+                               "chain_bound_ms")},
+        "library_ms": None,
+        "fleet_shape": {"B": fleet[0], "T": fleet[1],
+                        **times["K1w", *fleet]},
+        "forced_6_64_64_6": times["K1w_forced_64"],
+    }, {
+        "name": "fused_analogue_rollout_wide",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_wide.cu",
+        "replaces": "src/repro/kernels/fused_analogue.py:208",
+        "launches": counts["K4w"],
+        "launches_by_path": {"P10_scorecard": counts["K4w"]},
+        "shape": f"scorecard Lorenz96 B={one[0]} T={one[1]} 6-512-512-6, "
+                 f"float clean",
+        **{k: k4c[k] for k in ("max_abs_err", "max_rel_err_of_peak", "ms",
+                               "plain_ms", "bound_ms", "bound_by",
+                               "chain_bound_ms")},
+        "library_ms": None,
+        "noisy_shape": {"case": "uint8_noise_stuck_drift", **k4n},
+        "fleet_shape": {"B": fleet[0], "T": fleet[1],
+                        **times["K4w", "float_clean", *fleet]},
+        "fleet_noisy_shape": times["K4w", "uint8_noise_stuck_drift",
+                                   *fleet],
+    }]
+    return {"counts": {"P10_scorecard": counts}, "kernels": entries,
+            "rows": sc["backends"], "wall_ms": wall,
+            "barrier_cycles": cyc}
+
+
 def main() -> int:
     # -- 1. environment ----------------------------------------------------
     if not torch.cuda.is_available():
@@ -2758,7 +3160,8 @@ def main() -> int:
             f"{fn} {n}" for fn, n in counts.items()))
     # K1, K2 and K4: float32 FMAs per shared-memory load, in the whole
     # function and in its densest barrier-to-barrier phase
-    for src in ("fused_ode_mlp", "fused_ode_mlp_bwd", "fused_analogue"):
+    for src in ("fused_ode_mlp", "fused_ode_mlp_bwd", "fused_analogue",
+                "fused_wide"):
         print(f"SASS FFMA/LDS {src}: " + "; ".join(
             f"{fn} FFMA {c['FFMA']} LDS {c['LDS']} ratio "
             f"{c['FFMA'] / max(c['LDS'], 1):.2f}, densest phase FFMA "
@@ -3394,6 +3797,8 @@ def main() -> int:
                 "K3_write": (noise, "WRITE_LAUNCHES"),
                 "K4": (fused_analogue, "LAUNCHES"),
                 "K4_noise": (fused_analogue, "NOISE_LAUNCHES"),
+                "K1w": (fused_ode_mlp, "WIDE_LAUNCHES"),
+                "K4w": (fused_analogue, "WIDE_LAUNCHES"),
                 "K7": (crossbar_vmm, "LAUNCHES"),
                 "K7_read": (crossbar_vmm, "READ_LAUNCHES")}
 
@@ -3900,6 +4305,11 @@ def main() -> int:
     def p9_paths_of(key):
         return {p: c[key] for p, c in p9["counts"].items() if c[key]}
 
+    # -- 23. P10: the paper's energy scorecard (K1w, K4w, K1, K4) -------------
+    p10 = p10_scorecard(dev, smi, wide_params, y0_wide, ts_wide, p3,
+                        zero_counts, read_counts)
+    path_counts.update(p10["counts"])
+
     k1_paths = {"serve_fleet": launches, "train_hp_twin": hp_counts[0],
                 "hp_40_steps_fused_cuda": hp40_counts["fused_cuda"][0],
                 "train_l96_twin": l96_counts[0],
@@ -3908,7 +4318,8 @@ def main() -> int:
                 **{p: c["K1"] for p, c in p6["counts"].items()},
                 **{p: c["K1"] for p, c in p7.items() if c["K1"]},
                 **{p: c["K1"] for p, c in p8.items() if c["K1"]},
-                **p9_paths_of("K1")}
+                **p9_paths_of("K1"),
+                "P10_scorecard": p10["counts"]["P10_scorecard"]["K1"]}
     k2_paths = {"train_hp_twin": hp_counts[1],
                 **{p: c["K2"] for p, c in p6["counts"].items()},
                 "hp_40_steps_fused_cuda": hp40_counts["fused_cuda"][1],
@@ -4116,7 +4527,8 @@ def main() -> int:
     } for name, key, replaces in (
         ("softdtw_rowmajor", "K5", "src/repro/kernels/softdtw.py:110"),
         ("softdtw_rowmajor_bwd", "K6",
-         "src/repro/kernels/softdtw.py:215"))], *lm_entries]}
+         "src/repro/kernels/softdtw.py:215"))], *lm_entries,
+        *p10["kernels"]]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

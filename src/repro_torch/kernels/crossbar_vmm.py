@@ -21,7 +21,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, work
 
 #: Launches of the CUDA GEMM in this process (one per ``crossbar_matmul``).
 LAUNCHES = 0
@@ -230,9 +230,13 @@ def crossbar_matmul(
             f"{sorted(str(d) for d in devices)}; put them on one")
     device = devices.pop()
     gp, gm = stored_operand(gp), stored_operand(gm)
+    N = gp.shape[1]
+    work.report("K7", 2.0 * M * K * N,
+                4.0 * (M * K + M * N) + 2.0 * gp.numel() * gp.element_size())
     if device.type == "cpu":
-        return ref.crossbar_matmul_ref(x, gp, gm, inv_scale=inv_scale,
-                                       clamp=clamp, **read)
+        with work.uncounted():
+            return ref.crossbar_matmul_ref(x, gp, gm, inv_scale=inv_scale,
+                                           clamp=clamp, **read)
     if device.type != "cuda":
         raise ValueError(
             f"crossbar_matmul: tensors on {device} — the kernel runs on CUDA "

@@ -22,7 +22,12 @@ through memristor crossbar pairs on the hand-written Hopper kernel
   A noisy rollout replays bitwise from ``noise_seed`` and, through
   ``step_offset``, a split rollout replays the unsplit one;
 * device faults in-kernel: stuck cells at their global ids (bitwise the
-  program-time masks of :mod:`repro_torch.core.faults`) and live drift.
+  program-time masks of :mod:`repro_torch.core.faults`) and live drift;
+* widths whose pairs do not fit one block (the paper's 6->512->512->6
+  scorecard twin) run K4w (``csrc/fused_wide.cu``), a thread-block
+  cluster whose CTAs split every layer, at the cluster launch of
+  :func:`repro_torch.kernels.fused_ode_mlp.wide_geometry`; under read
+  noise it streams the same pre-pass's pairs, chunk by chunk.
 
 The solve is inference-only (train digitally, deploy analogue) and always
 float32.  Device rule: the plain version
@@ -37,7 +42,7 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.kernels import fused_ode_mlp, ref
+from repro_torch.kernels import fused_ode_mlp, ref, work
 from repro_torch.kernels.crossbar_vmm import stored_operand
 from repro_torch.kernels.fused_ode_mlp import MAX_LAYERS, Geometry
 
@@ -63,6 +68,10 @@ LAUNCHES = 0
 #: Launches of the read-noise pre-pass (one per noisy rollout chunk).
 NOISE_LAUNCHES = 0
 
+#: Launches of K4w, the wide cluster rollout (one per rollout, or per time
+#: chunk of a noisy rollout longer than one chunk).
+WIDE_LAUNCHES = 0
+
 
 class _K4Read(ctypes.Structure):
     """The kernel's ``K4Read`` argument struct (same field order)."""
@@ -85,17 +94,24 @@ def launch_geometry(B: int, sizes: Sequence[int], noisy: bool, *,
     """K4's launch for ``B`` twins of MLP widths ``sizes``: K1's
     (:func:`repro_torch.kernels.fused_ode_mlp.launch_geometry`), with a
     second weight block for the double-buffered noisy pairs under read
-    noise.  ``twins_per_block`` (1 or 4) forces the tile.  Raises a
-    ``ValueError`` when no choice fits the 227 KB a block may use."""
+    noise.  ``twins_per_block`` (1 or 4) forces the tile.  Where no
+    resident choice fits the 227 KB a block may use, K4w's cluster launch
+    (the same clean and noisy); a ``ValueError`` above its limit."""
     return fused_ode_mlp.launch_geometry(
         B, sizes, twins_per_block=twins_per_block,
         weight_blocks=2 if noisy else 1, what="fused_analogue_rollout")
 
 
 def check_smem_fit(sizes: Sequence[int], noisy: bool) -> int:
-    """Raise a ``ValueError`` when one K4 block (one twin) exceeds the
-    227 KB a Hopper block may use; returns its dynamic bytes otherwise."""
-    return launch_geometry(1, sizes, noisy).smem_bytes
+    """Raise a ``ValueError`` when one resident K4 block (one twin)
+    exceeds the 227 KB a Hopper block may use; returns its dynamic bytes
+    otherwise.  (Such widths run K4w, whose launch has its own check.)"""
+    geom, need, tile = fused_ode_mlp._resident_geometry(
+        1, sizes, False, None, 2 if noisy else 1)
+    if geom is None:
+        raise fused_ode_mlp._over_limit(sizes, need, tile, False,
+                                        "fused_analogue_rollout")
+    return geom.smem_bytes
 
 
 def noise_eval_floats(sizes: Sequence[int]) -> int:
@@ -237,7 +253,7 @@ def _validate(gps, gms, scales, y0, u_half, dt, *, g_step, g_min, g_max,
         raise ValueError(
             f"fused_analogue_rollout: MLP {tuple(sizes)} does not map "
             f"[u (Du={du}), y (D={D})] to dy/dt (D={D})")
-    check_smem_fit(sizes, read_noise > 0.0)
+    launch_geometry(1, sizes, read_noise > 0.0)
 
     devices = {x.device for x in [y0, u_half, scales, *gps, *gms]}
     if len(devices) != 1:
@@ -292,14 +308,19 @@ def _noise_pass(c: _Call, rd: _K4Read, steps: int) -> torch.Tensor:
 
 
 def _rollout(c: _Call, geom: Geometry) -> torch.Tensor:
-    """K4 on the current stream at ``geom``: one launch, or under read
-    noise a pre-pass and a launch per time chunk; (T+1, B, D) float32."""
-    global LAUNCHES
+    """K4 (K4w for a cluster ``geom``) on the current stream at ``geom``:
+    one launch, or under read noise a pre-pass and a launch per time
+    chunk; (T+1, B, D) float32."""
+    global LAUNCHES, WIDE_LAUNCHES
     from repro_torch.kernels import _build
-    fn = _build.load("fused_analogue").k4_fused_analogue_rollout_f32
+    wide = geom.cluster > 1
+    if wide:
+        fn = _build.load("fused_wide").k4w_fused_analogue_rollout_f32
+    else:
+        fn = _build.load("fused_analogue").k4_fused_analogue_rollout_f32
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong] + [ctypes.c_int] * 3
+                   + [ctypes.c_longlong] + [ctypes.c_int] * (4 if wide else 3)
                    + [ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     B, D = c.y0.shape
@@ -316,21 +337,27 @@ def _rollout(c: _Call, geom: Geometry) -> torch.Tensor:
         noise = _noise_pass(c, rd, steps) if noisy and steps > 0 else None
         y0 = c.y0 if t0 == 0 else out[t0]
         u_ptr = c.u_half.data_ptr() + 4 * 2 * t0 * du if du > 0 else None
+        shape = ([geom.cluster] if wide else []) + [
+            geom.twins_per_block, geom.threads, geom.time_chunk,
+            geom.smem_bytes]
         with torch.cuda.device(c.device):
             err = fn(y0.data_ptr(), u_ptr, out[t0].data_ptr(),
                      c.scales.data_ptr(), ctypes.addressof(gp_ptrs),
                      ctypes.addressof(gm_ptrs), ctypes.addressof(c_sizes),
                      len(c.gps), ctypes.addressof(rd),
                      None if noise is None else noise.data_ptr(), B, steps,
-                     D, du, u_twin_stride, geom.twins_per_block,
-                     geom.threads, geom.time_chunk, geom.smem_bytes,
+                     D, du, u_twin_stride, *shape,
                      torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(
-                f"fused_analogue_rollout: CUDA kernel launch failed with "
+                f"fused_analogue_rollout: CUDA kernel "
+                f"{'K4w (wide cluster) ' if wide else ''}launch failed with "
                 f"cudaError_t {err} (B={B}, T={T}, sizes={tuple(c.sizes)}, "
                 f"{geom})")
-        LAUNCHES += 1
+        if wide:
+            WIDE_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
         t0 += steps
         if t0 >= T:
             return out
@@ -371,14 +398,29 @@ def fused_analogue_rollout(
                   read_noise=read_noise, noise_seed=noise_seed,
                   step_offset=step_offset, fault=fault,
                   batch_tile=batch_tile)
+    geom = launch_geometry(c.y0.shape[0], c.sizes, read_noise > 0.0)
+    work.report("K4w" if geom.cluster > 1 else "K4", *rollout_work(c))
     if c.device.type == "cpu":
-        return ref.fused_analogue_rollout_ref(
-            c.gps, c.gms, c.scales, c.y0, c.u_half, c.dt, fault=c.fault,
-            g_step=g_step, g_min=g_min, g_max=g_max, v_clamp=v_clamp,
-            read_noise=read_noise, noise_seed=noise_seed,
-            step_offset=step_offset)
-    return _rollout(c, launch_geometry(c.y0.shape[0], c.sizes,
-                                       read_noise > 0.0))
+        with work.uncounted():
+            return ref.fused_analogue_rollout_ref(
+                c.gps, c.gms, c.scales, c.y0, c.u_half, c.dt, fault=c.fault,
+                g_step=g_step, g_min=g_min, g_max=g_max, v_clamp=v_clamp,
+                read_noise=read_noise, noise_seed=noise_seed,
+                step_offset=step_offset)
+    return _rollout(c, geom)
+
+
+def rollout_work(c: _Call):
+    """(FLOP, bytes) of one validated rollout: the MLP's products for every
+    twin and evaluation (the read's noise draws, like any elementwise work,
+    are not counted); the pairs, scales, y0 and the drive read once, the
+    trajectory written once."""
+    B, D = c.y0.shape
+    flops, nbytes = fused_ode_mlp.rollout_work(c.sizes, B, c.T,
+                                               c.u_half.numel())
+    params = sum((a + 1) * b for a, b in zip(c.sizes[:-1], c.sizes[1:]))
+    pairs = sum(g.numel() * g.element_size() for g in [*c.gps, *c.gms])
+    return flops, nbytes - 4.0 * params + pairs + 4.0 * len(c.gps)
 
 
 def fused_analogue_rollout_at(geom: Geometry, gps, gms, scales, y0, u_half,

@@ -7,7 +7,11 @@ weights sit in shared memory for all 4*T evaluations, and the only
 device-memory traffic is y0 and the drive in, the trajectory out.  The
 kernel's design, and what bounds it, are in the source's header; its
 launch (twins per block, threads, shared memory) comes from
-:func:`launch_geometry`, which K2 shares.
+:func:`launch_geometry`, which K2 shares.  Widths whose weights do not fit
+one block (the paper's 6->512->512->6 scorecard twin) run K1w
+(``csrc/fused_wide.cu``) instead: a thread-block cluster of
+``WIDE_CLUSTER`` CTAs that split every layer between them
+(:func:`wide_geometry`).
 
 Device rule: the plain version :func:`repro_torch.kernels.ref.fused_node_rollout_ref`
 runs only for CPU tensors.  CUDA tensors launch the kernel or raise; no
@@ -25,7 +29,7 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, work
 
 #: Precision policies of the JAX kernel; only "f32" is ported.
 PRECISIONS = ("f32", "bf16", "bf16_f32acc")
@@ -60,18 +64,32 @@ MAX_LAYERS = 8
 #: Launches of the CUDA kernel in this process (one per kernel launch).
 LAUNCHES = 0
 
+#: CTAs of one thread-block cluster of the wide kernels K1w and K4w
+#: (``csrc/fused_wide.cu``): the portable maximum.
+WIDE_CLUSTER = 8
+
+#: Words of the wide kernels' per-rank product table (KW_OPS_WORDS).
+WIDE_OPS_WORDS = 8 * MAX_LAYERS
+
+#: Launches of K1w in this process (one per wide rollout).
+WIDE_LAUNCHES = 0
+
 
 @dataclasses.dataclass(frozen=True)
 class Geometry:
     """How K1 or K2 is launched for one call: ``blocks`` blocks of
     ``threads`` threads, each owning ``twins_per_block`` twins, with
     ``smem_bytes`` of dynamic shared memory and ``time_chunk`` steps of
-    rows staged per load."""
+    rows staged per load.  ``cluster`` > 1 is a wide kernel's launch
+    (K1w, K4w): clusters of that many CTAs, each cluster owning
+    ``twins_per_block`` twins; ``blocks`` counts CTAs and ``smem_bytes``
+    is one CTA's."""
     twins_per_block: int
     threads: int
     blocks: int
     smem_bytes: int
     time_chunk: int
+    cluster: int = 1
 
 
 def resolve_precision(precision: str | None,
@@ -210,9 +228,47 @@ def _over_limit(sizes, need: int, twins: int, backward: bool,
     return ValueError(
         f"{what}: MLP {tuple(sizes)} needs {need:,} B of shared "
         f"memory per block ({twins} twin(s), one time step staged), over "
-        f"the 227 KB ({SMEM_LIMIT_BYTES:,} B) per-block limit of sm_90; the "
-        f"weights must stay resident, so this width needs a cluster or a "
-        f"split across blocks")
+        f"the 227 KB ({SMEM_LIMIT_BYTES:,} B) per-block limit of sm_90 for "
+        f"the resident design; launch_geometry runs this width on the wide "
+        f"cluster kernels (wide_geometry)")
+
+
+def _tiles(B: int, twins_per_block: int | None, blocks_per_twin: int):
+    """The twins per block (or per cluster) to try, the wider first: four
+    once ``B / 4`` of them cover the card's SMs, else one; a forced 1 or
+    4 alone."""
+    if twins_per_block is None:
+        fleet = (-(-B // FLEET_TWINS_PER_BLOCK) * blocks_per_twin
+                 >= NUM_SMS)
+        return (FLEET_TWINS_PER_BLOCK, 1) if fleet else (1,)
+    if twins_per_block in (1, FLEET_TWINS_PER_BLOCK):
+        return (twins_per_block,)
+    raise ValueError(
+        f"launch_geometry: twins_per_block={twins_per_block}; the "
+        f"kernels hold 1 or {FLEET_TWINS_PER_BLOCK}")
+
+
+def _resident_geometry(B: int, sizes: Sequence[int], backward: bool,
+                       twins_per_block: int | None, weight_blocks: int):
+    """The resident kernels' launch (K1, K2, K4: all weights in one
+    block), or ``(None, need, tile)`` with the bytes of the last choice
+    tried when none fits the 227 KB a block may use."""
+    if B < 1:
+        raise ValueError(f"launch_geometry: B={B} twins")
+    smem_of = smem_bytes_k2 if backward else smem_bytes
+    tiles = _tiles(B, twins_per_block, 1)
+    for rt in tiles:
+        tc = TIME_CHUNK
+        while True:
+            need = smem_of(sizes, rt, tc) + 4 * (weight_blocks - 1) * \
+                weight_floats(sizes, backward)
+            if need <= SMEM_LIMIT_BYTES:
+                return Geometry(rt, _threads(sizes, backward), -(-B // rt),
+                                need, tc), need, rt
+            if tc == 1:
+                break
+            tc //= 2
+    return None, need, tiles[-1]
 
 
 def launch_geometry(B: int, sizes: Sequence[int], *, backward: bool = False,
@@ -227,40 +283,132 @@ def launch_geometry(B: int, sizes: Sequence[int], *, backward: bool = False,
     ``twins_per_block`` (1 or 4) forces the tile, as the checks that a
     trajectory does not depend on the geometry do.  ``weight_blocks`` = 2
     adds a second weight block (K4's double buffer under read noise);
-    ``what`` names the kernel in the error.  Raises a ``ValueError`` when
-    no choice fits the 227 KB a block may use."""
-    if B < 1:
-        raise ValueError(f"launch_geometry: B={B} twins")
-    smem_of = smem_bytes_k2 if backward else smem_bytes
-    if twins_per_block is None:
-        fleet = -(-B // FLEET_TWINS_PER_BLOCK) >= NUM_SMS
-        tiles = (FLEET_TWINS_PER_BLOCK, 1) if fleet else (1,)
-    elif twins_per_block in (1, FLEET_TWINS_PER_BLOCK):
-        tiles = (twins_per_block,)
-    else:
-        raise ValueError(
-            f"launch_geometry: twins_per_block={twins_per_block}; the "
-            f"kernels hold 1 or {FLEET_TWINS_PER_BLOCK}")
-    for rt in tiles:
-        tc = TIME_CHUNK
-        while True:
-            need = smem_of(sizes, rt, tc) + 4 * (weight_blocks - 1) * \
-                weight_floats(sizes, backward)
-            if need <= SMEM_LIMIT_BYTES:
-                return Geometry(rt, _threads(sizes, backward), -(-B // rt),
-                                need, tc)
-            if tc == 1:
-                break
-            tc //= 2
-    raise _over_limit(sizes, need, tiles[-1], backward, what)
+    ``what`` names the kernel in the error.  Where no resident choice fits
+    the 227 KB a block may use, the forward goes to the wide kernels'
+    cluster launch (:func:`wide_geometry`, which raises above its own
+    limit); K2 raises a ``ValueError``: its weights and their transposes
+    stay resident."""
+    geom, need, tile = _resident_geometry(B, sizes, backward,
+                                          twins_per_block, weight_blocks)
+    if geom is not None:
+        return geom
+    if backward:
+        raise _over_limit(sizes, need, tile, True, what)
+    return wide_geometry(B, sizes, twins_per_block=twins_per_block, what=what)
 
 
 def check_smem_fit(sizes: Sequence[int]) -> int:
-    """Raise a ``ValueError`` when one K1 block (one twin, one time step
-    staged) exceeds the 227 KB a Hopper block may use; returns the bytes
-    of one twin and ``TIME_CHUNK`` steps, or of fewer steps where that is
-    what fits."""
-    return launch_geometry(1, sizes).smem_bytes
+    """Raise a ``ValueError`` when one resident K1 block (one twin, one
+    time step staged) exceeds the 227 KB a Hopper block may use; returns
+    the bytes of one twin and ``TIME_CHUNK`` steps, or of fewer steps
+    where that is what fits.  (Such widths run K1w: :func:`wide_geometry`
+    has its own check.)"""
+    geom, need, tile = _resident_geometry(1, sizes, False, None, 1)
+    if geom is None:
+        raise _over_limit(sizes, need, tile, False, "fused kernel")
+    return geom.smem_bytes
+
+
+# ---------------------------------------------------------------------------
+# The wide kernels K1w / K4w (csrc/fused_wide.cu): thread-block clusters
+# ---------------------------------------------------------------------------
+
+def _wide_slice(n: int) -> int:
+    """Columns (or rows) of a hidden width ``n`` one CTA of the cluster
+    owns: ceil(n / WIDE_CLUSTER), padded to 4."""
+    return _round4(-(-n // WIDE_CLUSTER))
+
+
+def _wide_count(n: int, q: int, rank: int) -> int:
+    return max(0, min(q, n - rank * q))
+
+
+def wide_smem_bytes(sizes: Sequence[int], twins_per_block: int = 1,
+                    time_chunk: int = TIME_CHUNK) -> int:
+    """Dynamic shared memory of one CTA of K1w / K4w (``kw_smem_floats``):
+    the per-rank product table; layer 0 whole (rows padded to 4 floats,
+    then the bias); a hidden-to-hidden layer's in_l rows of its column
+    slice and the slice's bias; the last layer's rows of the CTA's slice of
+    the last hidden vector and the whole last bias; then per twin the stage
+    input, a whole hidden vector, two hidden slices, the last layer's
+    partials of two stages, the state and the RK4 sum; and ``2 time_chunk
+    + 1`` half-steps of the drive."""
+    L = len(sizes) - 1
+    q = [0] + [_wide_slice(n) for n in sizes[1:-1]]
+    n = WIDE_OPS_WORDS
+    for li, (a, b) in enumerate(zip(sizes[:-1], sizes[1:])):
+        if li == 0:
+            n += (a + 1) * _round4(b)
+        elif li == L - 1:
+            n += (q[li] + 1) * _round4(b)
+        else:
+            n += (a + 1) * q[li + 1]
+    hfull = _round4(max(sizes[1:max(2, L - 1)]))
+    qmax = max(q[2:L], default=0)
+    D4 = _round4(sizes[-1])
+    du = sizes[0] - sizes[-1]
+    act = twins_per_block * (_round4(sizes[0]) + hfull + 2 * qmax + 4 * D4)
+    return 4 * (n + act + _round4((2 * time_chunk + 1) * du
+                                  * twins_per_block))
+
+
+def _wide_threads(sizes: Sequence[int], rt: int) -> int:
+    """Threads of a wide CTA: every product's lanes for each of its ``rt``
+    twins (so each product gives a twin its own lanes), whole warps, at
+    most ``MAX_THREADS``."""
+    L = len(sizes) - 1
+    q = [0] + [_wide_slice(n) for n in sizes[1:-1]]
+    lanes = _matvec_lanes(sizes[0], sizes[1])
+    for rank in range(WIDE_CLUSTER):
+        for li in range(1, L):
+            if li < L - 1:
+                n_red = sizes[li]
+                n_out = _wide_count(sizes[li + 1], q[li + 1], rank)
+            else:
+                n_red = _wide_count(sizes[li], q[li], rank)
+                n_out = sizes[-1]
+            if n_out:
+                lanes = max(lanes, _matvec_lanes(n_red, n_out))
+    return min(MAX_THREADS, max(32, rt * lanes))
+
+
+def wide_geometry(B: int, sizes: Sequence[int], *,
+                  twins_per_block: int | None = None,
+                  what: str = "fused kernel") -> Geometry:
+    """The cluster launch of K1w / K4w for ``B`` twins of MLP widths
+    ``sizes``: clusters of ``WIDE_CLUSTER`` CTAs, each cluster owning one
+    twin, or four once ``B / 4`` clusters of CTAs cover the card's SMs; the
+    time chunk halved while a CTA would not fit.  K4w takes the same launch
+    clean and under read noise (the noisy pairs stream into the weights'
+    own buffers).  Raises a ``ValueError`` when the MLP has no hidden
+    layer or one CTA's slices exceed the 227 KB a block may use: the
+    widest square twin it holds is 6->640->640->6 at one twin per cluster
+    (6->512->512->6 needs 150,720 B per CTA at one twin, 158,880 B at
+    four)."""
+    if B < 1:
+        raise ValueError(f"wide_geometry: B={B} twins")
+    cluster = WIDE_CLUSTER
+    if len(sizes) < 3:
+        raise ValueError(
+            f"{what}: MLP {tuple(sizes)} does not fit one block and has no "
+            f"hidden layer for the {cluster}-CTA cluster variant to split")
+    tiles = _tiles(B, twins_per_block, cluster)
+    for rt in tiles:
+        tc = TIME_CHUNK
+        while True:
+            need = wide_smem_bytes(sizes, rt, tc)
+            if need <= SMEM_LIMIT_BYTES:
+                return Geometry(rt, _wide_threads(sizes, rt),
+                                -(-B // rt) * cluster, need, tc, cluster)
+            if tc == 1:
+                break
+            tc //= 2
+    raise ValueError(
+        f"{what}: MLP {tuple(sizes)} needs {need:,} B of shared memory per "
+        f"CTA of the {cluster}-CTA cluster variant ({tiles[-1]} twin(s) per "
+        f"cluster, one time step staged), over the 227 KB "
+        f"({SMEM_LIMIT_BYTES:,} B) per-block limit of sm_90: wider than the "
+        f"cluster variant holds")
 
 
 def pad_fleet_to_tile(y0s: torch.Tensor, uh: torch.Tensor, batch_tile: int):
@@ -298,9 +446,12 @@ def drive_window(u_half: torch.Tensor, start_step: int,
 
 def _launch(y0, u_half, weights, biases, dt, per_twin, T, du, sizes,
             geom: Geometry):
-    """Launch K1 on the current stream at ``geom``; returns (T+1, B, D)
-    float32."""
+    """Launch K1 (K1w for a cluster ``geom``) on the current stream at
+    ``geom``; returns (T+1, B, D) float32."""
     global LAUNCHES
+    if geom.cluster > 1:
+        return _launch_wide(y0, u_half, weights, biases, dt, per_twin, T, du,
+                            sizes, geom)
     from repro_torch.kernels import _build
     fn = _build.load("fused_ode_mlp").k1_fused_node_rollout_f32
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
@@ -330,6 +481,52 @@ def _launch(y0, u_half, weights, biases, dt, per_twin, T, du, sizes,
             f"{geom})")
     LAUNCHES += 1
     return out
+
+
+def _launch_wide(y0, u_half, weights, biases, dt, per_twin, T, du, sizes,
+                 geom: Geometry):
+    """Launch K1w on the current stream at the cluster ``geom``."""
+    global WIDE_LAUNCHES
+    from repro_torch.kernels import _build
+    fn = _build.load("fused_wide").k1w_fused_node_rollout_f32
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] + [ctypes.c_float] * 3
+                   + [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    B, D = y0.shape
+    L = len(weights)
+    out = torch.empty((T + 1, B, D), dtype=torch.float32, device=y0.device)
+    w_ptrs = (ctypes.c_void_p * L)(*[w.data_ptr() for w in weights])
+    b_ptrs = (ctypes.c_void_p * L)(*[b.data_ptr() for b in biases])
+    c_sizes = (ctypes.c_int * (L + 1))(*sizes)
+    u_ptr = u_half.data_ptr() if du > 0 else None
+    u_twin_stride = (2 * T + 1) * du if per_twin else 0
+    dt64 = float(dt)
+    with torch.cuda.device(y0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(y0.data_ptr(), u_ptr, out.data_ptr(),
+                 ctypes.addressof(w_ptrs), ctypes.addressof(b_ptrs),
+                 ctypes.addressof(c_sizes), L, B, T, D, du, u_twin_stride,
+                 dt64, dt64 / 2, dt64 / 6, geom.cluster, geom.twins_per_block,
+                 geom.threads, geom.time_chunk, geom.smem_bytes, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"fused_node_rollout: the wide cluster kernel K1w failed to "
+            f"launch with cudaError_t {err} (B={B}, T={T}, "
+            f"sizes={tuple(sizes)}, {geom})")
+    WIDE_LAUNCHES += 1
+    return out
+
+
+def rollout_work(sizes: Sequence[int], B: int, T: int, u_numel: int):
+    """(FLOP, bytes) of one rollout of ``B`` twins over ``T`` steps: the
+    MLP's products for every twin and RK4 evaluation; y0, the drive and the
+    weights read once, the trajectory written once."""
+    pairs = list(zip(sizes[:-1], sizes[1:]))
+    macs = sum(a * b for a, b in pairs)
+    params = sum(a * b + b for a, b in pairs)
+    return (2.0 * macs * 4 * T * B,
+            4.0 * (B * sizes[-1] + u_numel + params + (T + 1) * B * sizes[-1]))
 
 
 def _rollout_args(y0, u_half, weights, biases):
@@ -377,7 +574,9 @@ def fused_node_rollout(
     (:func:`pad_fleet_to_tile` pads a fleet up to it).  Floating inputs
     are cast to float32; a non-floating input raises a ``ValueError``
     naming it.  CPU tensors take the plain version, CUDA tensors the
-    kernel at :func:`launch_geometry`; any other placement raises.
+    kernel at :func:`launch_geometry` (K1w above one block); any other
+    placement raises.  The call reports its work to
+    :mod:`repro_torch.kernels.work`.
     """
     resolve_precision(precision)
     y0, u_half, per_twin, T, du, sizes = _rollout_args(y0, u_half, weights,
@@ -392,9 +591,12 @@ def fused_node_rollout(
     device, (y0, u_half, *wb) = placed_f32(
         "fused_node_rollout", [y0, u_half, *weights, *biases], L)
     weights, biases = wb[:L], wb[L:]
+    work.report("K1w" if geom.cluster > 1 else "K1",
+                *rollout_work(sizes, B, T, u_half.numel()))
     if device.type == "cpu":
-        return ref.fused_node_rollout_ref(y0, u_half, weights, biases,
-                                          float(dt))
+        with work.uncounted():
+            return ref.fused_node_rollout_ref(y0, u_half, weights, biases,
+                                              float(dt))
     return _launch(y0, u_half, weights, biases, dt, per_twin, T, du, sizes,
                    geom)
 
@@ -405,8 +607,9 @@ def fused_node_rollout_at(geom: Geometry, y0: torch.Tensor,
                           biases: Sequence[torch.Tensor],
                           dt: float) -> torch.Tensor:
     """K1 on CUDA tensors at an explicit ``geom`` (from
-    :func:`launch_geometry`, e.g. with ``twins_per_block=1``): for checks
-    that a trajectory does not depend on the launch geometry."""
+    :func:`launch_geometry`, e.g. with ``twins_per_block=1``; K1w at a
+    cluster geometry from :func:`wide_geometry`): for checks that a
+    trajectory does not depend on the launch geometry."""
     y0, u_half, per_twin, T, du, sizes = _rollout_args(y0, u_half, weights,
                                                        biases)
     L = len(weights)

@@ -245,13 +245,30 @@ def test_launch_geometry_is_k1s_with_a_second_weight_block(
 
 @pytest.mark.parametrize("noisy", [False, True])
 def test_launch_geometry_refuses_the_512_width(noisy):
+    """The resident K4 still refuses 6->512->512->6 (check_smem_fit); the
+    launch is now K4w's cluster geometry, K1w's, clean and under read
+    noise (the noisy pairs stream into the weights' own buffers), at the
+    scorecard's single twin and at the fleet, and the rollout runs (on the
+    CPU the plain version)."""
+    sizes = (6, 512, 512, 6)
     with pytest.raises(ValueError, match="227 KB"):
-        tk4.launch_geometry(1024, (6, 512, 512, 6), noisy)
-    _, tst = staged_arrays((6, 512, 512, 6), "float")
-    with pytest.raises(ValueError, match="fused_analogue_rollout.*227 KB"):
-        tk4.fused_analogue_rollout(
-            tst["gps"], tst["gms"], tst["scales"], torch.zeros((4, 6)),
-            torch.zeros((3, 0)), 0.01, read_noise=0.02 if noisy else 0.0)
+        tk4.check_smem_fit(sizes, noisy)
+    for B in (1, 1024):
+        geom = tk4.launch_geometry(B, sizes, noisy)
+        assert geom == tk1.wide_geometry(B, sizes)
+        assert geom.cluster == tk1.WIDE_CLUSTER
+        assert geom.smem_bytes <= tk1.SMEM_LIMIT_BYTES
+    assert tk4.launch_geometry(1024, sizes, noisy).twins_per_block == 4
+    _, tst = staged_arrays(sizes, "float")
+    y0 = 0.1 * torch.ones((4, 6))
+    kw = dict(read_noise=0.02 if noisy else 0.0, g_min=G_MIN, g_max=G_MAX)
+    got = tk4.fused_analogue_rollout(
+        tst["gps"], tst["gms"], tst["scales"], y0, torch.zeros((3, 0)), 0.01,
+        **kw)
+    assert got.shape == (2, 4, 6) and bool(torch.isfinite(got).all())
+    assert torch.equal(got, tref.fused_analogue_rollout_ref(
+        tst["gps"], tst["gms"], tst["scales"], y0, torch.zeros((3, 0)),
+        0.01, fault=dict(tk4.FAULT_DEFAULTS), **kw))
 
 
 def test_noise_chunk_rule(monkeypatch):

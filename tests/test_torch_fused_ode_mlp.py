@@ -239,17 +239,23 @@ def test_shared_memory_fit_check():
     assert need == tk.smem_bytes((6, 64, 64, 6)) == 4 * (
         128 + weights + (2 * 8 + 2 * 64 + 2 * 8))
     assert need < 48 * 1024
-    # the scorecard's 6->512->512->6 (~1.07 MB of weights) cannot stay resident
+    # the scorecard's 6->512->512->6 (~1.07 MB of weights) cannot stay
+    # resident in one block ...
     with pytest.raises(ValueError, match="227 KB"):
         tk.check_smem_fit((6, 512, 512, 6))
+    # ... so the rollout takes the wide cluster kernel K1w's launch (on the
+    # CPU its plain version, the same function)
     rng = np.random.default_rng(0)
     sizes = (6, 512, 512, 6)
-    ws = [t(rng.standard_normal((a, b)).astype(np.float32))
+    ws = [t((rng.standard_normal((a, b)) / np.sqrt(a)).astype(np.float32))
           for a, b in zip(sizes[:-1], sizes[1:])]
     bs = [torch.zeros(b) for b in sizes[1:]]
-    with pytest.raises(ValueError, match="227 KB"):
-        tk.fused_node_rollout(torch.zeros(2, 6), torch.zeros(3, 0), ws, bs,
-                              0.01)
+    y0 = t(rng.standard_normal((2, 6)).astype(np.float32))
+    assert tk.launch_geometry(2, sizes).cluster == tk.WIDE_CLUSTER
+    got = tk.fused_node_rollout(y0, torch.zeros(3, 0), ws, bs, 0.01)
+    assert got.shape == (2, 2, 6)
+    assert torch.equal(got, tref.fused_node_rollout_ref(
+        y0, torch.zeros(3, 0), ws, bs, 0.01))
 
 
 #: (B, sizes) of every K1 launch on the main paths: the Lorenz96 fleet
@@ -313,8 +319,77 @@ def test_widest_widths_stay_accepted(sizes, backward):
 
 @pytest.mark.parametrize("backward", [False, True])
 def test_scorecard_width_is_still_refused(backward):
+    """The resident design still refuses 6->512->512->6; the forward (K1)
+    now takes the wide cluster launch of K1w instead, while K2, whose
+    weights and transposes stay resident, keeps its refusal."""
+    sizes = (6, 512, 512, 6)
+    if backward:
+        with pytest.raises(ValueError, match="227 KB"):
+            tk.launch_geometry(1024, sizes, backward=True)
+        return
+    geom = tk.launch_geometry(1024, sizes)
+    assert (geom.cluster, geom.twins_per_block, geom.blocks) == (
+        tk.WIDE_CLUSTER, 4, 256 * tk.WIDE_CLUSTER)
+    assert geom.smem_bytes <= tk.SMEM_LIMIT_BYTES
+
+
+#: The wide launch at the scorecard width: (B, twins per cluster, threads,
+#: shared bytes per CTA).  A CTA holds W1 (7 x 512), its 513 x 64 slice
+#: of W2, its 65 x 8 rows of W3 (with W3's bias) behind the 64-word
+#: product table; per twin the stage input (8), h_1 (512), two h_2 slices
+#: (2 x 64), the partials of two stages, the state and the RK4 sum (4 x 8).
+WIDE_512 = [(1, 1, 128, 4 * (64 + 3584 + 32832 + 520 + 680)),
+            (1024, 4, 512, 4 * (64 + 3584 + 32832 + 520 + 4 * 680))]
+
+
+@pytest.mark.parametrize("B,twins,threads,smem", WIDE_512)
+def test_wide_geometry_at_the_scorecard_width(B, twins, threads, smem):
+    geom = tk.launch_geometry(B, (6, 512, 512, 6))
+    assert geom == tk.wide_geometry(B, (6, 512, 512, 6))
+    assert geom.cluster == tk.WIDE_CLUSTER == 8
+    assert geom.twins_per_block == twins
+    assert geom.blocks == -(-B // twins) * geom.cluster
+    assert geom.threads == threads
+    assert geom.smem_bytes == smem == tk.wide_smem_bytes(
+        (6, 512, 512, 6), twins) <= tk.SMEM_LIMIT_BYTES
+
+
+@pytest.mark.parametrize("sizes", [(6, 256, 256, 6), (2, 512, 512, 1),
+                                   (6, 640, 640, 6)])
+def test_wider_than_a_block_takes_the_cluster_variant(sizes):
+    """Lorenz96's 256 width of ``lorenz96_projection``, the HP twin at the
+    scorecard width and the widest square twin the variant holds: over
+    one block, so check_smem_fit refuses them, and the forward launches
+    on clusters while K2 refuses."""
     with pytest.raises(ValueError, match="227 KB"):
-        tk.launch_geometry(1024, (6, 512, 512, 6), backward=backward)
+        tk.check_smem_fit(sizes)
+    for B in (1, 1024):
+        geom = tk.launch_geometry(B, sizes)
+        assert geom.cluster == tk.WIDE_CLUSTER
+        assert geom.smem_bytes <= tk.SMEM_LIMIT_BYTES
+    with pytest.raises(ValueError, match="227 KB"):
+        tk.launch_geometry(1, sizes, backward=True)
+
+
+@pytest.mark.parametrize("sizes", [(6, 656, 656, 6), (6, 512, 512, 512, 6),
+                                   (60000, 2)])
+def test_wide_variant_refuses_above_its_widest_width(sizes):
+    with pytest.raises(ValueError, match="cluster variant"):
+        tk.launch_geometry(1, sizes)
+
+
+def test_forced_wide_geometry_at_the_twins_width():
+    """The cluster variant also takes widths that fit one block, as the
+    card's check of K1w against the resident K1 forces it."""
+    geom = tk.wide_geometry(1024, (6, 64, 64, 6), twins_per_block=1)
+    assert (geom.cluster, geom.twins_per_block, geom.blocks) == (8, 1, 8192)
+    assert geom.threads == 32
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        tk.fused_node_rollout_at(geom, torch.zeros(2, 6), torch.zeros(3, 0),
+                                 [torch.zeros(6, 64), torch.zeros(64, 64),
+                                  torch.zeros(64, 6)],
+                                 [torch.zeros(64), torch.zeros(64),
+                                  torch.zeros(6)], 0.01)
 
 
 def test_forced_geometry_and_sum_split():
@@ -377,7 +452,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert _build.sources() == ["counter_noise", "crossbar_vmm",
                                 "flash_attention", "fused_analogue",
                                 "fused_ode_mlp", "fused_ode_mlp_bwd",
-                                "softdtw", "ssm_scan"]
+                                "fused_wide", "softdtw", "ssm_scan"]
 
 
 def test_library_path_follows_the_source(monkeypatch, tmp_path):
