@@ -270,8 +270,31 @@ result line:
    forced at 6->64->64->6 over 1800 steps beside them), and the
    1800-step rollout's wall ms on ``fused_cuda``, ``analogue_fused_cuda``,
    ``analogue`` and ``digital``.
+24. P11, the paper's comparisons and the adaptive solver on the card:
+   (a) phase 7's HP twin rebuilt with ``method="dopri5"`` on ``digital``
+   and on the noise-free crossbar simulator over the first 100
+   intervals of its sine grid (JAX's gate: atol 5e-4, rtol 1e-4), the
+   digital result within 1e-3 of the peak of RK4 at 8 sub-steps, and
+   ``fused_cuda`` refusing dopri5 for a rollout and for ``train_twin``,
+   naming RK4; (b) P3's deployment (uint8 ``AnalogueBackend``,
+   6->512->512->6, 1024 twins over 50 intervals) under dopri5 with the
+   K7 counts zeroed just before: K7's GEMM and read pass each launched
+   exactly 7 times per iteration of the adaptive loop (its iterations
+   and the accepted and rejected steps per twin printed), the result
+   within 1e-4 of the peak of the same run on K7's plain version (both
+   runs' iterations printed); a noisy HP fleet of 8 twins under dopri5
+   over 15 intervals, each row within 1e-6 of the peak of its own
+   single-twin noisy rollout; (c) Fig. 3j:
+   ``train_hp_resnet(train_steps=250)`` through the training engines
+   (graphs captured and replayed, ms a step), ``eval_hp_resnet`` on the
+   four drives beside phase 7's ``eval_hp_twin``: the NODE's mean MRE
+   under half the ResNet's; (d) Fig. 4g: ``eval_l96_baseline`` for the
+   LSTM, GRU and RNN at ``P11_L96_STEPS`` steps on phase 7's Lorenz96
+   data, a finite falling loss history each, interpolation and
+   extrapolation L1 printed beside phase 7's ``eval_l96_twin`` (not
+   gated), ms a step; the phase's wall time.
 
-Training (phases 7, 12, 15, 16 and 22) runs through the training engines
+Training (phases 7, 12, 15, 16, 22 and 24) runs through the training engines
 by default, as the JAX package's does through its scan engine: on the
 card every step is a replay of a CUDA graph, and the engines add what a
 graph launches to the kernels' launch counters at every replay (its
@@ -307,7 +330,7 @@ from repro_torch.configs.lorenz96_twin import CONFIG as L96_CONFIG  # noqa: E402
 from repro_torch.core.analogue import (AnalogueSpec,  # noqa: E402
                                        drift_from_calibration,
                                        spec_from_calibration)
-from repro_torch.core import scorecard  # noqa: E402
+from repro_torch.core import ode, scorecard  # noqa: E402
 from repro_torch.core.backends import (AnalogueBackend, DigitalBackend,  # noqa: E402
                                        FusedAnalogueCudaBackend,
                                        FusedCudaBackend, resolve_backend,
@@ -3119,6 +3142,304 @@ def _p10(dev, smi, wide_params, y0_wide, ts_wide, p3, zero_counts,
             "barrier_cycles": cyc}
 
 
+# -- phase 24: P11, the paper's comparisons and dopri5 on the card (K7) ------
+
+#: JAX's analogue dopri5 gate (``tests/test_backends.py:242``).
+P11_ATOL, P11_RTOL = 5e-4, 1e-4
+#: digital dopri5 against RK4 at 8 sub-steps, of the peak.
+P11_RK4_TOL = 1e-3
+#: the HP twin's dopri5 runs: the first intervals of its evaluation grid
+#: (one host sync per adaptive step, ~3 ms of host each on the card).
+P11_HP_INTERVALS = 100
+#: the noisy HP fleet: twins, and the intervals of the HP grid it runs.
+P11_NOISY_TWINS = 8
+P11_NOISY_INTERVALS = 15
+#: a row of the noisy fleet against its single-twin rollout, of the peak.
+P11_SELF_TOL = 1e-6
+#: Fig. 3j: the JAX test's budget.
+P11_RESNET_STEPS = 250
+#: Fig. 4g: each cell's steps here (the recipe's default is 2500): a
+#: multiple of the engines' unroll of 8, so one graph is captured.
+P11_L96_STEPS = 64
+P11_WAVEFORMS = ("sine", "triangular", "rectangular", "modulated_sine")
+
+
+def p11_paths(dev, smi, twin, params, l96_twin, l96_params, l96_data,
+              wide_params, y0_wide, ts_wide, p3, zero_counts,
+              read_counts) -> dict:
+    """Phase 24 (P11): dopri5 on the twins (phase 7's HP twin on digital
+    and on the noise-free simulator, JAX's gate; fused_cuda refusing it),
+    dopri5 through K7 at P3's deployment (K7 exactly 7 launches per loop
+    iteration, against K7's plain version), a noisy HP fleet under dopri5
+    against its single twins; then the paper's baselines trained on the
+    card through the training engines: the recurrent ResNet against the
+    HP twin (Fig. 3j's gate) and the LSTM / GRU / RNN forecasters beside
+    the Lorenz96 twin (Fig. 4g).  Returns the main paths' launch counts
+    and the numbers printed."""
+    t_phase = time.perf_counter()
+    out, counts = {}, {}
+    real_dopri5 = ode.odeint_dopri5
+    runs = []
+
+    def counted_dopri5(*a, **kw):
+        stats = {}
+        res = real_dopri5(*a, **kw, stats=stats)
+        runs.append(stats)
+        return res
+
+    def solve(fn):
+        """fn() with dopri5's loop statistics recorded; returns its result,
+        the last solve's statistics and the host seconds to a sync."""
+        runs.clear()
+        ode.odeint_dopri5 = counted_dopri5
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                res = fn()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        finally:
+            ode.odeint_dopri5 = real_dopri5
+        check(len(runs) == 1, f"P11: expected one dopri5 solve, got "
+                              f"{len(runs)}")
+        return res, runs[-1], sec
+
+    def steps_str(st):
+        acc = st["accepted"].reshape(-1).double().cpu()
+        rej = st["rejected"].reshape(-1).double().cpu()
+        return (f"{st['iterations']} loop iterations; accepted steps per "
+                f"twin min/median/max {acc.min():g}/{acc.median():g}/"
+                f"{acc.max():g}, rejected {rej.min():g}/{rej.median():g}/"
+                f"{rej.max():g}")
+
+    # (a) dopri5 on the twins: phase 7's HP twin on digital and on the
+    # noise-free crossbar simulator
+    m = recipes.eval_hp_twin(twin, params, "sine", device=dev)
+    ts_hp, y0_hp = m["ts"][:P11_HP_INTERVALS + 1], m["true"][:1]
+    drive = hp.WAVEFORMS["sine"](amp=recipes.HP_AMP, freq=recipes.HP_FREQ)
+    twin5 = make_driven_twin(1, drive, hidden=14, method="dopri5")
+    zero_counts()
+    dig5, st_d, sec_d = solve(lambda: twin5.simulate(params, y0_hp, ts_hp))
+    noise_free = AnalogueSpec(prog_noise=0.0, read_noise=0.0, quantize=False)
+    ana5, st_a, sec_a = solve(lambda: twin5.with_backend(AnalogueBackend(
+        spec=noise_free, prog_seed=SEED)).simulate(params, y0_hp, ts_hp))
+    counts["P11_hp_dopri5"] = read_counts(
+        "P11 HP twin dopri5 on digital and the noise-free simulator",
+        {"K1": 0, "K4": 0, "K7": 0})
+    with torch.no_grad():
+        rk8 = make_driven_twin(1, drive, hidden=14,
+                               steps_per_interval=8).simulate(params, y0_hp,
+                                                              ts_hp)
+    torch.cuda.synchronize()
+    gap = float(((ana5 - dig5).abs()
+                 - (P11_ATOL + P11_RTOL * dig5.abs())).max())
+    rk_err = rel_err(dig5, rk8)
+    for name, st, sec in (("digital", st_d, sec_d), ("analogue", st_a, sec_a)):
+        print(f"[{smi}] P11 HP twin dopri5 on {name}: {tuple(dig5.shape)} in "
+              f"{sec:.3f} s, {steps_str(st)}")
+    print(f"P11 HP dopri5: noise-free analogue vs digital max abs err "
+          f"{float((ana5 - dig5).abs().max()):.3e} (gate atol {P11_ATOL:g}, "
+          f"rtol {P11_RTOL:g}: worst margin {gap:.3e}); digital dopri5 vs "
+          f"RK4 at 8 sub-steps of peak {rk_err[1]:.3e} (limit "
+          f"{P11_RK4_TOL:g})")
+    check(bool(torch.isfinite(dig5).all()) and gap <= 0.0,
+          "P11: dopri5 on the noise-free simulator misses JAX's gate")
+    check(rk_err[1] <= P11_RK4_TOL, "P11: dopri5 disagrees with RK4")
+    for what, call in (
+            ("rollout", lambda: twin5.with_backend("fused_cuda").simulate(
+                params, y0_hp, ts_hp)),
+            ("train_twin", lambda: trainer.train_twin(
+                twin5, params, ts_hp,
+                m["true"][:P11_HP_INTERVALS + 1, None],
+                optimizer=adam(1e-3), num_steps=1, segment_len=50,
+                backend="fused_cuda"))):
+        try:
+            call()
+        except ValueError as e:
+            print(f"P11 fused_cuda {what} of a dopri5 twin refused: {e}")
+            check("RK4" in str(e), f"P11: fused_cuda {what} refusal does "
+                                   f"not name RK4")
+        else:
+            check(False, f"P11: fused_cuda {what} took a dopri5 twin")
+    out["hp"] = dict(iterations=st_d["iterations"], seconds=sec_d,
+                     analogue_seconds=sec_a, vs_rk4_of_peak=rk_err[1])
+
+    # (b) dopri5 through K7: P3's deployment, 1024 twins over 50 intervals
+    wide5 = make_autonomous_twin(6, hidden=512, method="dopri5")
+    fleet5 = TwinFleet(wide5.with_backend(AnalogueBackend(
+        spec=AnalogueSpec(prog_noise=0.0), storage="uint8", prog_seed=SEED)))
+    zero_counts()
+    k7run, st_k, sec_k = solve(lambda: fleet5.rollout_batch(
+        wide_params, y0_wide, ts_wide))
+    it = st_k["iterations"]
+    counts["P11_dopri5_scorecard_width"] = read_counts(
+        f"P11 dopri5 AnalogueBackend(uint8) 6->512->512->6, 1024 twins x 50 "
+        f"intervals, {it} loop iterations",
+        {"K7": 7 * it, "K7_read": 7 * it, "K4": 0, "K1": 0})
+    real_k7 = crossbar_vmm.crossbar_matmul
+    crossbar_vmm.crossbar_matmul = (
+        lambda x, gp, gm, **kw: ref.crossbar_matmul_ref(x, gp, gm, **kw))
+    try:
+        plain, st_p, sec_p = solve(lambda: fleet5.rollout_batch(
+            wide_params, y0_wide, ts_wide))
+    finally:
+        crossbar_vmm.crossbar_matmul = real_k7
+    check(bool(torch.isfinite(k7run).all())
+          and tuple(k7run.shape) == (1024, 51, 6),
+          f"P11: dopri5 on K7 {tuple(k7run.shape)} non-finite or misshapen")
+    k7_err = rel_err(k7run, plain)
+    rk4_gap = rel_err(k7run, p3)
+    print(f"[{smi}] P11 dopri5 through K7: {tuple(k7run.shape)} in "
+          f"{sec_k:.3f} s ({1e3 * sec_k / it:.3f} ms a loop iteration of 7 "
+          f"evaluations), {steps_str(st_k)}; with K7's plain version "
+          f"{sec_p:.3f} s, {st_p['iterations']} iterations; vs the plain "
+          f"run max abs err {k7_err[0]:.3e}, of peak {k7_err[1]:.3e} (limit "
+          f"{TOL:g}); vs P3's RK4 run of peak {rk4_gap[1]:.3e} (printed, not "
+          f"gated)")
+    check(k7_err[1] <= TOL, "P11: dopri5 on K7 disagrees with its plain path")
+    out["k7"] = dict(iterations=it, plain_iterations=st_p["iterations"],
+                     seconds=sec_k, plain_seconds=sec_p,
+                     max_rel_err_of_peak=k7_err[1],
+                     accepted=[int(st_k["accepted"].min()),
+                               int(st_k["accepted"].max())],
+                     rejected=[int(st_k["rejected"].min()),
+                               int(st_k["rejected"].max())])
+
+    # a noisy HP fleet under dopri5: rows at different ticks in one
+    # evaluation, each row against its own single-twin noisy rollout
+    noisy = twin5.with_backend(AnalogueBackend(
+        spec=AnalogueSpec(prog_noise=0.0436, read_noise=0.02),
+        prog_seed=SEED, read_seed=1))
+    ts_n = ts_hp[:P11_NOISY_INTERVALS + 1]
+    y0s = torch.linspace(0.05, 0.8, P11_NOISY_TWINS, device=dev)[:, None]
+    zero_counts()
+    fleet_n, st_n, sec_n = solve(lambda: noisy.simulate_batch(params, y0s,
+                                                              ts_n))
+    worst, t_one = 0.0, time.perf_counter()
+    for i in range(P11_NOISY_TWINS):
+        with torch.no_grad():
+            one = noisy.simulate(params, y0s[i], ts_n)
+        worst = max(worst, rel_err(fleet_n[i], one)[1])
+    t_one = time.perf_counter() - t_one
+    counts["P11_noisy_hp_fleet"] = read_counts(
+        "P11 noisy HP fleet dopri5 on the simulator", {"K7": 0, "K4": 0})
+    print(f"[{smi}] P11 noisy HP fleet dopri5 ({P11_NOISY_TWINS} twins x "
+          f"{P11_NOISY_INTERVALS} intervals): {sec_n:.3f} s, "
+          f"{steps_str(st_n)}; the {P11_NOISY_TWINS} single-twin rollouts "
+          f"{t_one:.3f} s; worst row vs its single twin of peak {worst:.3e} "
+          f"(limit {P11_SELF_TOL:g})")
+    check(bool(torch.isfinite(fleet_n).all()) and worst <= P11_SELF_TOL,
+          "P11: a noisy dopri5 fleet row differs from its single twin")
+    out["noisy_fleet"] = dict(iterations=st_n["iterations"], seconds=sec_n,
+                              worst_of_peak=worst)
+
+    # the baselines train through the engines: their graphs, captured and
+    # replayed, and their loss histories
+    engines, hists = [], []
+    real_engine = trainer.make_scan_engine
+    real_fit = trainer.fit
+
+    def spy_engine(*a, **kw):
+        fn = real_engine(*a, **kw)
+        engines.append(fn.engine)
+        return fn
+
+    def spy_fit(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real_fit(*a, **kw)
+        torch.cuda.synchronize()
+        hists.append((res[1], time.perf_counter() - t0))
+        return res
+
+    def train(fn, steps):
+        """fn() (a recipe) with its one fit spied on: the result, the
+        engine, the loss history and ms a step of the fit (warm-up and
+        capture included)."""
+        engines.clear()
+        hists.clear()
+        trainer.make_scan_engine, trainer.fit = spy_engine, spy_fit
+        try:
+            res = fn()
+        finally:
+            trainer.make_scan_engine, trainer.fit = real_engine, real_fit
+        check(len(engines) == 1 and len(hists) == 1,
+              f"P11: expected one engine, got {len(engines)}")
+        eng, (hist, sec) = engines[0], hists[0]
+        hist = hist.cpu()
+        check(eng.captures >= 1 and eng.replays >= 1,
+              f"P11: {eng.captures} graphs captured, {eng.replays} replayed")
+        check(bool(torch.isfinite(hist).all()) and hist[-1] < hist[0],
+              f"P11: loss history {float(hist[0])} -> {float(hist[-1])} is "
+              f"not finite and falling")
+        return res, eng, hist, 1e3 * sec / steps
+
+    def replay_ms(eng):
+        """ms a step of replays of the engine's longest graph alone (they
+        train on: call it once the trained params are used)."""
+        u = max(eng.blocks)
+        return cuda_ms(lambda: eng.run(u), reps=2, warmup=1) / u
+
+    # (c) Fig. 3j: the recurrent ResNet against the HP twin of phase 7
+    (resnet, rparams, rloss), eng, hist, ms = train(
+        lambda: recipes.train_hp_resnet(train_steps=P11_RESNET_STEPS,
+                                        device=dev), P11_RESNET_STEPS)
+    rparams = [{k: v.clone() for k, v in layer.items()} for layer in rparams]
+    node_mre, res_mre = [], []
+    for wf in P11_WAVEFORMS:
+        node_mre.append(recipes.eval_hp_twin(twin, params, wf,
+                                             device=dev)["mre"])
+        r = recipes.eval_hp_resnet(resnet, rparams, wf, device=dev)
+        res_mre.append(r["mre"])
+        print(f"  Fig. 3j {wf:15s} NODE MRE {node_mre[-1]:.4f}, recurrent "
+              f"ResNet MRE {r['mre']:.4f} (DTW/pt {r['dtw']:.6f})")
+    node_mean, res_mean = sum(node_mre) / 4, sum(res_mre) / 4
+    steady = replay_ms(eng)
+    print(f"[{smi}] P11 train_hp_resnet({P11_RESNET_STEPS}) on {dev}: loss "
+          f"{float(hist[0]):.6f} -> {rloss:.6f}; graphs captured "
+          f"{eng.captures} (lengths {sorted(eng.blocks)}), replayed "
+          f"{eng.replays}; {ms:.4f} ms a step with warm-up and capture, "
+          f"{steady:.4f} a step replayed; mean MRE NODE {node_mean:.4f}, "
+          f"ResNet {res_mean:.4f} (gate: NODE < 0.5 x ResNet, ratio "
+          f"{node_mean / res_mean:.3f})")
+    check(node_mean < 0.5 * res_mean, "P11: Fig. 3j gate: the NODE's mean "
+                                      "MRE is not under half the ResNet's")
+    out["fig3j"] = dict(node_mre=node_mre, resnet_mre=res_mre,
+                        ms_per_step=ms, replay_ms_per_step=steady,
+                        captures=eng.captures, replays=eng.replays)
+
+    # (d) Fig. 4g: the recurrent forecasters beside the Lorenz96 twin
+    twin_l1 = recipes.eval_l96_twin(l96_twin, l96_params, data=l96_data)
+    print(f"  Fig. 4g NODE (phase 7's Lorenz96 twin): interpolation L1 "
+          f"{twin_l1['interp_l1']:.4f}, extrapolation L1 "
+          f"{twin_l1['extrap_l1']:.4f}")
+    out["fig4g"] = {"node": {k: twin_l1[k] for k in ("interp_l1",
+                                                     "extrap_l1")}}
+    for cell in ("lstm", "gru", "rnn"):
+        res, eng, hist, ms = train(
+            lambda: recipes.eval_l96_baseline(
+                cell, train_steps=P11_L96_STEPS, data=l96_data, device=dev),
+            P11_L96_STEPS)
+        steady = replay_ms(eng)
+        print(f"[{smi}] P11 eval_l96_baseline({cell!r}, {P11_L96_STEPS} "
+              f"steps) on {dev}: loss {float(hist[0]):.6f} -> "
+              f"{float(hist[-1]):.6f}; interpolation L1 "
+              f"{res['interp_l1']:.4f}, extrapolation L1 "
+              f"{res['extrap_l1']:.4f} (printed, not gated); graphs "
+              f"captured {eng.captures}, replayed {eng.replays}; {ms:.4f} ms "
+              f"a step with warm-up and capture, {steady:.4f} a step "
+              f"replayed")
+        out["fig4g"][cell] = dict(res, ms_per_step=ms,
+                                  replay_ms_per_step=steady,
+                                  loss_first=float(hist[0]),
+                                  loss_last=float(hist[-1]))
+    sec = time.perf_counter() - t_phase
+    print(f"[{smi}] phase 24 took {sec:.1f} s")
+    out["seconds"] = sec
+    return {"counts": counts, "numbers": out}
+
+
 def main() -> int:
     # -- 1. environment ----------------------------------------------------
     if not torch.cuda.is_available():
@@ -4310,6 +4631,12 @@ def main() -> int:
                         zero_counts, read_counts)
     path_counts.update(p10["counts"])
 
+    # -- 24. P11: dopri5 (K7) and the paper's baselines (the engines) ---------
+    p11 = p11_paths(dev, smi, twin, params, l96_twin, l96_params, data,
+                    wide_params, y0_wide, ts_wide, p3, zero_counts,
+                    read_counts)
+    path_counts.update(p11["counts"])
+
     k1_paths = {"serve_fleet": launches, "train_hp_twin": hp_counts[0],
                 "hp_40_steps_fused_cuda": hp40_counts["fused_cuda"][0],
                 "train_l96_twin": l96_counts[0],
@@ -4483,6 +4810,7 @@ def main() -> int:
         "noisy_read_pass_ms": k7r_ms,
         "noisy_bound_ms": k7n_bound,
         "read_launches": sum(by_path("K7_read").values()),
+        "dopri5_P11": p11["numbers"]["k7"],
         "sass_hmma": sum(n for fn, n in hmma["crossbar_vmm"].items()
                          if "k7_gemm_kernel" in fn),
     }, *[{

@@ -31,6 +31,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.faults import ConductanceDrift, pin_stuck, stuck_masks_of
@@ -423,22 +424,23 @@ def analogue_mlp_apply(progs: list, x: torch.Tensor, spec: AnalogueSpec,
     return x
 
 
-def _read_generator(read_seed: int, t) -> torch.Generator:
-    """The read-noise generator of one evaluation at time ``t``: seeded from
-    ``read_seed`` and the time stamp at 1 ns resolution (the JAX package
-    folds the same tick into its read key), so read noise is i.i.d. per
-    evaluation and replays from the seed.  ``t`` is one time (a scalar, or
-    equal entries).  The tick is read on the host, so with ``t`` on a card
-    every noisy evaluation synchronises once, and its normals are drawn on
-    the CPU and copied over (a known cost of the simulator's noisy path,
-    ROADMAP.md queue 3; the fused backend draws in-kernel)."""
-    t = torch.as_tensor(t, dtype=F32).detach().reshape(-1)
-    if t.numel() > 1 and not bool((t == t[0]).all()):
-        raise ValueError(
-            "analogue read noise: one evaluation must share one time stamp, "
-            f"got {t.numel()} different times")
-    tick = torch.remainder(torch.abs(t[:1].cpu()) * 1e6,
+def _read_ticks(t) -> np.ndarray:
+    """The 1 ns ticks of the time stamps ``t`` (a scalar or one per row),
+    as int64 on the host: the tick the JAX package folds into each
+    evaluation's read key.  Read on the host, so with ``t`` on a card
+    every noisy evaluation synchronises once."""
+    t = torch.as_tensor(t, dtype=F32).detach().reshape(-1).cpu()
+    tick = torch.remainder(torch.abs(t) * 1e6,
                            torch.tensor(2 ** 31 - 1, dtype=F32))
+    return tick.to(torch.int64).numpy()
+
+
+def _read_generator(read_seed: int, tick: int) -> torch.Generator:
+    """The read-noise generator of the evaluations at one tick: seeded from
+    ``read_seed`` and the tick, so read noise is i.i.d. per evaluation time
+    and replays from the seed.  Its normals are drawn on the CPU and copied
+    to the reads' device (a known cost of the simulator's noisy path,
+    ROADMAP.md queue 3; the fused backend draws in-kernel)."""
     seed = (int(read_seed) * 0x9E37_79B9_7F4A_7C15 + int(tick)) % (2 ** 63)
     return torch.Generator().manual_seed(seed)
 
@@ -447,7 +449,14 @@ def _read_generator(read_seed: int, t) -> torch.Generator:
 class AnalogueMLPVectorField:
     """Analogue-deployed counterpart of ``MLPVectorField``: wraps the
     programmed crossbars; read noise is re-drawn per evaluation from
-    ``read_seed`` and the time stamp (None = noise-free reads)."""
+    ``read_seed`` and the time stamp's tick (None = noise-free reads).
+
+    An (N, D) state evaluated at an (N,) time (a dopri5 fleet, per-row
+    grids) reads each group of rows that shares a tick through that tick's
+    draw, as the JAX package's vmapped field folds each twin's own tick
+    into its key: a row's noise depends only on ``(read_seed, its tick)``,
+    so rows at equal ticks read the same noise and a fleet reads as its
+    rows would alone."""
     progs: tuple
     spec: AnalogueSpec
     drive: Optional[Any] = None
@@ -456,10 +465,29 @@ class AnalogueMLPVectorField:
     def __call__(self, t, y, params=None):
         del params  # weights live in the (frozen) crossbar programs
         inp = field_input(self.drive, t, y)
-        gen = None
-        if self.read_seed is not None and self.spec.read_noise > 0:
-            gen = _read_generator(self.read_seed, t)
-        return analogue_mlp_apply(list(self.progs), inp, self.spec, gen)
+        progs = list(self.progs)
+        if self.read_seed is None or self.spec.read_noise <= 0:
+            return analogue_mlp_apply(progs, inp, self.spec, None)
+        ticks = _read_ticks(t)
+        if (ticks == ticks[0]).all():
+            return analogue_mlp_apply(
+                progs, inp, self.spec,
+                _read_generator(self.read_seed, ticks[0]))
+        if ticks.shape[0] != inp.shape[0] or inp.ndim != 2:
+            raise ValueError(
+                f"analogue read noise: {ticks.shape[0]} time stamps for an "
+                f"input of shape {tuple(inp.shape)}; per-row times need an "
+                f"(N, D) state with one time per row")
+        out = None
+        for tick in np.unique(ticks):
+            rows = torch.from_numpy(np.flatnonzero(ticks == tick)).to(
+                inp.device)
+            part = analogue_mlp_apply(progs, inp[rows], self.spec,
+                                      _read_generator(self.read_seed, tick))
+            if out is None:
+                out = part.new_empty((inp.shape[0],) + part.shape[1:])
+            out[rows] = part
+        return out
 
 
 # ---------------------------------------------------------------------------

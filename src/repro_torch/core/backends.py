@@ -22,12 +22,16 @@ in one launch of K4 (:mod:`repro_torch.kernels.fused_analogue`), the
 counterpart of ``FusedAnalogueBackend``.  The fleet axis is a batch
 dimension written out, where JAX vmaps.
 
-Not ported yet (ROADMAP.md, queue 1): ``dopri5`` and mesh sharding.
+The adaptive ``dopri5`` solver runs on the digital backend and on the
+crossbar simulator (one step controller per twin); the fused backends
+integrate RK4 only.  Not ported yet (ROADMAP.md, queue 1 item 11): mesh
+sharding.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, NamedTuple, Optional
+from typing import (Any, Callable, NamedTuple, Optional, Protocol,
+                    runtime_checkable)
 
 import numpy as np
 import torch
@@ -37,7 +41,7 @@ from repro_torch.core.analogue import (AnalogueMLPVectorField, AnalogueSpec,
                                        VerifyConfig, program_mlp,
                                        program_mlp_with_verify, stage_uint8)
 from repro_torch.core.faults import FaultModel, apply_faults_to_mlp
-from repro_torch.core.ode import odeint
+from repro_torch.core.ode import make_odeint
 from repro_torch.kernels.ops import (half_step_times, sample_drive_window,
                                      window_times)
 
@@ -50,6 +54,48 @@ class ExecState(NamedTuple):
     field: Callable          # f(t, y, params) -> dy/dt
     params: Params           # threaded to the field, or None
     extra: Any = None        # backend-private staging (e.g. fused operands)
+
+
+def _solver(method: str, steps_per_interval: int) -> Callable:
+    """The integrator of ``method``: dopri5 chooses its own steps, so it
+    takes no ``steps_per_interval`` (the JAX package ignores it too)."""
+    if method == "dopri5":
+        return make_odeint("dopri5")
+    return make_odeint(method, steps_per_interval=steps_per_interval)
+
+
+@runtime_checkable
+class Backend(Protocol):
+    """Structural type every execution substrate implements.
+
+    Lifecycle: ``program`` once per set of weights, then any number of
+    ``apply`` / ``rollout`` / ``rollout_batch`` calls against the returned
+    :class:`ExecState`.  :class:`BaseBackend` holds the default
+    implementations."""
+
+    name: str
+
+    def program(self, field: Callable, params: Params) -> ExecState:
+        """Deploy ``params`` onto the substrate; returns the programmed
+        state (digital: identity; analogue: conductances written, frozen;
+        fused: float32 operands staged for the kernel)."""
+        ...
+
+    def apply(self, state: ExecState, t, x):
+        """One vector-field evaluation dx/dt = f(t, x) on the substrate."""
+        ...
+
+    def rollout(self, state: ExecState, y0, ts, *, method: str = "rk4",
+                steps_per_interval: int = 1,
+                gradient: str = "direct") -> torch.Tensor:
+        """Solve the IVP from ``y0`` over ``ts`` -> (T+1, D) trajectory."""
+        ...
+
+    def rollout_batch(self, state: ExecState, y0s, ts,
+                      **kw) -> torch.Tensor:
+        """Fleet solve: N initial conditions -> (N, T+1, D) in one
+        program."""
+        ...
 
 
 def uniform_dt(ts, who: str) -> float:
@@ -111,10 +157,11 @@ class BaseBackend:
     def rollout(self, state: ExecState, y0, ts, *, method: str = "rk4",
                 steps_per_interval: int = 1,
                 gradient: str = "direct") -> torch.Tensor:
-        """Default: direct fixed-step odeint over ``apply``."""
+        """Default: direct odeint over ``apply`` (fixed-step, or the
+        adaptive dopri5)."""
         del gradient  # substrate-specific backends decide differentiability
-        return odeint(state.field, y0, ts, state.params, method=method,
-                      steps_per_interval=steps_per_interval)
+        return _solver(method, steps_per_interval)(state.field, y0, ts,
+                                                   state.params)
 
     def rollout_batch(self, state: ExecState, y0s, ts, *,
                       drive_family: Optional[Callable] = None,
@@ -199,22 +246,20 @@ class BaseBackend:
         ``starts[i]`` over ``num_steps`` steps -> (N, num_steps+1, D).
         The streaming server calls it with ``step_offset`` 0, as the JAX
         package's window does.  Each row integrates on its own grid (one
-        ``odeint`` over an (H+1, N) grid, where the JAX package vmaps); a
+        ``odeint`` over an (H+1, N) grid, where the JAX package vmaps;
+        under dopri5 each row also has its own step controller); a
         digital or simulated substrate reads no ``step_offset``, and
         gradients, if any, flow by autograd through the unrolled steps
         (the continuous adjoint takes one shared grid), so ``gradient`` is
         not read either.
         """
         del step_offset, gradient
-        if method == "dopri5":
-            raise NotImplementedError(
-                "dopri5 is not ported yet (ROADMAP.md, queue 1)")
         tss = window_times(t0, dt, int(num_steps), starts, device=ys.device)
         if drive_family is not None:
             state = _with_drive(state, _fleet_drive(drive_family,
                                                     drive_params))
-        out = odeint(state.field, ys, tss.T, state.params, method=method,
-                     steps_per_interval=steps_per_interval)
+        out = _solver(method, steps_per_interval)(state.field, ys, tss.T,
+                                                  state.params)
         return out.transpose(0, 1)
 
 
@@ -225,6 +270,8 @@ class DigitalBackend(BaseBackend):
     ``gradient="direct"`` backpropagates through the unrolled solver with
     autograd; ``"adjoint"`` (the twins' default) integrates the
     continuous adjoint backwards (:func:`repro_torch.core.adjoint.odeint_adjoint`).
+    ``method="dopri5"`` runs the adaptive solver whatever ``gradient``
+    says; its result's backward raises, as in the JAX package.
     """
 
     name = "digital"
@@ -232,14 +279,11 @@ class DigitalBackend(BaseBackend):
     def rollout(self, state: ExecState, y0, ts, *, method: str = "rk4",
                 steps_per_interval: int = 1,
                 gradient: str = "adjoint") -> torch.Tensor:
-        if method == "dopri5":
-            raise NotImplementedError(
-                "dopri5 is not ported yet (ROADMAP.md, queue 1)")
-        if gradient == "adjoint":
+        if gradient == "adjoint" and method != "dopri5":
             return odeint_adjoint(state.field, y0, ts, state.params,
                                   method, steps_per_interval)
-        return odeint(state.field, y0, ts, state.params, method=method,
-                      steps_per_interval=steps_per_interval)
+        return _solver(method, steps_per_interval)(state.field, y0, ts,
+                                                   state.params)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

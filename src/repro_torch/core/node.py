@@ -1,5 +1,6 @@
 """Neural-ODE modules (port of ``repro/core/node.py``).
 
+* ``dense_linear`` — ``x @ w + b``, the affine map of every layer;
 * ``mlp_init`` / ``mlp_apply`` — the small ReLU MLP the paper deploys on
   the memristor crossbars (HP twin: 2->14->14->1; Lorenz96: 6->64->64->6),
   with the JAX package's parameter layout: a list of
@@ -40,10 +41,15 @@ def mlp_init(generator: torch.Generator, sizes: Sequence[int], *,
     return params
 
 
+def dense_linear(w: torch.Tensor, b: torch.Tensor,
+                 x: torch.Tensor) -> torch.Tensor:
+    return x @ w + b
+
+
 def mlp_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
     """ReLU MLP, no activation on the output layer (paper, Methods)."""
     for i, layer in enumerate(params):
-        x = x @ layer["w"] + layer["b"]
+        x = dense_linear(layer["w"], layer["b"], x)
         if i < len(params) - 1:
             x = torch.relu(x)
     return x

@@ -6,16 +6,18 @@ axis) or a tree of tensors (the adjoint's augmented state), and keep the
 JAX package's arithmetic order so results agree to float32 rounding.
 ``odeint`` is a plain Python loop over one time grid, or over one grid per
 row of a fleet state (a resumed fleet's windows, which the JAX package
-vmaps); the adaptive ``dopri5`` solver is not ported yet (ROADMAP queue
-1).
+vmaps).  ``odeint_dopri5`` is the adaptive Dormand-Prince 5(4) solver
+with one step controller per row of a fleet, the arithmetic of the JAX
+package's vmapped ``lax.while_loop``.
 """
 from __future__ import annotations
 
-from typing import Callable, Sequence
+import functools
+from typing import Callable, Optional, Sequence
 
 import torch
 
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 VectorField = Callable[..., torch.Tensor]
 
@@ -112,3 +114,142 @@ def odeint(f: VectorField, y0: torch.Tensor, ts: torch.Tensor, *f_args,
             y = step(field, t0 + j * dt, y, dt, *f_args)
         ys.append(y)
     return torch.stack(ys)
+
+
+# ---------------------------------------------------------------------------
+# Adaptive Dormand-Prince 5(4)
+# ---------------------------------------------------------------------------
+
+# Dopri5 tableau (Python floats: each product rounds the coefficient to the
+# grid's float32 first, as the JAX package's float32 tableau arrays do).
+_DP_C = (0.0, 1 / 5, 3 / 10, 4 / 5, 8 / 9, 1.0, 1.0)
+_DP_A = (
+    (),
+    (1 / 5,),
+    (3 / 40, 9 / 40),
+    (44 / 45, -56 / 15, 32 / 9),
+    (19372 / 6561, -25360 / 2187, 64448 / 6561, -212 / 729),
+    (9017 / 3168, -355 / 33, 46732 / 5247, 49 / 176, -5103 / 18656),
+    (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84),
+)
+_DP_B5 = (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84, 0.0)
+_DP_B4 = (5179 / 57600, 0.0, 7571 / 16695, 393 / 640, -92097 / 339200,
+          187 / 2100, 1 / 40)
+
+
+def _dopri5_step(f: VectorField, t, y, dt, *f_args):
+    """One Dormand-Prince step of a (..., D) state from times ``t`` with
+    steps ``dt`` (both of the state's leading shape, one per row): the
+    fifth-order solution and its difference from the fourth-order one.
+    The zero weights of ``_DP_B5`` are added too, as in the JAX package."""
+    dtc = dt[..., None]
+    ks = []
+    for i in range(7):
+        yi = y
+        for j, a in enumerate(_DP_A[i]):
+            yi = yi + (dtc * a) * ks[j]
+        ks.append(f(t + _DP_C[i] * dt, yi, *f_args))
+    y5 = y4 = y
+    for i in range(7):
+        y5 = y5 + (dtc * _DP_B5[i]) * ks[i]
+        y4 = y4 + (dtc * _DP_B4[i]) * ks[i]
+    return y5, y5 - y4
+
+
+def _error_norm(err, y0, y1, rtol: float, atol: float) -> torch.Tensor:
+    """The RMS of the scaled error over each row's D elements."""
+    scale = atol + rtol * torch.maximum(torch.abs(y0), torch.abs(y1))
+    r = (err / scale) ** 2
+    return torch.sqrt(torch.sum(r, dim=-1) / r.shape[-1])
+
+
+class _NoReverse(torch.autograd.Function):
+    """The dopri5 result where an input requires grad: the forward works,
+    the backward raises (the JAX package's ``lax.while_loop`` has no
+    reverse mode either)."""
+
+    @staticmethod
+    def forward(ctx, ys, *inputs):
+        return ys.clone()
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "odeint_dopri5 is not reverse-differentiable (its adaptive "
+            "loop has no reverse mode, as in the JAX package); train with "
+            "method='rk4' and the continuous adjoint (gradient='adjoint')")
+
+
+def odeint_dopri5(f: VectorField, y0: torch.Tensor, ts: torch.Tensor,
+                  *f_args, rtol: float = 1e-5, atol: float = 1e-6,
+                  max_steps: int = 4096, safety: float = 0.9,
+                  stats: Optional[dict] = None) -> torch.Tensor:
+    """Adaptive Dormand-Prince 5(4) with step-size control; the output
+    convention of :func:`odeint`.
+
+    Every row of an (N, D) state has its own controller: its own time,
+    step, error norm (RMS over its D elements) and attempt count, as the
+    JAX package's ``jax.vmap`` of one ``lax.while_loop`` per twin.  The
+    loop runs while any row is active and keeps the old state of a row
+    whose own condition ``(t < t1) & (attempts < max_steps)`` is false.
+    A 1-D ``y0`` is one row; ``ts`` of shape (T+1, N) gives each row its
+    own grid.  The step starts at ``(ts[1] - ts[0]) / 8`` per row and is
+    carried across interval boundaries; ``max_steps`` counts attempts per
+    interval, and an interval that reaches it ends short of its end, with
+    no error, as in the JAX package.
+
+    Each loop iteration reads one device boolean (any row active?): one
+    host sync per adaptive step, so the loop is not captured in a CUDA
+    graph.  The loop runs without autograd; where ``y0`` or a tensor of
+    ``f_args`` requires grad, the result's backward raises
+    ``NotImplementedError``.  ``stats``, a dict, receives ``iterations``
+    (the loop's count over all intervals) and the per-row ``accepted``
+    and ``rejected`` step counts."""
+    ts = torch.as_tensor(ts).to(y0.device)
+    lead = y0.shape[:-1]
+    grad_inputs = [x for x in (y0, *tree_leaves(f_args))
+                   if isinstance(x, torch.Tensor) and x.requires_grad]
+    with torch.no_grad():
+        y = y0.detach()
+        dt = ((ts[1] - ts[0]) / 8.0).expand(lead)
+        counted = stats is not None
+        if counted:
+            accepted = torch.zeros(lead, dtype=torch.int64, device=y.device)
+            rejected = torch.zeros_like(accepted)
+        iterations, ys = 0, [y]
+        for i in range(ts.shape[0] - 1):
+            t, t1 = ts[i].expand(lead), ts[i + 1].expand(lead)
+            nfe = torch.zeros(lead, dtype=torch.int32, device=y.device)
+            active = (t < t1) & (nfe < max_steps)
+            while bool(active.any()):
+                h = torch.minimum(dt, t1 - t)
+                y_new, err = _dopri5_step(f, t, y, h, *f_args)
+                en = _error_norm(err, y, y_new, rtol, atol)
+                accept = en <= 1.0
+                factor = torch.clamp(safety * (en + 1e-12) ** -0.2, 0.2, 5.0)
+                new_dt = torch.clamp(h * factor, min=1e-12)
+                step = active & accept
+                t = torch.where(step, t + h, t)
+                y = torch.where(step[..., None], y_new, y)
+                dt = torch.where(active, new_dt, dt)
+                nfe = torch.where(active, nfe + 1, nfe)
+                if counted:
+                    accepted += step
+                    rejected += active & ~accept
+                active = (t < t1) & (nfe < max_steps)
+                iterations += 1
+            ys.append(y)
+        out = torch.stack(ys)
+    if counted:
+        stats.update(iterations=iterations, accepted=accepted,
+                     rejected=rejected)
+    if grad_inputs and torch.is_grad_enabled():
+        return _NoReverse.apply(out, *grad_inputs)
+    return out
+
+
+def make_odeint(method: str = "rk4", **kwargs) -> Callable:
+    """Factory returning an odeint with the method baked in."""
+    if method == "dopri5":
+        return functools.partial(odeint_dopri5, **kwargs)
+    return functools.partial(odeint, method=method, **kwargs)

@@ -167,6 +167,12 @@ def make_autonomous_twin(state_dim: int, hidden: int = 64,
     return DigitalTwin(field=field, node=node, state_dim=state_dim)
 
 
+def simulate_batch(twin: DigitalTwin, params: Params, y0s: torch.Tensor,
+                   ts: torch.Tensor, **kw) -> torch.Tensor:
+    """Function-style alias for :meth:`DigitalTwin.simulate_batch`."""
+    return twin.simulate_batch(params, y0s, ts, **kw)
+
+
 def reference_trajectory(f: Callable, y0: torch.Tensor, ts: torch.Tensor,
                          *args, steps_per_interval: int = 16) -> torch.Tensor:
     """High-accuracy ground-truth solve (dense RK4) for data generation."""

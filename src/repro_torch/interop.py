@@ -1,5 +1,6 @@
-"""Carry MLP parameters, programmed crossbars and LM parameter trees
-between the JAX package and the port as numpy.
+"""Carry MLP parameters, programmed crossbars and parameter trees (the
+LM models', the digital baselines') between the JAX package and the port
+as numpy.
 
 Both packages keep the same layouts, a list of ``{"w": (in, out),
 "b": (out,)}`` arrays for an MLP and a list of ``{"gp", "gm", "scale"}``
@@ -56,10 +57,11 @@ def _leaf_from_numpy(x, device) -> torch.Tensor:
 
 
 def lm_params_from_numpy(tree, device=None):
-    """A JAX LM param tree (nested dicts, the ``prelude`` list, ``stack``
-    leaves with their leading n_periods axis) of arrays -> the same tree
-    of tensors on ``device`` (default ``cuda``), values and dtypes kept,
-    bf16 included."""
+    """A JAX param tree of arrays (nested dicts and lists: an LM's, with
+    its ``prelude`` list and ``stack`` leaves with their leading n_periods
+    axis, or a baseline's ``{"cell": {"wx": {"w", "b"}, ...}, "head":
+    ...}``) -> the same tree of tensors on ``device`` (default ``cuda``),
+    values and dtypes kept, bf16 included."""
     device = resolve_device(device)
     return tree_map(lambda x: _leaf_from_numpy(x, device), tree)
 

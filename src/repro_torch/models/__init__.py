@@ -1,2 +1,3 @@
-"""The LM model zoo of the port (port of ``repro/models``): shared layers,
-GQA attention, Mamba, MoE and the model assembly that drives them."""
+"""The port's models (port of ``repro/models``): the LM model zoo (shared
+layers, GQA attention, Mamba, MoE and the model assembly that drives
+them) and the twin's digital baselines (``baselines``)."""

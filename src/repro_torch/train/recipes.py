@@ -6,14 +6,12 @@ trajectory training on a chosen substrate (``backend="fused_cuda"``
 trains through the hand-written kernels K1 and K2; ``hw_aware=`` trains
 through the analogue write path, K3), and the paper's
 evaluation protocols and the Lorenz96 system's Lyapunov time; the
-analogue noise-robustness grid (Fig. 4j); plus the Lorenz96
-fleet-serving scenario.  Each recipe takes ``device=``
-(default ``cuda``; ``"cpu"`` runs the kernels' plain versions) and draws
-from ``torch.Generator``s seeded from ``seed``, so the port's weights
-are not the JAX package's for the same seed.
-
-Not ported yet (ROADMAP.md, queue 1): the recurrent-ResNet and
-recurrent-forecaster baselines.
+paper's digital baselines (the recurrent ResNet of Fig. 3j, the LSTM /
+GRU / RNN forecasters of Fig. 4g); the analogue noise-robustness grid
+(Fig. 4j); plus the Lorenz96 fleet-serving scenario.  Each recipe takes
+``device=`` (default ``cuda``; ``"cpu"`` runs the kernels' plain
+versions) and draws from ``torch.Generator``s seeded from ``seed``, so
+the port's weights are not the JAX package's for the same seed.
 
 CLI (``--device cpu`` runs the kernels' plain versions):
 
@@ -107,6 +105,39 @@ def eval_hp_twin(twin, params, waveform: str, num_points: int = 500,
                 "pred": pred, "true": xw, "ts": ts}
 
 
+def train_hp_resnet(seed: int = 42, train_steps: int = 600,
+                    hidden: int = 14, device=None):
+    """The paper's digital baseline: the recurrent ResNet at the twin's
+    sizes, trained on the sine drive in teacher-forced segments of 50.
+    Returns ``(model, params, final loss)``."""
+    from repro_torch.models.baselines import RecurrentResNet
+    device = resolve_device(device)
+    ts, xs, vs, _ = hp.generate("sine", num_points=500, dt=1e-3,
+                                amp=HP_AMP, freq=HP_FREQ, device=device)
+    model = RecurrentResNet(sizes=(2, hidden, hidden, 1), state_dim=1)
+    params = model.init(torch.Generator().manual_seed(seed), device=device)
+    params, hist = trainer.train_recurrent_resnet(
+        model, params, vs[:, None], xs[:, None],
+        optimizer=adam(warmup_cosine_schedule(3e-3, 50, train_steps)),
+        num_steps=train_steps, segment_len=50)
+    return model, params, float(hist[-1])
+
+
+def eval_hp_resnet(model, params, waveform: str, num_points: int = 500,
+                   device=None):
+    """MRE + DTW per point of the ResNet's closed-loop rollout under a
+    drive vs the ground truth (paper Fig. 3j's baseline column)."""
+    kw = hp_waveform_config(waveform)
+    ts, xw, _, _ = hp.generate(waveform, num_points=num_points, dt=1e-3,
+                               device=device, **kw)
+    drive = hp.WAVEFORMS[waveform](**kw)
+    us = drive(ts)[:-1, None]
+    with torch.no_grad():
+        pred = model.rollout(params, xw[:1], us)[:, 0]
+    return {"mre": float(mre(pred, xw)),
+            "dtw": float(dtw(pred, xw) / num_points)}
+
+
 # ---------------------------------------------------------------------------
 # Lorenz96 twin (paper Fig. 4)
 # ---------------------------------------------------------------------------
@@ -173,6 +204,34 @@ def eval_l96_twin(twin, params, data=None, device=None):
         extrap = float(l1(pred_x[1:], ys[split:]))
     return {"interp_l1": interp, "extrap_l1": extrap,
             "pred_extrap": pred_x[1:], "true_extrap": ys[split:]}
+
+
+def eval_l96_baseline(cell: str, seed: int = 3, train_steps: int = 2500,
+                      hidden: int = 64, data=None, device=None) -> dict:
+    """A recurrent forecaster (``cell``: "lstm", "gru" or "rnn") trained
+    teacher-forced on the training window, evaluated by the twin's
+    protocol: interpolation = closed loop from the first point over the
+    window; extrapolation = closed loop from the split after the window
+    warms the carry up.  Returns ``interp_l1`` and ``extrap_l1``."""
+    from repro_torch.models.baselines import RecurrentForecaster
+    device = resolve_device(device)
+    ts, ys, split = data if data is not None else l96_data(device=device)
+    model = RecurrentForecaster(cell=cell, in_dim=6, hidden=hidden,
+                                out_dim=6)
+    params = model.init(torch.Generator().manual_seed(seed), device=device)
+    params, _ = trainer.train_forecaster(
+        model, params, ys[:split],
+        optimizer=adam(warmup_cosine_schedule(3e-3, 100, train_steps)),
+        num_steps=train_steps, noise_std=0.01,
+        generator=torch.Generator().manual_seed(seed + 1))
+    with torch.no_grad():
+        interp = model.closed_loop(params, ys[0], split - 1)
+        e_i = float(l1(interp, ys[:split]))
+        extrap = model.closed_loop(params, ys[split - 1],
+                                   ys.shape[0] - split,
+                                   warmup=ys[:split - 1])
+        e_x = float(l1(extrap[1:], ys[split:]))
+    return {"interp_l1": e_i, "extrap_l1": e_x}
 
 
 def l96_lyapunov_info(device=None) -> dict:

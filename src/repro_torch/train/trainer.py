@@ -43,8 +43,11 @@ call it as ``loss_fn(params, generator, step)``.  Training on
 ``FusedAnalogueCudaBackend`` implies it, with the backend's own device
 model, as in the JAX package.
 
-Not ported yet (ROADMAP.md, queue 1): the baseline trainers
-(``train_forecaster``, ``train_recurrent_resnet``).
+The paper's digital baselines (:mod:`repro_torch.models.baselines`)
+train through the same engines: :func:`train_recurrent_resnet` (teacher-
+forced shooting segments, batched) and :func:`train_forecaster`
+(teacher-forced next-step prediction, input noise by
+:func:`normal_like`).
 """
 from __future__ import annotations
 
@@ -804,3 +807,51 @@ def pretrain_derivatives(field, params, ts, ys, *, optimizer,
     ts_mid, ys_mid, dys = finite_difference_derivatives(ts, ys)
     loss_fn = derivative_matching_loss(field, ts_mid, ys_mid, dys)
     return fit(loss_fn, params, optimizer, num_steps, log_every=log_every)
+
+
+# ---------------------------------------------------------------------------
+# Baseline training (teacher-forced recurrent forecasters / ResNet)
+# ---------------------------------------------------------------------------
+
+def train_forecaster(model, params, ys: torch.Tensor, *,
+                     optimizer: Optimizer, num_steps: int,
+                     noise_std: float = 0.0,
+                     generator: Optional[torch.Generator] = None,
+                     log_every: int = 0):
+    """Teacher-forced training of a recurrent forecaster on one series
+    ``ys`` (T, D): the L1 of its predictions of ``ys[1:]``, the inputs
+    perturbed by ``noise_std`` normals drawn with :func:`normal_like` from
+    ``generator`` (default: a CPU generator seeded with 0).  Runs through
+    :func:`fit`: on the card every step is a replayed CUDA graph."""
+    def loss_fn(params, generator):
+        inp = ys
+        if noise_std > 0 and generator is not None:
+            inp = ys + noise_std * normal_like(generator, ys)
+        preds = model.teacher_forced(params, inp)
+        return l1(preds, ys[1:])
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    return fit(loss_fn, params, optimizer, num_steps, generator, log_every)
+
+
+def train_recurrent_resnet(model, params, us: torch.Tensor,
+                           ys: torch.Tensor, *, optimizer: Optimizer,
+                           num_steps: int, segment_len: int = 50,
+                           generator: Optional[torch.Generator] = None,
+                           log_every: int = 0):
+    """Teacher-forced segment training of h_{t+1} = h_t + f([u_t, h_t]):
+    the (T-1) // ``segment_len`` segments of ``ys`` (T, D), each rolled
+    out from its observed first state under its drive samples ``us``
+    (T, U), as the batch of one rollout (the JAX package vmaps them)."""
+    T, L = ys.shape[0], segment_len
+    S = (T - 1) // L
+    idx = (torch.arange(S)[:, None] * L
+           + torch.arange(L + 1)[None, :]).to(ys.device)
+    ys_seg = ys[idx]                      # (S, L+1, D)
+    us_seg = us[idx[:, :-1]]              # (S, L, U)
+
+    def loss_fn(params, generator):
+        del generator
+        return l1(model.rollout(params, ys_seg[:, 0], us_seg), ys_seg)
+
+    return fit(loss_fn, params, optimizer, num_steps, generator, log_every)

@@ -1,9 +1,10 @@
 """Trees of tensors: nested lists, tuples and dicts with tensor leaves.
 
 The port's counterpart of the parts of ``jax.tree_util`` the JAX package
-uses.  Parameters keep the JAX layout, a list of ``{"w", "b"}`` dicts,
-and the adjoint carries ``(y, a, grad_params)`` tuples, so a structural
-map over those containers is all that is needed.  Dict keys are visited
+uses.  Parameters keep the JAX layouts (an MLP's list of ``{"w", "b"}``
+dicts, a recurrent baseline's nested dicts, an LM's tree), and the
+adjoint carries ``(y, a, grad_params)`` tuples, so a structural map over
+those containers is all that is needed.  Dict keys are visited
 in sorted order, as ``jax.tree_util`` flattens them.
 """
 from __future__ import annotations

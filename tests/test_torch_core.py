@@ -228,6 +228,15 @@ def test_gradients_raise_until_ported_and_direct_backprops():
     with torch.no_grad():
         twin.with_backend("fused_cuda").simulate_batch(tp, y0s, ts)
         twin.simulate_batch(tp, y0s, ts)
+    # dopri5 on the digital backend: JAX's solve, and a backward that
+    # raises (JAX's while_loop has no reverse mode either)
+    out = DigitalBackend().rollout(DigitalBackend().program(twin.field, tp),
+                                   y0s, ts, method="dopri5")
+    jt = jtwin.make_autonomous_twin(4, hidden=8, n_hidden_layers=1,
+                                    method="dopri5")
+    want = np.asarray(jt.simulate_batch(jparams(np_params(9, sizes)),
+                                        jnp.asarray(y0s.numpy()),
+                                        jnp.asarray(ts.numpy())))
+    assert rel(out.detach().transpose(0, 1).numpy(), want) <= TOL
     with pytest.raises(NotImplementedError, match="dopri5"):
-        DigitalBackend().rollout(DigitalBackend().program(twin.field, tp),
-                                 y0s, ts, method="dopri5")
+        out.sum().backward()
