@@ -293,8 +293,38 @@ result line:
    data, a finite falling loss history each, interpolation and
    extrapolation L1 printed beside phase 7's ``eval_l96_twin`` (not
    gated), ms a step; the phase's wall time.
+25. P12, the bf16 precision policies ("bf16_f32acc" and "bf16"): K1
+   against its plain version on the card at the fleet request (1024 x
+   200, 6->64->64->6), Lorenz96 training (14 x 60) and HP training (9 x
+   50, one drive per twin) at the planner's rounding chunk and at 7 steps;
+   K2's gradients against the plain VJP at (29, 60) and (9, 50), each at
+   the backward planner's chunk and at 7 steps, the replayed states in
+   shared memory bitwise the same in the device-memory scratch; K5 / K6 on
+   bf16 costs at
+   (29, 61, 61) and (8, 201, 201), bitwise the plain DP on the same
+   rounded costs, planted padding cells still invalid; K1 within
+   ``P12_K1_TOL`` of the peak with at least ``P12_K1_SHARE`` of its
+   elements bitwise, K2 within ``P12_K2_TOL``, each limit shown to catch
+   its controls (plain versions that skip a rounding the policy asks for,
+   or K2's chunk replay) on the same inputs; a resume from a chunk start
+   and the forward inside autograd bitwise; then the main paths with the
+   counts zeroed just before and read just after: one ``serve_fleet``
+   batch per policy (one K1 launch of that policy, bf16 out, within K1's
+   limits of the same serve on the plain versions, which the f32 serve
+   misses), ``train_hp_twin(200, 250)`` on
+   ``FusedCudaBackend(precision="bf16_f32acc")`` through the engines
+   (250 K1 and K2 launches of that policy; loss and sine MRE beside
+   phase 7's, the HP gates asserted as ``P12_HP_GATES`` says), 40 HP steps
+   on the kernels against the eager loop on the plain versions (loss
+   histories within ``P12_HIST_TOL`` rel a step, which the f32 history
+   and one without K2's chunk replay miss), and ``P12_P4_STEPS`` steps of the Lorenz96
+   ``l1+softdtw`` fit per policy (K1, K2, K5 and K6 on bf16 costs once a
+   step); CUDA-event means of K1, K2, K5 and K6 under each policy beside
+   float32 at the same shapes, the plain versions and the bounds (bytes
+   at the bf16 itemsizes, K1's and K2's products at the bf16 tensor-core
+   peak).
 
-Training (phases 7, 12, 15, 16, 22 and 24) runs through the training engines
+Training (phases 7, 12, 15, 16, 22, 24 and 25) runs through the training engines
 by default, as the JAX package's does through its scan engine: on the
 card every step is a replay of a CUDA graph, and the engines add what a
 graph launches to the kernels' launch counters at every replay (its
@@ -306,6 +336,7 @@ last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -380,7 +411,7 @@ SM_CLOCK = 1.98e9
 FP32_PEAK = 67.0e12
 HBM_BW = 3.35e12
 #: Its dense BF16 tensor-core peak (same data sheet): the bound of K8's
-#: bf16 products.
+#: bf16 products and of K1's and K2's under the bf16 policies.
 BF16_PEAK = 989.0e12
 #: Its dense TF32 tensor-core peak (same data sheet): the bound of K7's
 #: 3xTF32 products.
@@ -482,10 +513,11 @@ def grads_rel_err(got, want):
     return max(abs_errs), max(rels), rels
 
 
-def bound(flops: float, nbytes: float):
-    """(bound_ms, bound_by): the larger of the operations at the FP32 peak
-    and the bytes at the HBM rate."""
-    t_ops, t_bytes = flops / FP32_PEAK * 1e3, nbytes / HBM_BW * 1e3
+def bound(flops: float, nbytes: float, peak: float = FP32_PEAK):
+    """(bound_ms, bound_by): the larger of the operations at ``peak`` (the
+    FP32 peak unless the operands' type has a faster one) and the bytes at
+    the HBM rate."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BW * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
 
@@ -3440,6 +3472,666 @@ def p11_paths(dev, smi, twin, params, l96_twin, l96_params, l96_data,
     return {"counts": counts, "numbers": out}
 
 
+# -- phase 25: P12, the bf16 precision policies (K1, K2, K5, K6) -------------
+
+P12_POLICIES = ("bf16_f32acc", "bf16")
+#: K1 under a bf16 policy vs its plain version: the most error over the
+#: peak, and the least share of bitwise-equal elements.  Both sum bf16 x
+#: bf16 products (exact in float32) in float32, the kernel in
+#: fused_mlp_eval.cuh's fixed order, the plain version in torch's; an order
+#: that rounds a sum differently can flip the bf16 rounding of a layer
+#: input, which moves a few values by about one bf16 ulp of an activation
+#: carried through dt.  Each limit sits between the sound kernel's readings
+#: and its controls' (``p12_k1_controls``), which PERF.md section 6 lists.
+P12_K1_TOL = 2e-3
+P12_K1_SHARE = 0.999
+#: K2 under a bf16 policy vs the plain VJP, of each gradient's peak: its
+#: float32 sums run in another order, so few elements are bitwise (no share
+#: is gated); the limit sits between the sound kernel's readings and its
+#: controls' (``p12_k2_controls``), PERF.md section 6.
+P12_K2_TOL = 1e-4
+#: K1 cases as (sizes, B, T, drive, dt, time_chunk): the fleet request
+#: (autonomous), Lorenz96 training (CI window) and HP training at the
+#: planner's chunk (None) and at 7 steps.
+P12_K1_CASES = {
+    "fleet_l96": ((6, 64, 64, 6), 1024, 200, "none", 0.0025, None),
+    "l96_train_ci": ((6, 64, 64, 6), 14, 60, "none", 0.0025, None),
+    "hp_train": ((2, 14, 14, 1), 9, 50, "per_twin", 1e-3, None),
+    "hp_train_chunk7": ((2, 14, 14, 1), 9, 50, "per_twin", 1e-3, 7),
+}
+#: K2 cases: the Lorenz96 paper window and HP training, each at the
+#: backward planner's chunk (one chunk replayed) and at 7 steps (several).
+P12_K2_CASES = {
+    "l96_train": ((6, 64, 64, 6), 29, 60, "none", 0.0025, None),
+    "l96_train_chunk7": ((6, 64, 64, 6), 29, 60, "none", 0.0025, 7),
+    "hp_train": ((2, 14, 14, 1), 9, 50, "per_twin", 1e-3, None),
+    "hp_train_chunk7": ((2, 14, 14, 1), 9, 50, "per_twin", 1e-3, 7),
+}
+#: K5 / K6 on bf16 costs: the two Lorenz96 training shapes (B, n, m).
+P12_SDTW_SHAPES = ((29, 61, 61), (8, 201, 201))
+
+
+def bitwise_share(got, want) -> float:
+    """The fraction of elements of ``got`` bitwise equal to ``want``'s."""
+    return float((got.float() == want.float()).float().mean())
+
+
+def p12_chunk(sizes, B, T, du, per_twin, prec, time_chunk, backward):
+    """The rounding chunk a call plans (forward or shared backward)."""
+    if time_chunk is not None:
+        return time_chunk
+    if backward:
+        return fused_ode_mlp_bwd.plan_bwd_time_chunk(
+            T, min(64, B), sizes[-1], du, per_twin, sizes,
+            precision=prec).time_chunk
+    return fused_ode_mlp.plan_time_chunk(T, min(64, B), sizes[-1], du,
+                                         per_twin, sizes,
+                                         precision=prec).time_chunk
+
+
+def p12_k1_pass(r: float, share: float) -> bool:
+    """Whether a bf16 K1 reading (error of the peak, bitwise share) is
+    within ``P12_K1_TOL`` and ``P12_K1_SHARE``."""
+    return r <= P12_K1_TOL and share >= P12_K1_SHARE
+
+
+def p12_k1_controls(y0, u, ws, bs, dt, prec, C, want) -> dict:
+    """{control: (error of the peak, bitwise share)} against K1's plain
+    version ``want``, of plain rollouts that a wrong kernel would match:
+    one that keeps the policy's bf16 storage (operands rounded, trajectory
+    stored as bf16) but rounds nothing else (float32 arithmetic), and under
+    "bf16" one with "bf16_f32acc"'s arithmetic.  K1's limits must reject
+    each."""
+    def r16(x):
+        return x.to(torch.bfloat16).float()
+
+    ctl = {"f32 arithmetic": ref.fused_node_rollout_ref(
+        r16(y0), r16(u), [r16(w) for w in ws], [r16(b) for b in bs],
+        float(dt)).to(torch.bfloat16)}
+    if prec == "bf16":
+        ctl["bf16_f32acc arithmetic"] = ref.fused_node_rollout_bf16_ref(
+            y0, u, ws, bs, dt, "bf16_f32acc", C)
+    return {k: (rel_err(v.float(), want.float())[1], bitwise_share(v, want))
+            for k, v in ctl.items()}
+
+
+def p12_k2_controls(traj, u, ws, bs, g, dt, prec, C, want) -> dict:
+    """{control: worst error of a gradient's peak} against the plain VJP
+    ``want``, of a plain VJP that a wrong kernel would match: under
+    "bf16_f32acc" one without the chunk replay (every row taken as a
+    state: chunk 1), under "bf16" (whose rows are the states) one with
+    "bf16_f32acc"'s arithmetic.  K2's limit must reject each."""
+    if prec == "bf16_f32acc":
+        name, ctl = "no chunk replay", ref.fused_node_rollout_bf16_bwd_ref(
+            traj, u, ws, bs, g, dt, prec, 1)
+    else:
+        name, ctl = ("bf16_f32acc arithmetic",
+                     ref.fused_node_rollout_bf16_bwd_ref(
+                         traj, u, ws, bs, g, dt, "bf16_f32acc", C))
+    return {name: grads_rel_err(ctl, want)[1]}
+
+
+def p12_kernels(dev) -> dict:
+    """Phase 25's checks of K1, K2, K5 and K6 under the bf16 policies
+    against their plain versions on the card, each limit against its
+    controls, and the two bitwise checks (a resume from a chunk start, the
+    forward inside autograd).  Returns the errors, the controls' readings
+    and the inputs the timing reuses."""
+    out = {"k1": {}, "k2": {}, "sdtw": {}, "inputs": {}, "controls": {}}
+    gen = torch.Generator().manual_seed(SEED + 25)
+    for case, (sizes, B, T, mode, dt, tc) in P12_K1_CASES.items():
+        params, y0, u = make_case(gen, sizes, B, T, mode, dev)
+        ws = [p["w"] for p in params]
+        bs = [p["b"] for p in params]
+        y0p, up, bt, _ = fused_ode_mlp.pad_fleet_to_tile(y0, u, 64)
+        for prec in P12_POLICIES:
+            C = p12_chunk(sizes, y0p.shape[0], T, u.shape[-1], u.ndim == 3,
+                          prec, tc, False)
+            got = fused_ode_mlp.fused_node_rollout(
+                y0p, up, ws, bs, dt, batch_tile=bt, time_chunk=tc,
+                precision=prec)
+            want = ref.fused_node_rollout_bf16_ref(y0p, up, ws, bs, dt, prec,
+                                                   C)
+            torch.cuda.synchronize()
+            check(got.dtype == torch.bfloat16 and got.shape == want.shape,
+                  f"K1 {prec} {case}: {got.dtype} {tuple(got.shape)}")
+            check(bool(torch.isfinite(got.float()).all()),
+                  f"K1 {prec} {case}: non-finite")
+            a, r = rel_err(got.float(), want.float())
+            share = bitwise_share(got, want)
+            ctl = p12_k1_controls(y0p, up, ws, bs, dt, prec, C, want)
+            out["k1"][prec, case] = (a, r, share)
+            out["controls"]["K1", prec, case] = ctl
+            out["inputs"][prec, case] = (y0p, up, ws, bs, dt, bt, C, sizes)
+            print(f"K1 {prec} vs plain [{case}] B={B} T={T} sizes={sizes} "
+                  f"chunk {C}: max abs err {a:.3e}, of peak {r:.3e} (limit "
+                  f"{P12_K1_TOL:g}); bitwise-equal share {share:.6f} (least "
+                  f"{P12_K1_SHARE:g}); controls (of peak / share): "
+                  + "; ".join(f"{k} {c[0]:.3e} / {c[1]:.6f}"
+                              for k, c in ctl.items()))
+            check(p12_k1_pass(r, share), f"K1 {prec} {case}: kernel "
+                                         f"disagrees with its plain version")
+            check(not any(p12_k1_pass(*c) for c in ctl.values()),
+                  f"K1 {prec} {case}: a control passes K1's limits")
+    # a resume from row k C reproduces the rest bitwise; the forward inside
+    # autograd is bitwise a plain call with the same chunk
+    y0p, up, ws, bs, dt, bt, _, sizes = out["inputs"]["bf16", "hp_train"]
+    for prec in P12_POLICIES:
+        C, k = 7, 3
+        full = fused_ode_mlp.fused_node_rollout(y0p, up, ws, bs, dt,
+                                                batch_tile=bt, time_chunk=C,
+                                                precision=prec)
+        T = full.shape[0] - 1
+        rest = fused_ode_mlp.fused_node_rollout(
+            full[k * C], fused_ode_mlp.drive_window(up, k * C, T - k * C), ws,
+            bs, dt, batch_tile=bt, time_chunk=C, precision=prec)
+        resumed = torch.equal(rest, full[k * C:])
+        params = [{"w": w.clone().requires_grad_(),
+                   "b": b.clone().requires_grad_()} for w, b in zip(ws, bs)]
+        fwd = ops.fused_node_rollout(params, y0p, up, dt, batch_tile=bt,
+                                     time_chunk=C, precision=prec)
+        plain_call = ops.fused_node_rollout(params, y0p, up, dt,
+                                            batch_tile=bt, time_chunk=C,
+                                            precision=prec,
+                                            gradient="stopgrad")
+        same = torch.equal(fwd.detach(), plain_call)
+        print(f"K1 {prec} bitwise: resume from row {k * C} (chunk {C}) "
+              f"reproduces rows {k * C}..{T}: {resumed}; the forward inside "
+              f"autograd equals a plain call: {same}")
+        check(resumed, f"K1 {prec}: a resume from a chunk start differs")
+        check(same, f"K1 {prec}: the forward inside autograd differs")
+    for case, (sizes, B, T, mode, dt, tc) in P12_K2_CASES.items():
+        params, y0, u = make_case(gen, sizes, B, T, mode, dev)
+        ws = [p["w"] for p in params]
+        bs = [p["b"] for p in params]
+        for prec in P12_POLICIES:
+            C = p12_chunk(sizes, B, T, u.shape[-1], u.ndim == 3, prec, tc,
+                          True)
+            traj = fused_ode_mlp.fused_node_rollout(
+                y0, u, ws, bs, dt, batch_tile=B, time_chunk=C,
+                precision=prec)
+            g = torch.randn(traj.shape, generator=gen).to(dev)
+            got = fused_ode_mlp_bwd.fused_node_rollout_bwd(
+                traj, u, ws, bs, g, dt, precision=prec, time_chunk=C)
+            again = fused_ode_mlp_bwd.fused_node_rollout_bwd(
+                traj, u, ws, bs, g, dt, precision=prec, time_chunk=C)
+            want = ref.fused_node_rollout_bf16_bwd_ref(traj, u, ws, bs, g, dt,
+                                                       prec, C)
+            torch.cuda.synchronize()
+            flat = [got[0], *got[1], *got[2]]
+            check(all(x.dtype == torch.float32 and bool(torch.isfinite(x).all())
+                      for x in flat), f"K2 {prec} {case}: not finite float32")
+            a, r, rels = grads_rel_err(got, want)
+            share = bitwise_share(torch.cat([x.reshape(-1) for x in flat]),
+                                  torch.cat([x.reshape(-1) for x in
+                                             [want[0], *want[1], *want[2]]]))
+            repeat = all(torch.equal(x, y) for x, y in zip(
+                flat, [again[0], *again[1], *again[2]]))
+            ctl = p12_k2_controls(traj, u, ws, bs, g, dt, prec, C, want)
+            out["k2"][prec, case] = (a, r, share)
+            out["controls"]["K2", prec, case] = ctl
+            out["inputs"]["k2", prec, case] = (traj, u, ws, bs, g, dt, C,
+                                               sizes)
+            print(f"K2 {prec} vs plain [{case}] B={B} T={T} sizes={sizes} "
+                  f"chunk {C}: max abs err {a:.3e}, worst of peak {r:.3e} "
+                  f"(limit {P12_K2_TOL:g}; per gradient "
+                  f"{', '.join(f'{x:.1e}' for x in rels)}); bitwise-equal "
+                  f"share {share:.6f}; repeat bitwise: {repeat}; controls "
+                  f"(worst of peak): "
+                  + "; ".join(f"{k} {c:.3e}" for k, c in ctl.items()))
+            check(r <= P12_K2_TOL, f"K2 {prec} {case}: kernel disagrees with "
+                                   f"its plain version")
+            check(all(c > P12_K2_TOL for c in ctl.values()),
+                  f"K2 {prec} {case}: a control passes K2's limit")
+            check(repeat, f"K2 {prec} {case}: two calls differ")
+            # the replayed states in device memory instead of shared memory
+            scratch = fused_ode_mlp_bwd.fused_node_rollout_bwd(
+                traj, u, ws, bs, g, dt, precision=prec, time_chunk=C,
+                _force_scratch=True)
+            same = all(torch.equal(x, y) for x, y in zip(
+                flat, [scratch[0], *scratch[1], *scratch[2]]))
+            print(f"  K2 {prec} [{case}]: replayed states in shared memory "
+                  f"and in the device-memory scratch bitwise identical: "
+                  f"{same}")
+            check(same, f"K2 {prec} {case}: the two homes of the replayed "
+                        f"states differ")
+    for B, n, m in P12_SDTW_SHAPES:
+        D = sdtw_costs(gen, B, n, m, dev)
+        D[0, n // 2, m // 3] = ref.BIG          # the layout's padding value
+        D[B - 1, n - 1, m // 2] = 2 * ref.BIG
+        Db = D.to(torch.bfloat16)
+        ans, R = softdtw.softdtw_rowmajor(Db, gamma=0.1, return_r=True)
+        E = softdtw.softdtw_rowmajor_bwd(Db, R, gamma=0.1)
+        p_ans, p_r = ref.softdtw_rowmajor_ref(Db.float(), gamma=0.1,
+                                              return_r=True)
+        p_e = ref.softdtw_rowmajor_bwd_ref(Db.float(), p_r, gamma=0.1)
+        torch.cuda.synchronize()
+        # the planted cells: BIG rounds to 9.9992e9 in bf16, 2 BIG to 2.00e10,
+        # both at or above BIG_CUT, so they stay invalid (R = BIG, E = 0)
+        invalid = Db.float() >= ref.BIG_CUT
+        sentinels = (bool((R[invalid] == ref.BIG).all())
+                     and bool((E[invalid] == 0).all())
+                     and int(invalid.sum()) == 2)
+        same = {"K5": torch.equal(ans, p_ans), "K5 R": torch.equal(R, p_r),
+                "K6": torch.equal(E, p_e)}
+        out["sdtw"][B, n, m] = {
+            "K5": rel_err(ans, p_ans), "K6": rel_err(E, p_e),
+            "bitwise": all(same.values())}
+        out["inputs"]["sdtw", B, n, m] = (Db, R)
+        print(f"K5/K6 on bf16 costs vs plain ({B}, {n}, {m}) gamma 0.1: "
+              f"bitwise equal {same}; planted padded cells invalid (R = BIG, "
+              f"E = 0): {sentinels}")
+        check(all(same.values()), f"K5/K6 bf16 ({B}, {n}, {m}): not bitwise "
+                                  f"the plain version")
+        check(sentinels, f"K5/K6 bf16 ({B}, {n}, {m}): a padded cell reads "
+                         f"as valid")
+    return out
+
+
+#: Phase 25's launch counters: K1 and K2 per policy (f32 in ``LAUNCHES``),
+#: K5 and K6 on float32 and on bfloat16 costs.
+P12_COUNTERS = {
+    "K1": (fused_ode_mlp, "LAUNCHES"),
+    "K1 bf16_f32acc": (fused_ode_mlp, "LAUNCHES_BF16_F32ACC"),
+    "K1 bf16": (fused_ode_mlp, "LAUNCHES_BF16"),
+    "K2": (fused_ode_mlp_bwd, "LAUNCHES"),
+    "K2 bf16_f32acc": (fused_ode_mlp_bwd, "LAUNCHES_BF16_F32ACC"),
+    "K2 bf16": (fused_ode_mlp_bwd, "LAUNCHES_BF16"),
+    "K5": (softdtw, "LAUNCHES"), "K5 bf16": (softdtw, "LAUNCHES_BF16"),
+    "K6": (softdtw, "BWD_LAUNCHES"), "K6 bf16": (softdtw, "BWD_LAUNCHES_BF16"),
+}
+#: The 40-step HP loss history on the bf16_f32acc kernels against the same
+#: steps on their plain versions, rel a step: between the sound kernels'
+#: reading and the controls' (the f32 history, and one whose K2 skips the
+#: chunk replay), PERF.md section 6.
+P12_HIST_TOL = 1e-4
+#: Steps of the Lorenz96 ``l1+softdtw`` fit at segment length 60 under each
+#: bf16 policy (K1, K2, K5 and K6 on the reduced substrate).
+P12_P4_STEPS = 10
+#: Whether phase 25 asserts the HP gates (loss < 0.01, sine MRE < 0.1) for
+#: the twin trained at bf16_f32acc: the CPU rehearsal at phase 7's budget
+#: (``train_hp_twin(200, 250)``, plain versions) passed them.
+P12_HP_GATES = True
+
+
+def p12_zero():
+    for mod, name in P12_COUNTERS.values():
+        setattr(mod, name, 0)
+
+
+def p12_read(path: str, want: dict) -> dict:
+    """Phase 25's counts after ``path``; every counter not in ``want`` must
+    be 0."""
+    torch.cuda.synchronize()
+    got = {k: getattr(mod, name) for k, (mod, name) in P12_COUNTERS.items()}
+    print(f"{path}: launches " + ", ".join(
+        f"{k} {v}" for k, v in got.items() if v or k in want))
+    for k, v in got.items():
+        check(v == want.get(k, 0), f"{path}: expected {want.get(k, 0)} {k} "
+                                   f"launches, got {v}")
+    return got
+
+
+@contextlib.contextmanager
+def p12_plain_kernels(k1: bool = True, k2_chunk=None):
+    """K1's (with ``k1``) and K2's bf16 launches swapped for their plain
+    versions on the same CUDA tensors (for the kernels-vs-plain loss
+    history); ``k2_chunk`` replaces K2's rounding chunk (1: the control
+    without the chunk replay)."""
+    saved = (fused_ode_mlp._launch, fused_ode_mlp_bwd._launch_bf16)
+
+    def k1_plain(y0, u, ws, bs, dt, per_twin, T, du, sizes, geom,
+                 prec="f32", C=None):
+        if prec == "f32":
+            return saved[0](y0, u, ws, bs, dt, per_twin, T, du, sizes, geom)
+        return ref.fused_node_rollout_bf16_ref(y0, u, ws, bs, float(dt),
+                                               prec, C)
+
+    def k2_plain(traj, u, gs, g0, ws, bs, dt, per_twin, T, du, sizes, geom,
+                 prec, C, _force_scratch=False):
+        g = torch.cat([g0[None], gs[1:].to(torch.float32)])
+        return ref.fused_node_rollout_bf16_bwd_ref(
+            traj, u, ws, bs, g, float(dt), prec, k2_chunk or C)
+
+    if k1:
+        fused_ode_mlp._launch = k1_plain
+    fused_ode_mlp_bwd._launch_bf16 = k2_plain
+    try:
+        yield
+    finally:
+        fused_ode_mlp._launch, fused_ode_mlp_bwd._launch_bf16 = saved
+
+
+def p12_paths(dev, smi, hp_f32, l96_twin, l96_params, ts_tr, ys_tr) -> dict:
+    """Phase 25's main paths on the reduced substrate, each with the counts
+    zeroed just before and read just after: one ``serve_fleet`` batch per
+    policy (K1), the HP twin trained at bf16_f32acc through the engines at
+    phase 7's budget (K1, K2) with its 40-step history held to the plain
+    versions', and the Lorenz96 ``l1+softdtw`` fit per policy (K1, K2, K5
+    and K6 on bf16 costs).  Returns {path: counts} and the numbers printed."""
+    counts, numbers = {}, {}
+    cfg = recipes.FLEET
+    ts = recipes.l96_fleet_ts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p12_") as ckpt:
+        fleet = recipes.make_l96_fleet(
+            backend=FusedCudaBackend(batch_tile=cfg.batch_tile))
+        checkpoint.save_twin(ckpt, fleet.twin.init(
+            torch.Generator().manual_seed(SEED), device="cpu"))
+        reqs = list(recipes.l96_fleet_requests(num_batches=1, seed=SEED,
+                                               device=dev))
+        f32 = next(serve_fleet(ckpt, fleet, ts, reqs, device=dev))
+        for prec in P12_POLICIES:
+            be = FusedCudaBackend(batch_tile=cfg.batch_tile, precision=prec)
+            fleet_p = recipes.make_l96_fleet(backend=be)
+            p12_zero()
+            t_b = time.perf_counter()
+            out = next(serve_fleet(ckpt, fleet_p, ts, reqs, device=dev))
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t_b
+            path = f"P12_serve_fleet_{prec}"
+            counts[path] = p12_read(f"P12 serve_fleet at {prec}",
+                                    {f"K1 {prec}": 1})
+            with p12_plain_kernels():
+                plain = next(serve_fleet(ckpt, fleet_p, ts, reqs, device=dev))
+            torch.cuda.synchronize()
+            check(out.dtype == torch.bfloat16 and tuple(out.shape) == (
+                cfg.fleet_size, cfg.horizon + 1, cfg.state_dim),
+                f"{path}: {out.dtype} {tuple(out.shape)}")
+            check(bool(torch.isfinite(out.float()).all()), f"{path}: non-finite")
+            a, r = rel_err(out.float(), plain.float())
+            share = bitwise_share(out, plain)
+            _, r32 = rel_err(out.float(), f32)
+            # the control: the f32 serve stored as bf16, against the plain
+            f32b = f32.to(torch.bfloat16)
+            ctl = (rel_err(f32b.float(), plain.float())[1],
+                   bitwise_share(f32b, plain))
+            numbers[path] = dict(ms=sec * 1e3, err_of_peak=r,
+                                 bitwise_share=share, from_f32_of_peak=r32,
+                                 control_f32=ctl)
+            print(f"[{smi}] {path}: {tuple(out.shape)} bf16 in "
+                  f"{sec * 1e3:.3f} ms; vs the plain version {r:.3e} of the "
+                  f"peak (limit {P12_K1_TOL:g}), bitwise-equal share "
+                  f"{share:.6f} (least {P12_K1_SHARE:g}); from the f32 serve "
+                  f"{r32:.3e} of the peak; control (the f32 serve as bf16 vs "
+                  f"the plain version) {ctl[0]:.3e} / {ctl[1]:.6f}")
+            check(p12_k1_pass(r, share),
+                  f"{path}: K1 disagrees with its plain version")
+            check(not p12_k1_pass(*ctl), f"{path}: the f32 control passes "
+                                         f"K1's limits")
+
+    # the HP twin trained at bf16_f32acc through the engines (phase 7's
+    # budget), beside phase 7's f32 twin
+    be = FusedCudaBackend(precision="bf16_f32acc")
+    p12_zero()
+    t_p = time.perf_counter()
+    twin, params, loss = recipes.train_hp_twin(
+        pretrain_steps=200, train_steps=250, backend=be, device=dev)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t_p
+    counts["P12_train_hp_twin_bf16_f32acc"] = p12_read(
+        "P12 train_hp_twin(200, 250) on bf16_f32acc",
+        {"K1 bf16_f32acc": 250, "K2 bf16_f32acc": 250})
+    sine = recipes.eval_hp_twin(twin, params, "sine", device=dev)["mre"]
+    served = recipes.eval_hp_twin(twin, params, "sine", device=dev,
+                                  backend=FusedCudaBackend(
+                                      batch_tile=1,
+                                      precision="bf16_f32acc"))["mre"]
+    numbers["hp_bf16_f32acc"] = dict(loss=loss, sine_mre=sine,
+                                     sine_mre_served_bf16=served, s=sec,
+                                     f32_loss=hp_f32[0], f32_sine_mre=hp_f32[1])
+    print(f"[{smi}] P12 train_hp_twin at bf16_f32acc: final loss "
+          f"{loss:.6f}, sine MRE {sine:.4f} (served on bf16_f32acc "
+          f"{served:.4f}) in {sec:.2f} s; phase 7's f32 twin: loss "
+          f"{hp_f32[0]:.6f}, sine MRE {hp_f32[1]:.4f}; HP gates "
+          f"(loss < 0.01, sine MRE < 0.1) "
+          f"{'asserted' if P12_HP_GATES else 'printed only'}")
+    if P12_HP_GATES:
+        check(loss < 0.01, "P12 HP twin at bf16_f32acc: loss over 0.01")
+        check(sine < 0.1, "P12 HP twin at bf16_f32acc: sine MRE over 0.1")
+
+    # 40 HP steps from phase 7's weights on the kernels and on the plain
+    # versions (the eager loop: the engines are its bits)
+    ts_h, xs_h, _, _ = hp.generate("sine", num_points=500, dt=1e-3,
+                                   amp=recipes.HP_AMP, freq=recipes.HP_FREQ,
+                                   device=dev)
+    twin40 = make_driven_twin(1, hp.WAVEFORMS["sine"](
+        amp=recipes.HP_AMP, freq=recipes.HP_FREQ), hidden=14)
+    p0 = twin40.init(torch.Generator().manual_seed(42), device=dev)
+    hists = {}
+    for run in ("kernels", "plain", "f32", "no replay"):
+        p12_zero()
+        if run in ("kernels", "f32"):
+            _, hists[run] = trainer.train_twin(
+                twin40, p0, ts_h, xs_h[:, None], optimizer=adam(1e-3),
+                num_steps=40, segment_len=50, loss="l1", noise_std=0.002,
+                generator=torch.Generator().manual_seed(1),
+                backend=be if run == "kernels" else FusedCudaBackend())
+            if run == "kernels":
+                counts["P12_hp_40_steps_bf16_f32acc"] = p12_read(
+                    "P12 HP 40 steps on bf16_f32acc",
+                    {"K1 bf16_f32acc": 40, "K2 bf16_f32acc": 40})
+            else:
+                p12_read("P12 HP 40 steps on f32 (control)",
+                         {"K1": 40, "K2": 40})
+        else:
+            ts_seg, ys_seg = trainer.make_segments(ts_h, xs_h[:, None], 50)
+            loss_fn = trainer.segment_loss_fn(twin40, ts_seg, ys_seg,
+                                              loss="l1", noise_std=0.002,
+                                              backend=be)
+            plain = run == "plain"
+            with p12_plain_kernels(k1=plain, k2_chunk=None if plain else 1):
+                _, hists[run] = trainer.fit_eager(
+                    loss_fn, p0, adam(1e-3), 40,
+                    torch.Generator().manual_seed(1))
+            p12_read(f"P12 HP 40 steps on the plain versions"
+                     if plain else "P12 HP 40 steps, K2 without the chunk "
+                     "replay (control)",
+                     {} if plain else {"K1 bf16_f32acc": 40})
+
+    def h_rel(run):
+        return float(((hists[run] - hists["plain"]).abs()
+                      / hists["plain"].abs()).max())
+
+    numbers["hp40_hist_rel"] = h_rel("kernels")
+    numbers["hp40_hist_controls"] = {k: h_rel(k) for k in ("f32",
+                                                           "no replay")}
+    print(f"P12 HP 40 steps at bf16_f32acc, kernels vs plain: loss "
+          f"{float(hists['kernels'][0]):.6f} -> "
+          f"{float(hists['kernels'][-1]):.6f}, max rel diff "
+          f"{numbers['hp40_hist_rel']:.3e} (limit {P12_HIST_TOL:g}); "
+          f"bitwise equal: {torch.equal(hists['kernels'], hists['plain'])}; "
+          f"controls: " + "; ".join(
+              f"{k} {v:.3e}" for k, v in numbers["hp40_hist_controls"].items()))
+    check(numbers["hp40_hist_rel"] <= P12_HIST_TOL,
+          "P12 HP history: kernels vs plain differ")
+    check(all(v > P12_HIST_TOL
+              for v in numbers["hp40_hist_controls"].values()),
+          "P12 HP history: a control passes the limit")
+
+    # the Lorenz96 l1+softdtw fit under each policy (K5 / K6 on bf16 costs)
+    for prec in P12_POLICIES:
+        p12_zero()
+        t_p = time.perf_counter()
+        _, hist = trainer.train_twin(
+            l96_twin, l96_params, ts_tr, ys_tr, optimizer=adam(4e-4),
+            num_steps=P12_P4_STEPS, segment_len=60, loss=L96_CONFIG.loss,
+            gamma=0.1, noise_std=L96_CONFIG.noise_regulariser,
+            generator=torch.Generator().manual_seed(SEED + 4),
+            backend=FusedCudaBackend(precision=prec))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t_p
+        path = f"P12_P4_segment_60_{prec}"
+        n = P12_P4_STEPS
+        counts[path] = p12_read(
+            f"P12 L96 {L96_CONFIG.loss} at {prec}, segments of 60",
+            {f"K1 {prec}": n, f"K2 {prec}": n, "K5 bf16": n, "K6 bf16": n})
+        check(bool(torch.isfinite(hist).all()), f"{path}: non-finite")
+        numbers[path] = dict(first=float(hist[0]), last=float(hist[-1]),
+                             s=sec)
+        print(f"[{smi}] {path}: {n} steps in {sec:.3f} s, loss "
+              f"{float(hist[0]):.6f} -> {float(hist[-1]):.6f}")
+    return counts, numbers
+
+
+def k2_bf16_bound(sizes, B, T, u):
+    """(bound_ms, bound_by, GFLOP, MB) of one bf16 K2 call: k2_bound's
+    products plus the replay's forward pass, at the bf16 tensor-core peak
+    (the least the card could take: under "bf16_f32acc" some products take
+    a float32 adjoint); the trajectory, drive, cotangent rows 1..T and
+    weights read once at 2 bytes, g0 at 4, and dy0 and the float32
+    gradients written once."""
+    pairs = list(zip(sizes[:-1], sizes[1:]))
+    macs = sum(a * b for a, b in pairs)
+    P = sum(a * b + b for a, b in pairs)
+    D = sizes[-1]
+    du = u.shape[-1]
+    flops = 4 * 2 * (4 * macs - du * sizes[1]) * B * T
+    nbytes = (2 * ((T + 1) * B * D + T * B * D + u.numel() + P)
+              + 4 * (B * D + P + B * D))
+    b_ms, b_by = bound(flops, nbytes, BF16_PEAK)
+    return b_ms, b_by, flops / 1e9, nbytes / 1e6
+
+
+def p12_times(dev, smi, kern) -> dict:
+    """Phase 25's CUDA-event means of K1, K2, K5 and K6 under the bf16
+    policies beside float32 at the same shapes and inputs, each with its
+    plain version and its bound (bytes at the bf16 itemsizes; K1's and
+    K2's products, bf16 x bf16 summed in float32, at the bf16 tensor-core
+    peak, as K8's bf16 products)."""
+    rows = {}
+
+    def row(key, label, k_ms, f32_ms, p_ms, b, extra=""):
+        rows[key] = dict(ms=k_ms, f32_ms=f32_ms, plain_ms=p_ms,
+                         bound_ms=b[0], bound_by=b[1])
+        print(f"[{smi}] {label}: kernel_ms {k_ms:.4f} (f32 {f32_ms:.4f}, "
+              f"x{k_ms / f32_ms:.3f}), plain_ms {p_ms:.4f}, bound_ms "
+              f"{b[0]:.6f} ({b[1]}: {b[2]:.4f} GFLOP, {b[3]:.4f} MB)"
+              f"{extra}, library_ms n/a (no single PyTorch call)")
+
+    for case in ("fleet_l96", "hp_train"):
+        for prec in P12_POLICIES:
+            y0, u, ws, bs, dt, bt, C, sizes = kern["inputs"][prec, case]
+            B, T = y0.shape[0], (u.shape[1 if u.ndim == 3 else 0] - 1) // 2
+            reps = 10 if B * T > 100_000 else 20
+            k_ms = cuda_ms(lambda: fused_ode_mlp.fused_node_rollout(
+                y0, u, ws, bs, dt, batch_tile=bt, time_chunk=C,
+                precision=prec), reps=reps, warmup=3)
+            f_ms = cuda_ms(lambda: fused_ode_mlp.fused_node_rollout(
+                y0, u, ws, bs, dt, batch_tile=bt), reps=reps, warmup=3)
+            p_ms = cuda_ms(lambda: ref.fused_node_rollout_bf16_ref(
+                y0, u, ws, bs, dt, prec, C), reps=3, warmup=1)
+            flops, nbytes = fused_ode_mlp.rollout_work(sizes, B, T,
+                                                       u.numel(), 2)
+            b = (*bound(flops, nbytes, BF16_PEAK), flops / 1e9, nbytes / 1e6)
+            row(("K1", prec, case), f"K1 {prec} [{case}] B={B} T={T} "
+                f"sizes={sizes} chunk {C}", k_ms, f_ms, p_ms, b)
+    for case in ("l96_train", "hp_train"):
+        for prec in P12_POLICIES:
+            traj, u, ws, bs, g, dt, C, sizes = kern["inputs"]["k2", prec,
+                                                             case]
+            B, T = traj.shape[1], traj.shape[0] - 1
+            traj32 = traj.float()
+            k_ms = cuda_ms(lambda: fused_ode_mlp_bwd.fused_node_rollout_bwd(
+                traj, u, ws, bs, g, dt, precision=prec, time_chunk=C),
+                reps=20, warmup=3)
+            f_ms = cuda_ms(lambda: fused_ode_mlp_bwd.fused_node_rollout_bwd(
+                traj32, u, ws, bs, g, dt), reps=20, warmup=3)
+            p_ms = cuda_ms(lambda: ref.fused_node_rollout_bf16_bwd_ref(
+                traj, u, ws, bs, g, dt, prec, C), reps=3, warmup=1)
+            row(("K2", prec, case), f"K2 {prec} [{case}] B={B} T={T} "
+                f"sizes={sizes} chunk {C}", k_ms, f_ms, p_ms,
+                k2_bf16_bound(sizes, B, T, u),
+                ", launches per call 2 (sweep + reduction)")
+    for B, n, m in P12_SDTW_SHAPES:
+        Db, R = kern["inputs"]["sdtw", B, n, m]
+        D32 = Db.float()
+        for kname, bwd in (("K5", False), ("K6", True)):
+            def call(D):
+                if bwd:
+                    return softdtw.softdtw_rowmajor_bwd(D, R, gamma=0.1)
+                return softdtw.softdtw_rowmajor(D, gamma=0.1, return_r=True)
+
+            def plain():
+                if bwd:
+                    return ref.softdtw_rowmajor_bwd_ref(D32, R, gamma=0.1)
+                return ref.softdtw_rowmajor_ref(D32, gamma=0.1, return_r=True)
+            k_ms = cuda_ms(lambda: call(Db), reps=50, queue_ahead=True)
+            f_ms = cuda_ms(lambda: call(D32), reps=50, queue_ahead=True)
+            p_ms = cuda_ms(plain, reps=3, warmup=1)
+            flops, moved = sdtw_work(B, n, m, bwd)
+            moved -= 2 * B * n * m            # the costs at 2 bytes, not 4
+            b = (*bound(flops, moved), flops / 1e9, moved / 1e6)
+            row((kname, "bf16", (B, n, m)), f"{kname} on bf16 costs (B, n, "
+                f"m) = ({B}, {n}, {m})", k_ms, f_ms, p_ms, b)
+    return rows
+
+
+def p12_bf16(dev, smi, hp_f32, l96_twin, l96_params, ts_tr, ys_tr) -> dict:
+    """Phase 25 (P12): the kernels' checks, the main paths and the timing
+    under the bf16 policies.  Returns what the kernels line needs."""
+    t0 = time.perf_counter()
+    kern = p12_kernels(dev)
+    counts, numbers = p12_paths(dev, smi, hp_f32, l96_twin, l96_params,
+                                ts_tr, ys_tr)
+    times = p12_times(dev, smi, kern)
+    sec = time.perf_counter() - t0
+    print(f"[{smi}] phase 25 (P12) in {sec:.1f} s")
+    return {"kern": kern, "counts": counts, "numbers": numbers,
+            "times": times, "s": sec}
+
+
+def p12_entries(p12) -> list:
+    """The kernels line's entries of the bf16 variants."""
+    def launches(key):
+        by = {p: c[key] for p, c in p12["counts"].items() if c[key]}
+        return sum(by.values()), by
+
+    out = []
+    for kname, name, src, replaces, case in (
+            ("K1", "fused_node_rollout", "fused_ode_mlp.cu",
+             "src/repro/kernels/fused_ode_mlp.py:390", "fleet_l96"),
+            ("K2", "fused_node_rollout_bwd", "fused_ode_mlp_bwd.cu",
+             "src/repro/kernels/fused_ode_mlp_bwd.py:210", "l96_train")):
+        for prec in P12_POLICIES:
+            n, by = launches(f"{kname} {prec}")
+            err = p12["kern"][kname.lower()][prec, case]
+            t = p12["times"][kname, prec, case]
+            out.append({
+                "name": f"{name}_{prec}", "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{src}",
+                "replaces": replaces, "precision": prec,
+                "launches": n, "launches_by_path": by,
+                "shape": case, "max_abs_err": err[0],
+                "max_rel_err_of_peak": err[1], "bitwise_share": err[2],
+                "limit_of_peak": P12_K1_TOL if kname == "K1" else P12_K2_TOL,
+                "controls": p12["kern"]["controls"][kname, prec, case],
+                "ms": t["ms"], "f32_ms": t["f32_ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": None,
+                "other_shape": {k[2]: v for k, v in p12["times"].items()
+                                if k[:2] == (kname, prec) and k[2] != case}})
+    for kname, name, replaces in (
+            ("K5", "softdtw_rowmajor_bf16", "src/repro/kernels/softdtw.py:110"),
+            ("K6", "softdtw_rowmajor_bwd_bf16",
+             "src/repro/kernels/softdtw.py:215")):
+        n, by = launches(f"{kname} bf16")
+        t = p12["times"][kname, "bf16", (29, 61, 61)]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/softdtw.cu",
+            "replaces": replaces, "precision": "bf16 costs (both policies)",
+            "launches": n, "launches_by_path": by,
+            "shape": "B=29 n=61 m=61 gamma=0.1",
+            "max_abs_err": max(e[kname][0] for e in p12["kern"]["sdtw"].values()),
+            "bitwise_equal_to_plain": all(
+                e["bitwise"] for e in p12["kern"]["sdtw"].values()),
+            "ms": t["ms"], "f32_ms": t["f32_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None,
+            "segment_200_shape": p12["times"][kname, "bf16", (8, 201, 201)]})
+    return out
+
+
 def main() -> int:
     # -- 1. environment ----------------------------------------------------
     if not torch.cuda.is_available():
@@ -3730,6 +4422,8 @@ def main() -> int:
             print(f"  HP {wf:15s} MRE {m['mre']:.4f} (gate < {gate}), "
                   f"DTW/pt {m['dtw']:.6f}")
             check(m["mre"] < gate, f"HP twin: {wf} MRE over its gate")
+            if wf == "sine":
+                hp_f32 = (loss, m["mre"])     # beside phase 25's bf16 twin
         m = recipes.eval_hp_twin(twin, params, "sine", device=dev,
                                  backend=FusedCudaBackend(batch_tile=1))
         print(f"  HP sine served on fused_cuda: MRE {m['mre']:.4f}")
@@ -4637,6 +5331,9 @@ def main() -> int:
                     read_counts)
     path_counts.update(p11["counts"])
 
+    # -- 25. P12: the bf16 policies (K1, K2, K5, K6 on the reduced substrate) --
+    p12 = p12_bf16(dev, smi, hp_f32, l96_twin, l96_params, ts_tr, ys_tr)
+
     k1_paths = {"serve_fleet": launches, "train_hp_twin": hp_counts[0],
                 "hp_40_steps_fused_cuda": hp40_counts["fused_cuda"][0],
                 "train_l96_twin": l96_counts[0],
@@ -4856,7 +5553,7 @@ def main() -> int:
         ("softdtw_rowmajor", "K5", "src/repro/kernels/softdtw.py:110"),
         ("softdtw_rowmajor_bwd", "K6",
          "src/repro/kernels/softdtw.py:215"))], *lm_entries,
-        *p10["kernels"]]}
+        *p10["kernels"], *p12_entries(p12)]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

@@ -300,16 +300,31 @@ class FusedCudaBackend(BaseBackend):
 
     Gradients: ``gradient="stopgrad"`` detaches the solve; every other
     mode differentiates it through the reverse-time kernel K2
-    (:mod:`repro_torch.kernels.fused_ode_mlp_bwd`).  Only the float32
-    policy exists so far.  On CPU tensors the kernels' plain versions run
-    instead (the tests).
+    (:mod:`repro_torch.kernels.fused_ode_mlp_bwd`).  On CPU tensors the
+    kernels' plain versions run instead (the tests).
+
+    ``precision`` selects the mixed-precision policy of the substrate
+    (``"f32"`` | ``"bf16"`` | ``"bf16_f32acc"``; ``None``:
+    :func:`repro_torch.kernels.fused_ode_mlp.default_precision`, f32):
+    the bf16 policies store weights, drive and trajectory as bfloat16, so
+    a rollout comes back bfloat16, while sums accumulate in float32
+    (``bf16_f32acc``) and gradients come back float32.  ``time_chunk``
+    (None: planned as the JAX package plans it at its default budget) is
+    where a bf16 policy rounds the carry.  Every ``rollout`` /
+    ``rollout_batch`` / ``rollout_batch_local`` call takes a per-call
+    ``precision=`` override.
     """
 
     name = "fused_cuda"
     batch_tile: int = 64
+    time_chunk: Optional[int] = None
+    precision: Optional[str] = None
 
     def program(self, field: Callable, params: Params) -> ExecState:
-        """Stage float32 weight and bias operands for the kernel."""
+        """Stage float32 master weight and bias operands; the precision
+        policy rounds them to its storage dtype at solve time, so a
+        per-call ``precision="f32"`` on a bf16 backend is the exact
+        path."""
         if params is None:
             raise ValueError("FusedCudaBackend needs the MLP params")
         weights = [p["w"].to(torch.float32) for p in params]
@@ -337,19 +352,22 @@ class FusedCudaBackend(BaseBackend):
         return half_step_drive(drive, ts_fine).to(torch.float32)
 
     def _solve(self, state: ExecState, y0s, uh, dt, bt, gradient,
-               step_offset: int = 0):
+               precision: Optional[str] = None, step_offset: int = 0):
         """The fused solve: 'stopgrad' detaches, every other mode is the
-        fused VJP (K1 forward, K2 backward).  ``step_offset`` (the global
-        step of ``y0s`` in a resumed rollout) does not enter: the RK4
-        arithmetic is time-translation invariant once the drive is
-        sampled.  The analogue subclass keys its noise and drift on it."""
+        fused VJP (K1 forward, K2 backward).  ``precision=None`` falls back
+        to the backend's policy.  ``step_offset`` (the global step of
+        ``y0s`` in a resumed rollout) does not enter: the RK4 arithmetic
+        is time-translation invariant once the drive is sampled.  The
+        analogue subclass keys its noise and drift on it."""
         del step_offset
         from repro_torch.kernels import ops
         params = [{"w": w, "b": b} for w, b in
                   zip(state.extra["weights"], state.extra["biases"])]
         mode = "stopgrad" if gradient == "stopgrad" else "fused_vjp"
-        return ops.fused_node_rollout(params, y0s, uh, dt, batch_tile=bt,
-                                      gradient=mode)
+        return ops.fused_node_rollout(
+            params, y0s, uh, dt, batch_tile=bt, time_chunk=self.time_chunk,
+            gradient=mode,
+            precision=self.precision if precision is None else precision)
 
     def _u_half_window(self, state: ExecState, t0: float, dt: float,
                        num_steps: int, starts: np.ndarray,
@@ -382,12 +400,14 @@ class FusedCudaBackend(BaseBackend):
                      drive_family: Optional[Callable] = None,
                      drive_params: Optional[torch.Tensor] = None,
                      method: str = "rk4", steps_per_interval: int = 1,
-                     gradient: str = "fused_vjp") -> torch.Tensor:
+                     gradient: str = "fused_vjp",
+                     precision: Optional[str] = None) -> torch.Tensor:
         """One resumed window in one launch: each twin's drive is sampled
         on the canonical global half-step grid, so a rollout split at any
         step and resumed from the stored row is bitwise the uninterrupted
-        one.  ``step_offset`` goes to the solve (the analogue substrate
-        keys its noise, drift and write path on it)."""
+        one (under "bf16_f32acc" only at a rounding-chunk boundary, as in
+        the JAX package).  ``step_offset`` goes to the solve (the analogue
+        substrate keys its noise, drift and write path on it)."""
         from repro_torch.kernels.fused_ode_mlp import pad_fleet_to_tile
         if method != "rk4" or steps_per_interval != 1:
             raise ValueError(
@@ -399,28 +419,32 @@ class FusedCudaBackend(BaseBackend):
                                  drive_family, drive_params, ys.device)
         y0s, uh, bt, B = pad_fleet_to_tile(ys, uh, self.batch_tile)
         traj = self._solve(state, y0s, uh, float(dt), bt, gradient,
-                           step_offset=step_offset)
+                           precision, step_offset=step_offset)
         return traj[:, :B].transpose(0, 1)
 
     def rollout(self, state: ExecState, y0, ts, *, method: str = "rk4",
                 steps_per_interval: int = 1,
-                gradient: str = "fused_vjp") -> torch.Tensor:
+                gradient: str = "fused_vjp",
+                precision: Optional[str] = None) -> torch.Tensor:
         if method != "rk4":
             raise ValueError(
                 f"FusedCudaBackend integrates RK4 only, got {method!r}")
         ts_fine, dt, sub = self._grid(ts, steps_per_interval, y0.device)
         uh = self._u_half(getattr(state.field, "drive", None), ts_fine)
-        traj = self._solve(state, y0[None, :], uh, dt, 1, gradient)
+        traj = self._solve(state, y0[None, :], uh, dt, 1, gradient,
+                           precision)
         return traj[::sub, 0, :]
 
     def rollout_batch_local(self, state: ExecState, y0s, ts, *,
                             drive_family: Optional[Callable] = None,
                             drive_params: Optional[torch.Tensor] = None,
                             method: str = "rk4", steps_per_interval: int = 1,
-                            gradient: str = "fused_vjp") -> torch.Tensor:
+                            gradient: str = "fused_vjp",
+                            precision: Optional[str] = None) -> torch.Tensor:
         """Fleet solve in one kernel launch: per-twin drives sampled on
         the half-step grid as (B, 2T+1, Du), the fleet padded to a tile
-        multiple, padding dropped from the (N, T+1, D) result."""
+        multiple, padding dropped from the (N, T+1, D) result.
+        ``precision`` overrides the backend's policy for this call."""
         from repro_torch.kernels.fused_ode_mlp import pad_fleet_to_tile
         if method != "rk4":
             raise ValueError(
@@ -433,7 +457,7 @@ class FusedCudaBackend(BaseBackend):
                 lambda th_: self._u_half(lambda t: drive_family(t, th_),
                                          ts_fine))(drive_params)
         y0s, uh, bt, B = pad_fleet_to_tile(y0s, uh, self.batch_tile)
-        traj = self._solve(state, y0s, uh, dt, bt, gradient)
+        traj = self._solve(state, y0s, uh, dt, bt, gradient, precision)
         return traj[::sub, :B].transpose(0, 1)
 
 
@@ -596,13 +620,16 @@ class FusedAnalogueCudaBackend(FusedCudaBackend):
         return ExecState(field=a_field, params=None, extra=staged)
 
     def _solve(self, state: ExecState, y0s, uh, dt, bt, gradient,
-               step_offset: int = 0):
+               precision: Optional[str] = None, step_offset: int = 0):
         """The fused analogue solve on K4, detached for every ``gradient``;
         with ``trainable=True`` and a non-``stopgrad`` gradient, the masters
-        through the write path on K1/K2 instead.  ``step_offset`` (the
+        through the write path on K1/K2 instead.  ``precision`` is ignored,
+        as the JAX package's analogue substrate ignores it: the crossbar
+        reads and the write path run in float32.  ``step_offset`` (the
         global step of ``y0s``) keys the read noise, the drift and the
         write path, so a resumed rollout whose twins share one step
         replays the uninterrupted one."""
+        del precision
         from repro_torch.kernels import ops
         if self.trainable and gradient != "stopgrad":
             from repro_torch.train.hw_aware import (HwAwareConfig,
@@ -613,7 +640,8 @@ class FusedAnalogueCudaBackend(FusedCudaBackend):
                 masters, HwAwareConfig.from_backend(self, k_draws=1),
                 step_offset)
             return ops.fused_node_rollout(eff, y0s, uh, dt, batch_tile=bt,
-                                          gradient="fused_vjp")
+                                          gradient="fused_vjp",
+                                          precision="f32")
         return ops.fused_analogue_rollout(
             state.extra, y0s, uh, dt, batch_tile=bt,
             read_noise=self.spec.read_noise, noise_seed=self.read_seed,

@@ -30,10 +30,17 @@
 // host works out, at the start of shared memory.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define FM_MAX_LAYERS 8
 #define FM_FULL_MASK 0xffffffffu
+
+// A stored value as float32: a float as it is, a bfloat16 widened (exact).
+__device__ __forceinline__ float fm_ld(float x) { return x; }
+__device__ __forceinline__ float fm_ld(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 
 struct FmMlp {
   const float* w[FM_MAX_LAYERS];   // (in_l, out_l) row-major, device memory
@@ -222,11 +229,15 @@ template <int... W> struct FmFixedShape {
   }
 };
 
-// Copy the op table, the weights (and, with transposed, w_l^T) into shared
-// memory; padding is zero.  The block synchronises afterwards.
-__device__ inline void fm_load_weights(float* smem, const FmMlp& m,
-                                       const FmLayout& lay, const FmOps& ops,
-                                       bool transposed) {
+// Copy the op table, the weights w[l] and biases b[l] of m's widths (and,
+// with transposed, w_l^T) into shared memory as float32 (a bfloat16 weight
+// widened exactly); padding is zero.  The block synchronises afterwards.
+template <class T>
+__device__ inline void fm_load_weights_of(float* smem, const FmMlp& m,
+                                          const T* const* w,
+                                          const T* const* b,
+                                          const FmLayout& lay,
+                                          const FmOps& ops, bool transposed) {
   for (int i = threadIdx.x; i < lay.total; i += blockDim.x)
     smem[i] = i < FM_OPS_WORDS
                   ? __int_as_float(reinterpret_cast<const int*>(&ops)[i])
@@ -234,16 +245,23 @@ __device__ inline void fm_load_weights(float* smem, const FmMlp& m,
   __syncthreads();
   for (int l = 0; l < m.num_layers; ++l) {
     const int din = m.sizes[l], dout = m.sizes[l + 1];
-    const float* w = m.w[l];
+    const T* wl = w[l];
     for (int i = threadIdx.x; i < din * dout; i += blockDim.x) {
       const int k = i / dout, j = i - k * dout;
-      const float v = w[i];
+      const float v = fm_ld(wl[i]);
       smem[lay.w[l] + k * lay.ws[l] + j] = v;
       if (transposed) smem[lay.wt[l] + j * lay.wts[l] + k] = v;
     }
     for (int j = threadIdx.x; j < dout; j += blockDim.x)
-      smem[lay.b[l] + j] = m.b[l][j];
+      smem[lay.b[l] + j] = fm_ld(b[l][j]);
   }
+}
+
+// fm_load_weights_of the float32 weights behind m.
+__device__ inline void fm_load_weights(float* smem, const FmMlp& m,
+                                       const FmLayout& lay, const FmOps& ops,
+                                       bool transposed) {
+  fm_load_weights_of(smem, m, m.w, m.b, lay, ops, transposed);
 }
 
 // RT twins' values of one feature: a scalar, or one 128-bit load.
@@ -469,10 +487,11 @@ __device__ __forceinline__ int fm_stage_half_step(int t, int s) {
 }
 
 // ubuf[(h - h0)][col][r] = u at half-step h for twin r0 + r, for the nh
-// half-steps from h0 (zero for twins past the fleet).  u is (2T+1, Du) shared
-// (twin stride 0) or (B, 2T+1, Du).  No barrier.
-template <int RT>
-__device__ __forceinline__ void fm_stage_drive(float* ubuf, const float* u,
+// half-steps from h0 (zero for twins past the fleet), widened to float32
+// from float or bfloat16.  u is (2T+1, Du) shared (twin stride 0) or (B,
+// 2T+1, Du).  No barrier.
+template <int RT, class T>
+__device__ __forceinline__ void fm_stage_drive(float* ubuf, const T* u,
                                                long long u_twin_stride,
                                                int Du, int h0, int nh, int r0,
                                                int nr) {
@@ -480,8 +499,89 @@ __device__ __forceinline__ void fm_stage_drive(float* ubuf, const float* u,
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int r = i % RT;
     const int hc = i / RT;               // (h - h0) * Du + col
-    ubuf[i] = (r < nr) ? u[(long long)(r0 + r) * u_twin_stride +
-                           (long long)h0 * Du + hc]
+    ubuf[i] = (r < nr) ? fm_ld(u[(long long)(r0 + r) * u_twin_stride +
+                                 (long long)h0 * Du + hc])
                        : 0.0f;
   }
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 policies (fused_ode_mlp.py): the weights, biases and drive arrive
+// as bfloat16 and sit in shared memory widened to float32 (exact, by
+// fm_load_weights_of and fm_stage_drive), so the products above run
+// unchanged; what changes is where values are rounded to bf16, which the
+// epilogues below do.  PURE = false is "bf16_f32acc": every
+// layer input is rounded, the bias add, ReLU and the RK4 combination run in
+// float32.  PURE = true is "bf16": the dot's sum and the bias add are
+// rounded too, as is every RK4 operation.
+// ---------------------------------------------------------------------------
+
+// x rounded to the nearest bfloat16 (ties to even), as a float.
+__device__ __forceinline__ float fm_rbf(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Device pointers of the weights and biases stored as T (FmMlp keeps the
+// widths).
+template <class T> struct FmWeightsOf {
+  const T* w[FM_MAX_LAYERS];
+  const T* b[FM_MAX_LAYERS];
+};
+using FmWeightsBf16 = FmWeightsOf<__nv_bfloat16>;
+
+// A layer's output sum a plus its bias b under the policy.
+template <bool PURE>
+__device__ __forceinline__ float fm_bias_bf(float a, float b) {
+  return PURE ? fm_rbf(__fadd_rn(fm_rbf(a), b)) : __fadd_rn(a, b);
+}
+
+// A dense layer's epilogue under a bf16 policy: + b, then for a hidden
+// layer ReLU and the rounding of the next layer's input.
+template <int RT, bool PURE> struct FmDenseEpiBf {
+  float* out;
+  bool relu;
+  __device__ __forceinline__ void operator()(int j0, int n_out, int r,
+                                             const float (&a)[4],
+                                             float4 b4) const {
+    const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = j0 + c;
+      if (j < n_out) {
+        float v = fm_bias_bf<PURE>(a[c], b[c]);
+        if (relu) v = fm_rbf(v < 0.0f ? 0.0f : v);
+        out[j * RT + r] = v;
+      }
+    }
+  }
+};
+
+template <int RT, bool PURE> struct FmDenseHiddenBf {
+  __device__ __forceinline__ FmDenseEpiBf<RT, PURE> operator()(
+      int, float* dst) const {
+    return FmDenseEpiBf<RT, PURE>{dst, true};
+  }
+};
+
+// A stage input's y column under the policy: y + c k rounded to bf16 (the
+// layer input), the product rounded first under PURE.
+template <bool PURE>
+__device__ __forceinline__ float fm_stage_y_bf(float y, float c, float k) {
+  const float m = __fmul_rn(c, k);
+  return fm_rbf(__fadd_rn(y, PURE ? fm_rbf(m) : m));
+}
+
+// acc + 2 k (the RK4 sum after stages 2 and 3) under the policy.
+template <bool PURE>
+__device__ __forceinline__ float fm_rk4_acc_bf(float acc, float k) {
+  const float v = __fadd_rn(acc, __fmul_rn(2.0f, k));
+  return PURE ? fm_rbf(v) : v;
+}
+
+// y + (dt/6) (acc + k4) under the policy.
+template <bool PURE>
+__device__ __forceinline__ float fm_rk4_update_bf(float y, float dt6,
+                                                  float acc, float k) {
+  if (!PURE) return __fadd_rn(y, __fmul_rn(dt6, __fadd_rn(acc, k)));
+  return fm_rbf(__fadd_rn(y, fm_rbf(__fmul_rn(dt6, fm_rbf(__fadd_rn(acc, k))))));
 }

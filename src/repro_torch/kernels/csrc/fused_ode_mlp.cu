@@ -1,9 +1,10 @@
 // K1 on Hopper: weights-stationary RK4 rollout of a ReLU-MLP neural ODE.
 //
 // Replaces repro/kernels/fused_ode_mlp.py:fused_node_rollout (the Pallas
-// kernel built by _make_kernel there), float32 policy only.  It computes the
-// full trajectory of dy/dt = MLP([u(t), y]) for a fleet of B twins and
-// returns it as out (T+1, B, D), row 0 = y0.
+// kernel built by _make_kernel there) under its three precision policies.
+// It computes the full trajectory of dy/dt = MLP([u(t), y]) for a fleet of
+// B twins and returns it as out (T+1, B, D), row 0 = y0.  One kernel,
+// k1_rollout_kernel, is instantiated per policy (K1F32, K1Bf16 below).
 //
 // Design.
 //  * No grid-carried state.  The Pallas grid walks (batch tiles, time
@@ -42,6 +43,21 @@
 //    last layer's epilogue does the RK4 bookkeeping and writes the next
 //    stage's input (two input buffers alternate), so no phase only
 //    assembles a stage input.
+//  * The bf16 policies ("bf16_f32acc", "bf16"), as the JAX kernel's
+//    make_rk4_step under them, term by term: the weights, biases and drive
+//    arrive as bfloat16 (half the bytes) and are widened to float32 in
+//    shared memory, where the products read them as before (a product of
+//    two bf16 values is exact in float32, so the sums are float32 sums in
+//    fused_mlp_eval.cuh's fixed order); every layer input (the stage input
+//    [u, y + c k] and each hidden activation) is rounded to bf16; under
+//    "bf16" the dot's sum, the bias add and every RK4 operation are rounded
+//    too, with the step constants rounded to bf16 by the host; the carry
+//    starts from y0 rounded to bf16, and under "bf16_f32acc" it is float32
+//    and is rounded to bf16 after every rc steps counted from step 0 of the
+//    call (the JAX kernel's time chunk, where its grid cell ends); the
+//    trajectory is written as bfloat16.  The policy is a template argument
+//    whose float32 case rounds nowhere, so that instantiation is the
+//    float32 arithmetic above; the shared-memory layout is the same.
 //
 // Bound on this card (H100 SXM).  For the Lorenz96 fleet request (B=1024
 // twins, T=200 steps, 6->64->64->6): 4 evaluations * 2 * 4,864 MACs =
@@ -71,19 +87,71 @@ static long long k1_smem_floats(const FmMlp& m, int rt, int tc) {
   return lay.total + act + fm_round4((2 * tc + 1) * Du * rt);
 }
 
+// K1's precision policies: the type the drive, the weights and the
+// trajectory are stored as, and where the arithmetic rounds to bf16.  K1F32
+// rounds nowhere (the float32 policy); K1Bf16<false> is "bf16_f32acc",
+// K1Bf16<true> is "bf16" (fused_mlp_eval.cuh's bf16 epilogues).
+struct K1F32 {
+  using Store = float;
+  static constexpr bool kRoundsCarry = false;
+  template <int RT> using Hidden = FmDenseHidden<RT>;
+  // a layer input (the seed, the next step's y columns)
+  static __device__ __forceinline__ float in(float v) { return v; }
+  static __device__ __forceinline__ float bias(float a, float b) {
+    return __fadd_rn(a, b);
+  }
+  static __device__ __forceinline__ float stage_y(float y, float c, float k) {
+    return fm_stage_y(y, c, k);
+  }
+  static __device__ __forceinline__ float rk4_acc(float acc, float k) {
+    return __fadd_rn(acc, __fmul_rn(2.0f, k));
+  }
+  static __device__ __forceinline__ float rk4_update(float y, float dt6,
+                                                     float acc, float k) {
+    return __fadd_rn(y, __fmul_rn(dt6, __fadd_rn(acc, k)));
+  }
+};
+
+template <bool PURE> struct K1Bf16 {
+  using Store = __nv_bfloat16;
+  static constexpr bool kRoundsCarry = true;
+  template <int RT> using Hidden = FmDenseHiddenBf<RT, PURE>;
+  static __device__ __forceinline__ float in(float v) { return fm_rbf(v); }
+  static __device__ __forceinline__ float bias(float a, float b) {
+    return fm_bias_bf<PURE>(a, b);
+  }
+  static __device__ __forceinline__ float stage_y(float y, float c, float k) {
+    return fm_stage_y_bf<PURE>(y, c, k);
+  }
+  static __device__ __forceinline__ float rk4_acc(float acc, float k) {
+    return fm_rk4_acc_bf<PURE>(acc, k);
+  }
+  static __device__ __forceinline__ float rk4_update(float y, float dt6,
+                                                     float acc, float k) {
+    return fm_rk4_update_bf<PURE>(y, dt6, acc, k);
+  }
+};
+
+__device__ __forceinline__ void k1_store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void k1_store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 // The last layer's epilogue: k_{s+1} = sums + b goes straight into the RK4
 // bookkeeping and the y columns of the next stage's input, so a stage is
 // L barriered phases.  After stage s of step t (s = 0..3): acc = k1, then
 // acc += 2 k2, acc += 2 k3, the next input y + c k; after the last stage
-// y <- y + (dt/6) (acc + k4), stored as trajectory row t + 1 and as the y
+// y <- y + (dt/6) (acc + k4) (rounded to bf16 where round_carry: the step
+// ends a rounding chunk), stored as trajectory row t + 1 and as the y
 // columns of step t + 1's first input.  Each (j, twin) has one lane.
-template <int RT> struct K1StepEpi {
-  float* ys;        // [D][RT]
-  float* acc;       // [D][RT]
-  float* xnext;     // [in0][RT] the next stage's input
-  float* out_next;  // trajectory row t + 1 at this block's first twin
+template <int RT, class P> struct K1StepEpi {
+  float* ys;                     // [D][RT] the carry
+  float* acc;                    // [D][RT]
+  float* xnext;                  // [in0][RT] the next stage's input
+  typename P::Store* out_next;   // trajectory row t + 1 at the first twin
   int s, Du, D, nr;
   float cnext, dt6;
+  bool round_carry;
   __device__ __forceinline__ void operator()(int j0, int n_out, int r,
                                              const float (&a)[4],
                                              float4 b4) const {
@@ -92,16 +160,18 @@ template <int RT> struct K1StepEpi {
     for (int c = 0; c < 4; ++c) {
       const int j = j0 + c;
       if (j < n_out) {
-        const float k = __fadd_rn(a[c], b[c]);
+        const float k = P::bias(a[c], b[c]);
         const int i = j * RT + r;
         float v;
         if (s == 3) {
-          v = __fadd_rn(ys[i], __fmul_rn(dt6, __fadd_rn(acc[i], k)));
+          v = P::rk4_update(ys[i], dt6, acc[i], k);
+          if (round_carry) v = fm_rbf(v);
           ys[i] = v;
-          if (r < nr) out_next[r * D + j] = v;
+          if (r < nr) k1_store(out_next + r * D + j, v);
+          v = P::in(v);
         } else {
-          acc[i] = (s == 0) ? k : __fadd_rn(acc[i], __fmul_rn(2.0f, k));
-          v = fm_stage_y(ys[i], cnext, k);
+          acc[i] = (s == 0) ? k : P::rk4_acc(acc[i], k);
+          v = P::stage_y(ys[i], cnext, k);
         }
         xnext[(Du + j) * RT + r] = v;
       }
@@ -109,13 +179,15 @@ template <int RT> struct K1StepEpi {
   }
 };
 
-template <int RT, class Shape>
+template <int RT, class Shape, class P>
 __global__ void __launch_bounds__(K1_MAX_THREADS)
-k1_rollout_kernel(const float* __restrict__ y0, const float* __restrict__ u,
-                  float* __restrict__ out, const FmMlp mlp, const FmLayout lay,
-                  const FmOps ops, const Shape shape, int B, int T,
-                  long long u_twin_stride, float dt, float dt2, float dt6,
-                  int tc) {
+k1_rollout_kernel(const float* __restrict__ y0,
+                  const typename P::Store* __restrict__ u,
+                  typename P::Store* __restrict__ out, const FmMlp mlp,
+                  const FmWeightsOf<typename P::Store> wts,
+                  const FmLayout lay, const FmOps ops, const Shape shape,
+                  int B, int T, long long u_twin_stride, float dt, float dt2,
+                  float dt6, int rc, int tc) {
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
@@ -138,7 +210,7 @@ k1_rollout_kernel(const float* __restrict__ y0, const float* __restrict__ u,
   float* ubuf = acc + fm_round4(D) * RT;     // [2 tc + 1][Du][RT] drive chunk
   const int nact = (int)(ubuf - xs) + fm_round4((2 * tc + 1) * Du * RT);
 
-  fm_load_weights(smem, mlp, lay, ops, false);
+  fm_load_weights_of(smem, mlp, wts.w, wts.b, lay, ops, false);
   for (int i = tid; i < nact; i += nt) xs[i] = 0.0f;
   __syncthreads();
   if (Du > 0 && T > 0)
@@ -147,10 +219,11 @@ k1_rollout_kernel(const float* __restrict__ y0, const float* __restrict__ u,
   for (int i = tid; i < D * RT; i += nt) {
     const int j = i / RT, r = i % RT;
     if (r < nr) {
-      const float v = y0[(long long)(r0 + r) * D + j];
+      // the seed is y0 (rounded to bf16 under a bf16 policy)
+      const float v = P::in(y0[(long long)(r0 + r) * D + j]);
       ys[i] = v;
-      xs[Du * RT + i] = v;                     // step 0's first input
-      out[(long long)(r0 + r) * D + j] = v;    // trajectory row 0 = y0
+      xs[Du * RT + i] = v;                           // step 0's first input
+      k1_store(out + (long long)(r0 + r) * D + j, v);  // trajectory row 0
     }
   }
   __syncthreads();
@@ -167,7 +240,8 @@ k1_rollout_kernel(const float* __restrict__ y0, const float* __restrict__ u,
                          2 * min(tc, T - t) + 1, r0, nr);
       __syncthreads();
     }
-    float* out_next = out + ((long long)(t + 1) * B + r0) * D;
+    typename P::Store* out_next = out + ((long long)(t + 1) * B + r0) * D;
+    const bool round_carry = P::kRoundsCarry && (t + 1) % rc == 0;
 #pragma unroll 1
     for (int s = 0; s < 4; ++s) {
       const int n = 4 * t + s;
@@ -180,85 +254,124 @@ k1_rollout_kernel(const float* __restrict__ y0, const float* __restrict__ u,
         for (int e = tid; e < Du * RT; e += nt)
           xnext[e] = ubuf[(hn - 2 * c0) * Du * RT + e];
       fm_mlp<RT>(shape, smem, xcur, h0, hstep, 1,
-                 K1StepEpi<RT>{ys, acc, xnext, out_next, s, Du, D, nr,
-                               (s == 2) ? dt : dt2, dt6});
+                 K1StepEpi<RT, P>{ys, acc, xnext, out_next, s, Du, D, nr,
+                                  (s == 2) ? dt : dt2, dt6, round_carry},
+                 typename P::template Hidden<RT>());
     }
   }
-}
-
-template <int RT, class Shape>
-static int k1_launch(const Shape& shape, int grid, int threads,
-                     long long smem_bytes, cudaStream_t st, const float* y0,
-                     const float* u, float* out, const FmMlp& mlp,
-                     const FmLayout& lay, const FmOps& ops, int B, int T,
-                     long long u_twin_stride, float dt, float dt2, float dt6,
-                     int tc) {
-  if (smem_bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        k1_rollout_kernel<RT, Shape>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  k1_rollout_kernel<RT, Shape><<<grid, threads, (size_t)smem_bytes, st>>>(
-      y0, u, out, mlp, lay, ops, shape, B, T, u_twin_stride, dt, dt2, dt6, tc);
-  return (int)cudaGetLastError();
 }
 
 // The Lorenz96 twin and the HP memristor twin, compiled for their widths.
 using K1L96 = FmFixedShape<6, 64, 64, 6>;
 using K1HP = FmFixedShape<2, 14, 14, 1>;
 
-// Launch K1 on `stream`.  Pointers are device pointers except w_ptrs,
+// One call's launch, as the host entry point checked it.
+struct K1Call {
+  const void* y0;
+  const void* u;
+  void* out;
+  const void* const* w;
+  const void* const* b;
+  FmMlp mlp;
+  FmLayout lay;
+  FmOps ops;
+  int B, T, twins, grid, threads, rc, tc;
+  long long u_twin_stride, smem_bytes;
+  float dt, dt2, dt6;
+  cudaStream_t st;
+};
+
+template <class P, int RT, class Shape>
+static int k1_launch(const Shape& shape, const K1Call& c) {
+  using S = typename P::Store;
+  FmWeightsOf<S> wts = {};
+  for (int l = 0; l < c.mlp.num_layers; ++l) {
+    wts.w[l] = static_cast<const S*>(c.w[l]);
+    wts.b[l] = static_cast<const S*>(c.b[l]);
+  }
+  if (c.smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        k1_rollout_kernel<RT, Shape, P>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)c.smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  k1_rollout_kernel<RT, Shape, P>
+      <<<c.grid, c.threads, (size_t)c.smem_bytes, c.st>>>(
+          static_cast<const float*>(c.y0), static_cast<const S*>(c.u),
+          static_cast<S*>(c.out), c.mlp, wts, c.lay, c.ops, shape, c.B, c.T,
+          c.u_twin_stride, c.dt, c.dt2, c.dt6, c.rc, c.tc);
+  return (int)cudaGetLastError();
+}
+
+// The instantiation for the call's widths and twins per block.
+template <class P>
+static int k1_dispatch(const K1Call& c) {
+  const int L = c.mlp.num_layers;
+  if (K1L96::matches(c.mlp.sizes, L))
+    return c.twins == 4 ? k1_launch<P, 4>(K1L96{}, c)
+                        : k1_launch<P, 1>(K1L96{}, c);
+  if (K1HP::matches(c.mlp.sizes, L) && c.twins == 1)
+    return k1_launch<P, 1>(K1HP{}, c);
+  FmDynShape dyn;
+  dyn.L = L;
+  for (int l = 0; l <= FM_MAX_LAYERS; ++l) dyn.size[l] = c.mlp.sizes[l];
+  return c.twins == 4 ? k1_launch<P, 4>(dyn, c) : k1_launch<P, 1>(dyn, c);
+}
+
+// Launch K1 on `stream` under a precision policy: 0 "f32", 1
+// "bf16_f32acc", 2 "bf16".  Pointers are device pointers except w_ptrs,
 // b_ptrs and sizes, which are host arrays of num_layers, num_layers and
-// num_layers + 1 entries.  u may be null when Du == 0; u_twin_stride is 0
-// for a drive shared by the fleet and (2T+1)*Du for one drive per twin.
-// twins (1 or 4), threads, tc (drive steps staged per load) and smem_bytes
-// are the wrapper's launch_geometry; smem_bytes must equal the layout's.
-// Returns the cudaError_t of the launch (0 on success); nothing is
-// allocated and nothing synchronises.
-extern "C" int k1_fused_node_rollout_f32(
+// num_layers + 1 entries.  y0 is float32; u, out and the weights and biases
+// are float32 under "f32" and bfloat16 under the bf16 policies.  u may be
+// null when Du == 0; u_twin_stride is 0 for a drive shared by the fleet and
+// (2T+1)*Du for one drive per twin.  dt, dt2, dt6 are the policy's step
+// constants (bf16-rounded under "bf16"); rc >= 1 is the rounding chunk of
+// the carry (unused under "f32").  twins (1 or 4), threads, tc (drive steps
+// staged per load) and smem_bytes are the wrapper's launch_geometry;
+// smem_bytes must equal the layout's.  Returns the cudaError_t of the
+// launch (0 on success); nothing is allocated and nothing synchronises.
+extern "C" int k1_fused_node_rollout(
     const void* y0, const void* u, void* out, const void* w_ptrs,
     const void* b_ptrs, const void* sizes, int num_layers, int B, int T,
     int D, int Du, long long u_twin_stride, float dt, float dt2, float dt6,
-    int twins, int threads, int tc, long long smem_bytes, void* stream) {
+    int policy, int rc, int twins, int threads, int tc, long long smem_bytes,
+    void* stream) {
   if (num_layers < 1 || num_layers > FM_MAX_LAYERS || B < 1 || T < 0 ||
       (twins != 1 && twins != 4) || threads < 32 || threads % 32 != 0 ||
-      threads > K1_MAX_THREADS || tc < 1)
+      threads > K1_MAX_THREADS || tc < 1 || rc < 1 || policy < 0 ||
+      policy > 2)
     return (int)cudaErrorInvalidValue;
-  FmMlp mlp;
-  FmDynShape dyn;
-  const void* const* w = static_cast<const void* const*>(w_ptrs);
-  const void* const* b = static_cast<const void* const*>(b_ptrs);
+  K1Call c = {};
   const int* sz = static_cast<const int*>(sizes);
-  mlp.num_layers = num_layers;
-  dyn.L = num_layers;
-  for (int l = 0; l < num_layers; ++l) {
-    mlp.w[l] = static_cast<const float*>(w[l]);
-    mlp.b[l] = static_cast<const float*>(b[l]);
-  }
+  c.mlp.num_layers = num_layers;
   for (int l = 0; l <= FM_MAX_LAYERS; ++l)
-    mlp.sizes[l] = dyn.size[l] = l <= num_layers ? sz[l] : 0;
-  if (mlp.sizes[0] != Du + D || mlp.sizes[num_layers] != D)
+    c.mlp.sizes[l] = l <= num_layers ? sz[l] : 0;
+  if (c.mlp.sizes[0] != Du + D || c.mlp.sizes[num_layers] != D)
     return (int)cudaErrorInvalidValue;
-  if (smem_bytes != 4 * k1_smem_floats(mlp, twins, tc))
+  if (smem_bytes != 4 * k1_smem_floats(c.mlp, twins, tc))
     return (int)cudaErrorInvalidValue;
-  const FmLayout lay = fm_layout(mlp, false);
-  const FmOps ops = fm_ops(mlp, lay, false);
+  c.y0 = y0;
+  c.u = u;
+  c.out = out;
+  c.w = static_cast<const void* const*>(w_ptrs);
+  c.b = static_cast<const void* const*>(b_ptrs);
+  c.lay = fm_layout(c.mlp, false);
+  c.ops = fm_ops(c.mlp, c.lay, false);
+  c.B = B;
+  c.T = T;
+  c.twins = twins;
+  c.grid = (B + twins - 1) / twins;
+  c.threads = threads;
+  c.rc = rc;
+  c.tc = tc;
+  c.u_twin_stride = u_twin_stride;
+  c.smem_bytes = smem_bytes;
+  c.dt = dt;
+  c.dt2 = dt2;
+  c.dt6 = dt6;
+  c.st = static_cast<cudaStream_t>(stream);
   cudaGetLastError();                      // clear any stale error first
-  const int grid = (B + twins - 1) / twins;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* y0f = static_cast<const float*>(y0);
-  const float* uf = static_cast<const float*>(u);
-  float* outf = static_cast<float*>(out);
-#define K1_LAUNCH(RT, SHAPE)                                                \
-  return k1_launch<RT>(SHAPE, grid, threads, smem_bytes, st, y0f, uf, outf, \
-                       mlp, lay, ops, B, T, u_twin_stride, dt, dt2, dt6, tc)
-  if (K1L96::matches(sz, num_layers)) {
-    if (twins == 4) K1_LAUNCH(4, K1L96{});
-    K1_LAUNCH(1, K1L96{});
-  }
-  if (K1HP::matches(sz, num_layers) && twins == 1) K1_LAUNCH(1, K1HP{});
-  if (twins == 4) K1_LAUNCH(4, dyn);
-  K1_LAUNCH(1, dyn);
-#undef K1_LAUNCH
+  if (policy == 0) return k1_dispatch<K1F32>(c);
+  if (policy == 1) return k1_dispatch<K1Bf16<false>>(c);
+  return k1_dispatch<K1Bf16<true>>(c);
 }

@@ -17,22 +17,34 @@ Device rule: the plain version :func:`repro_torch.kernels.ref.fused_node_rollout
 runs only for CPU tensors.  CUDA tensors launch the kernel or raise; no
 path swaps in the plain version.
 
-Only the float32 policy is ported.  The TPU planning knobs
-(``time_chunk``, ``vmem_budget_bytes``, ``interpret``) have no
-counterpart: f32 results do not depend on them.
+Precision policies (JAX's ``precision``): ``"f32"``, ``"bf16_f32acc"``
+(weights, drive and trajectory stored as bfloat16, every layer input
+rounded to bf16, products summed in float32, a float32 carry rounded
+through bf16 once every ``time_chunk`` steps) and ``"bf16"`` (the dot's
+sum, the bias add and every RK4 operation rounded too, so the carry is
+bf16).  Under a bf16 policy the chunk is where the carry is rounded, so
+it changes results: :func:`plan_time_chunk` picks it as the JAX
+planner does (pure arithmetic over the widths and the policy's
+itemsizes; on the card it stages nothing, :func:`launch_geometry` does
+that).  Under f32 ``time_chunk`` changes no bit.  The wide kernel K1w
+takes f32 only.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
 from repro_torch.kernels import ref, work
 
-#: Precision policies of the JAX kernel; only "f32" is ported.
+#: Precision policies of the JAX kernel (see the module docstring).
 PRECISIONS = ("f32", "bf16", "bf16_f32acc")
+
+#: The JAX planner's per-cell VMEM budget: it sizes the bf16 policies'
+#: rounding chunk (``time_chunk=None``), not any buffer on the card.
+DEFAULT_VMEM_BUDGET = 14 * 1024 * 1024
 
 #: Shared memory a Hopper block may use (227 KB of the SM's 256 KB).
 SMEM_LIMIT_BYTES = 232_448
@@ -61,8 +73,12 @@ TIME_CHUNK = 16
 #: ``csrc/fused_mlp_eval.cuh``).
 MAX_LAYERS = 8
 
-#: Launches of the CUDA kernel in this process (one per kernel launch).
+#: Launches of the CUDA kernel in this process (one per kernel launch)
+#: under the f32 policy; the bf16 policies count in ``LAUNCHES_BF16`` and
+#: ``LAUNCHES_BF16_F32ACC``.
 LAUNCHES = 0
+LAUNCHES_BF16 = 0
+LAUNCHES_BF16_F32ACC = 0
 
 #: CTAs of one thread-block cluster of the wide kernels K1w and K4w
 #: (``csrc/fused_wide.cu``): the portable maximum.
@@ -92,27 +108,116 @@ class Geometry:
     cluster: int = 1
 
 
-def resolve_precision(precision: str | None,
-                      what: str = "the fused kernel") -> str:
-    """``None`` or ``"f32"``; the bf16 policies of ``what`` are not ported
-    yet."""
-    if precision is None or precision == "f32":
-        return "f32"
-    if precision in PRECISIONS:
-        raise NotImplementedError(
-            f"precision={precision!r}: the bf16 policies of {what} are not "
-            f"ported yet (ROADMAP.md, queue 1 item 7); use 'f32'")
+def default_precision() -> str:
+    """``"f32"`` on every device the port runs on.  The JAX package picks
+    ``"bf16_f32acc"`` only when its default backend is a TPU; the port
+    has no such device, and its card numbers are float32 unless a call
+    asks for a bf16 policy."""
+    return "f32"
+
+
+def resolve_precision(precision: str | None) -> str:
+    """A policy name, or ``None`` for :func:`default_precision`."""
+    if precision is None:
+        return default_precision()
+    if precision not in PRECISIONS:
+        raise ValueError(
+            f"unknown precision {precision!r}; have {list(PRECISIONS)}")
+    return precision
+
+
+def precision_dtypes(precision: str):
+    """``(store, compute, acc, carry)`` torch dtypes of a resolved policy:
+    the stored slabs (weights, biases, drive, trajectory), the products'
+    operands, their sums, and the RK4 carry."""
+    if precision == "f32":
+        return (torch.float32,) * 4
+    if precision == "bf16":
+        return (torch.bfloat16,) * 4
+    if precision == "bf16_f32acc":
+        return torch.bfloat16, torch.bfloat16, torch.float32, torch.float32
     raise ValueError(
         f"unknown precision {precision!r}; have {list(PRECISIONS)}")
 
 
-def _require_float(name: str, x: torch.Tensor) -> None:
+def _require_float(name: str, x: torch.Tensor,
+                   precision: str = "f32") -> None:
     """A non-floating input raises here, naming the input."""
     if not torch.is_floating_point(x):
+        store = str(precision_dtypes(precision)[0]).replace("torch.", "")
         raise ValueError(
             f"fused_node_rollout: {name} has non-floating dtype {x.dtype}; "
-            f"the precision='f32' policy stores float32 — cast {name} to a "
-            f"floating dtype first")
+            f"the precision={precision!r} policy stores {store} — cast "
+            f"{name} to a floating dtype first")
+
+
+class ChunkPlan(NamedTuple):
+    """How the JAX kernel streams a T-step horizon through VMEM; its
+    ``time_chunk`` is where a bf16 policy rounds the carry."""
+    time_chunk: int          # C: RK4 steps per grid cell
+    num_chunks: int          # ceil(T / C)
+    vmem_bytes: int          # estimated per-cell VMEM footprint
+
+
+def _itemsizes(precision: str):
+    store, _, acc, carry = precision_dtypes(resolve_precision(precision))
+    return store.itemsize, acc.itemsize, carry.itemsize
+
+
+def _rk4_activation_bytes(bt: int, D: int, sizes: Sequence[int],
+                          acc_itemsize: int) -> int:
+    """VMEM slack of one RK4 step's live temporaries in the JAX kernel:
+    ``acc_itemsize * bt * (6 D + max_l(in_l + out_l))``."""
+    widest_pair = max(a + b for a, b in zip(sizes[:-1], sizes[1:]))
+    return acc_itemsize * bt * (6 * D + widest_pair)
+
+
+def _param_count(sizes: Sequence[int]) -> int:
+    return sum(a * b + b for a, b in zip(sizes[:-1], sizes[1:]))
+
+
+def _plan(T: int, per_step: int, fixed: int, u_row: int,
+          vmem_budget_bytes: int, time_chunk, what: str) -> int:
+    """The chunk C of the JAX planners: ``time_chunk`` clamped to [1, T],
+    or the most steps of ``per_step`` bytes that fit the budget beside
+    ``fixed`` and one drive row."""
+    if time_chunk is not None:
+        return max(1, min(int(time_chunk), T))
+    C = int((vmem_budget_bytes - fixed - u_row) // per_step)
+    if C < 1:
+        raise ValueError(
+            f"{what} need ~{(fixed + per_step + u_row) / 2 ** 20:.1f} MiB "
+            f"VMEM (budget {vmem_budget_bytes / 2 ** 20:.1f}); shrink "
+            f"batch_tile or the MLP")
+    return min(C, T)
+
+
+def plan_time_chunk(T: int, bt: int, D: int, du: int, per_tile_drive: bool,
+                    sizes: Sequence[int],
+                    vmem_budget_bytes: int = DEFAULT_VMEM_BUDGET,
+                    time_chunk: int | None = None,
+                    precision: str = "f32") -> ChunkPlan:
+    """The JAX forward planner (``repro/kernels/fused_ode_mlp.py``) over
+    the MLP widths ``sizes``: the largest chunk C whose per-cell bytes
+    (weights and biases, the (C, bt, D) output slab, the (2C+1)-row drive
+    slab at the storage itemsize; the carry; the RK4 activation slack at
+    the accumulation itemsize) fit ``vmem_budget_bytes``, or an explicit
+    ``time_chunk``, which raises a ``ValueError`` where it would not
+    fit."""
+    sb, ab, cb = _itemsizes(precision)
+    u_width = max(du, 1) * (bt if per_tile_drive else 1)
+    fixed = (sb * _param_count(sizes)
+             + _rk4_activation_bytes(bt, D, sizes, ab) + cb * bt * D)
+    per_step = sb * bt * D + 2 * sb * u_width
+    C = _plan(T, per_step, fixed, sb * u_width, vmem_budget_bytes,
+              time_chunk, "fused kernel weights + one RK4 step")
+    need = fixed + sb * C * bt * D + sb * (2 * C + 1) * u_width
+    if need > vmem_budget_bytes:
+        raise ValueError(
+            f"time_chunk={C} needs ~{need / 2 ** 20:.1f} MiB VMEM "
+            f"(budget {vmem_budget_bytes / 2 ** 20:.1f}); shrink "
+            f"time_chunk or batch_tile")
+    return ChunkPlan(C, -(-T // C), need)
 
 
 #: Words of the product-descriptor table at the start of a block's shared
@@ -444,42 +549,56 @@ def drive_window(u_half: torch.Tensor, start_step: int,
     return u_half[:, lo:hi] if axis == 1 else u_half[lo:hi]
 
 
+#: The policy argument of ``k1_fused_node_rollout`` per precision policy.
+_POLICY_CODES = {"f32": 0, "bf16_f32acc": 1, "bf16": 2}
+
+
 def _launch(y0, u_half, weights, biases, dt, per_twin, T, du, sizes,
-            geom: Geometry):
-    """Launch K1 (K1w for a cluster ``geom``) on the current stream at
-    ``geom``; returns (T+1, B, D) float32."""
-    global LAUNCHES
+            geom: Geometry, precision: str = "f32", C: int | None = None):
+    """Launch K1 (K1w for a cluster ``geom``, f32 only) on the current
+    stream at ``geom`` under ``precision``, the carry rounded every ``C``
+    steps under a bf16 policy: y0 float32, the drive, weights and biases
+    at the policy's storage dtype; returns the (T+1, B, D) trajectory at
+    that dtype.  Counts the launch in the policy's counter."""
+    global LAUNCHES, LAUNCHES_BF16, LAUNCHES_BF16_F32ACC
     if geom.cluster > 1:
         return _launch_wide(y0, u_half, weights, biases, dt, per_twin, T, du,
                             sizes, geom)
     from repro_torch.kernels import _build
-    fn = _build.load("fused_ode_mlp").k1_fused_node_rollout_f32
+    fn = _build.load("fused_ode_mlp").k1_fused_node_rollout
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] + [ctypes.c_float] * 3
-                   + [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_void_p])
+                   + [ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     B, D = y0.shape
     L = len(weights)
-    out = torch.empty((T + 1, B, D), dtype=torch.float32, device=y0.device)
+    store = precision_dtypes(precision)[0]
+    out = torch.empty((T + 1, B, D), dtype=store, device=y0.device)
     w_ptrs = (ctypes.c_void_p * L)(*[w.data_ptr() for w in weights])
     b_ptrs = (ctypes.c_void_p * L)(*[b.data_ptr() for b in biases])
     c_sizes = (ctypes.c_int * (L + 1))(*sizes)
     u_ptr = u_half.data_ptr() if du > 0 else None
     u_twin_stride = (2 * T + 1) * du if per_twin else 0
-    dt64 = float(dt)
+    c2, c1, c6 = ref.rk4_consts(float(dt), precision == "bf16")
     with torch.cuda.device(y0.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(y0.data_ptr(), u_ptr, out.data_ptr(),
                  ctypes.addressof(w_ptrs), ctypes.addressof(b_ptrs),
                  ctypes.addressof(c_sizes), L, B, T, D, du, u_twin_stride,
-                 dt64, dt64 / 2, dt64 / 6, geom.twins_per_block,
-                 geom.threads, geom.time_chunk, geom.smem_bytes, stream)
+                 c1, c2, c6, _POLICY_CODES[precision], C or max(T, 1),
+                 geom.twins_per_block, geom.threads, geom.time_chunk,
+                 geom.smem_bytes, stream)
     if err != 0:
         raise RuntimeError(
             f"fused_node_rollout: CUDA kernel launch failed with "
-            f"cudaError_t {err} (B={B}, T={T}, sizes={tuple(sizes)}, "
-            f"{geom})")
-    LAUNCHES += 1
+            f"cudaError_t {err} (precision={precision!r}, B={B}, T={T}, "
+            f"sizes={tuple(sizes)}, {geom})")
+    if precision == "f32":
+        LAUNCHES += 1
+    elif precision == "bf16":
+        LAUNCHES_BF16 += 1
+    else:
+        LAUNCHES_BF16_F32ACC += 1
     return out
 
 
@@ -518,25 +637,28 @@ def _launch_wide(y0, u_half, weights, biases, dt, per_twin, T, du, sizes,
     return out
 
 
-def rollout_work(sizes: Sequence[int], B: int, T: int, u_numel: int):
+def rollout_work(sizes: Sequence[int], B: int, T: int, u_numel: int,
+                 store_itemsize: int = 4):
     """(FLOP, bytes) of one rollout of ``B`` twins over ``T`` steps: the
-    MLP's products for every twin and RK4 evaluation; y0, the drive and the
-    weights read once, the trajectory written once."""
+    MLP's products for every twin and RK4 evaluation; y0 (float32), the
+    drive and the weights read once, the trajectory written once, the last
+    three at the policy's storage itemsize (2 under the bf16 policies)."""
     pairs = list(zip(sizes[:-1], sizes[1:]))
     macs = sum(a * b for a, b in pairs)
     params = sum(a * b + b for a, b in pairs)
     return (2.0 * macs * 4 * T * B,
-            4.0 * (B * sizes[-1] + u_numel + params + (T + 1) * B * sizes[-1]))
+            4.0 * B * sizes[-1] + float(store_itemsize)
+            * (u_numel + params + (T + 1) * B * sizes[-1]))
 
 
-def _rollout_args(y0, u_half, weights, biases):
+def _rollout_args(y0, u_half, weights, biases, precision: str = "f32"):
     """Validate a rollout's inputs; returns ``(y0, u_half, per_twin, T,
     du, sizes)`` with a zero-width per-twin drive folded to a shared one."""
-    _require_float("y0", y0)
-    _require_float("u_half", u_half)
+    _require_float("y0", y0, precision)
+    _require_float("u_half", u_half, precision)
     for li, (w, b) in enumerate(zip(weights, biases)):
-        _require_float(f"weights[{li}]", w)
-        _require_float(f"biases[{li}]", b)
+        _require_float(f"weights[{li}]", w, precision)
+        _require_float(f"biases[{li}]", b, precision)
     B, D = y0.shape
     per_twin = u_half.ndim == 3
     if per_twin and u_half.shape[0] != B:
@@ -564,28 +686,40 @@ def fused_node_rollout(
     dt: float,
     *,
     batch_tile: int = 64,
+    time_chunk: int | None = None,
     precision: str | None = None,
 ) -> torch.Tensor:
-    """Full-trajectory RK4 solve; returns (T+1, B, D) float32, row 0 = y0.
+    """Full-trajectory RK4 solve; returns (T+1, B, D) at the policy's
+    storage dtype (float32, or bfloat16 under a bf16 policy), row 0 = y0.
 
     ``u_half`` is the drive sampled at RK4 half-steps: (2T+1, Du) shared
     by the whole fleet, or (B, 2T+1, Du) with one stimulus per twin; Du
     may be 0 (autonomous).  B must divide by ``batch_tile``
     (:func:`pad_fleet_to_tile` pads a fleet up to it).  Floating inputs
-    are cast to float32; a non-floating input raises a ``ValueError``
-    naming it.  CPU tensors take the plain version, CUDA tensors the
-    kernel at :func:`launch_geometry` (K1w above one block); any other
+    are cast to the policy's dtypes; a non-floating input raises a
+    ``ValueError`` naming it.  ``precision`` (None = :func:`default_precision`)
+    picks the policy; under a bf16 one the carry is rounded every
+    ``time_chunk`` steps (None: :func:`plan_time_chunk`'s pick for
+    ``batch_tile`` at ``DEFAULT_VMEM_BUDGET``, as the JAX kernel plans
+    it by default).  CPU tensors take the plain version, CUDA tensors the kernel at
+    :func:`launch_geometry` (K1w above one block, f32 only); any other
     placement raises.  The call reports its work to
     :mod:`repro_torch.kernels.work`.
     """
-    resolve_precision(precision)
+    precision = resolve_precision(precision)
     y0, u_half, per_twin, T, du, sizes = _rollout_args(y0, u_half, weights,
-                                                       biases)
+                                                       biases, precision)
     B = y0.shape[0]
     bt = min(batch_tile, B)
     if B % bt:
         raise ValueError(f"batch {B} not divisible by tile {bt}")
     geom = launch_geometry(B, sizes)
+    if precision != "f32":
+        C = plan_time_chunk(T, bt, sizes[-1], du, per_twin, sizes,
+                            time_chunk=time_chunk,
+                            precision=precision).time_chunk
+        return _rollout_bf16(y0, u_half, weights, biases, dt, per_twin, T,
+                             du, sizes, geom, precision, C)
 
     L = len(weights)
     device, (y0, u_half, *wb) = placed_f32(
@@ -599,6 +733,27 @@ def fused_node_rollout(
                                               float(dt))
     return _launch(y0, u_half, weights, biases, dt, per_twin, T, du, sizes,
                    geom)
+
+
+def _rollout_bf16(y0, u_half, weights, biases, dt, per_twin, T, du, sizes,
+                  geom: Geometry, precision: str, C: int):
+    """K1 under a bf16 policy with the carry rounded every ``C`` steps:
+    the plain version for CPU tensors, the kernel for CUDA tensors."""
+    if geom.cluster > 1:
+        raise NotImplementedError(
+            f"precision={precision!r} at MLP {tuple(sizes)}: the wide "
+            f"cluster kernel K1w takes the f32 policy only (ROADMAP.md, "
+            f"queue 2 A1); use precision='f32'")
+    device, (y0, u_half, weights, biases) = placed_bf16(
+        "fused_node_rollout", y0, u_half, weights, biases)
+    work.report("K1", *rollout_work(sizes, y0.shape[0], T, u_half.numel(),
+                                    store_itemsize=2))
+    if device.type == "cpu":
+        with work.uncounted():
+            return ref.fused_node_rollout_bf16_ref(
+                y0, u_half, weights, biases, float(dt), precision, C)
+    return _launch(y0, u_half, weights, biases, dt, per_twin, T, du, sizes,
+                   geom, precision, C)
 
 
 def fused_node_rollout_at(geom: Geometry, y0: torch.Tensor,
@@ -621,12 +776,12 @@ def fused_node_rollout_at(geom: Geometry, y0: torch.Tensor,
                    geom)
 
 
-def placed_f32(caller: str, tensors: Sequence[torch.Tensor],
-               num_layers: int):
-    """The one device all ``tensors`` lie on, and the tensors as
-    contiguous float32.  The CPU (plain versions) and CUDA (kernels) are
-    accepted; inputs on several devices, on any other device, or an MLP
-    deeper than the kernels' argument struct on CUDA raise."""
+def _one_device(caller: str, tensors: Sequence[torch.Tensor],
+                num_layers: int) -> torch.device:
+    """The one device all ``tensors`` lie on.  The CPU (plain versions) and
+    CUDA (kernels) are accepted; inputs on several devices, on any other
+    device, or an MLP deeper than the kernels' argument struct on CUDA
+    raise."""
     devices = {x.device for x in tensors}
     if len(devices) != 1:
         raise ValueError(
@@ -641,4 +796,25 @@ def placed_f32(caller: str, tensors: Sequence[torch.Tensor],
         raise ValueError(
             f"{caller}: {num_layers} layers, the kernel takes at most "
             f"{MAX_LAYERS}")
+    return device
+
+
+def placed_f32(caller: str, tensors: Sequence[torch.Tensor],
+               num_layers: int):
+    """The one device all ``tensors`` lie on (:func:`_one_device`), and the
+    tensors as contiguous float32."""
+    device = _one_device(caller, tensors, num_layers)
     return device, [x.to(torch.float32).contiguous() for x in tensors]
+
+
+def placed_bf16(caller: str, y0, u_half, weights, biases):
+    """The device of a bf16 rollout's inputs (:func:`_one_device`), y0 as
+    contiguous float32 (the seed is rounded in the kernel) and the drive,
+    weights and biases as contiguous bfloat16 (the policies' storage)."""
+    device = _one_device(caller, [y0, u_half, *weights, *biases],
+                         len(weights))
+    bf = torch.bfloat16
+    return device, (y0.to(torch.float32).contiguous(),
+                    u_half.to(bf).contiguous(),
+                    [w.to(bf).contiguous() for w in weights],
+                    [b.to(bf).contiguous() for b in biases])

@@ -30,7 +30,8 @@ GRADIENT_MODES = ("fused_vjp", "stopgrad")
 
 def fused_node_rollout(params: Sequence[dict], y0: torch.Tensor,
                        u_half: torch.Tensor, dt: float, *,
-                       batch_tile: int = 64, gradient: str = "fused_vjp",
+                       batch_tile: int = 64, time_chunk: int | None = None,
+                       gradient: str = "fused_vjp",
                        precision: str | None = None) -> torch.Tensor:
     """Solve the twin's neural ODE with the weights-stationary kernel.
 
@@ -41,17 +42,27 @@ def fused_node_rollout(params: Sequence[dict], y0: torch.Tensor,
         (2T+1, Du) shared, (B, 2T+1, Du) per twin, or (2T+1, 0).
       dt: RK4 step size (uniform).
       batch_tile: B must divide by it (``FusedCudaBackend`` pads).
+      time_chunk: under a bf16 policy, the steps after which the carry is
+        rounded through bf16; ``None`` plans it as the JAX kernel does
+        (``fused_ode_mlp.plan_time_chunk`` for ``"stopgrad"``, the
+        backward planner for ``"fused_vjp"``, both at
+        ``fused_ode_mlp.DEFAULT_VMEM_BUDGET``).  Under f32 it changes no
+        bit.
       gradient: ``"stopgrad"`` detaches the solve (inference);
         ``"fused_vjp"`` makes it differentiable in ``y0`` and the params
         through the reverse-time kernel K2
         (:func:`repro_torch.kernels.fused_ode_mlp_bwd.fused_node_rollout_vjp`);
         the drive gets a zero cotangent.
-      precision: ``None`` or ``"f32"``.
+      precision: ``"f32"``, ``"bf16_f32acc"`` or ``"bf16"`` (``None``:
+        ``fused_ode_mlp.default_precision()``, f32): the bf16 policies
+        store weights, drive and trajectory as bfloat16; gradients come
+        back float32.
 
     Returns:
-      The (T+1, B, D) float32 trajectory (y0 prepended).
+      The (T+1, B, D) trajectory (y0 prepended), at the policy's storage
+      dtype.
     """
-    _k1.resolve_precision(precision)
+    precision = _k1.resolve_precision(precision)
     if gradient not in GRADIENT_MODES:
         raise ValueError(
             f"unknown gradient mode {gradient!r}; have "
@@ -60,16 +71,17 @@ def fused_node_rollout(params: Sequence[dict], y0: torch.Tensor,
     named += [(f"params[{i}]['w']", p["w"]) for i, p in enumerate(params)]
     named += [(f"params[{i}]['b']", p["b"]) for i, p in enumerate(params)]
     for name, x in named:       # fail HERE with the dict-level input name
-        _k1._require_float(name, x)
+        _k1._require_float(name, x, precision)
     weights = [p["w"] for p in params]
     biases = [p["b"] for p in params]
     if gradient == "fused_vjp":
-        return _k2.fused_node_rollout_vjp(y0, u_half, weights, biases,
-                                          float(dt), batch_tile=batch_tile)
+        return _k2.fused_node_rollout_vjp(
+            y0, u_half, weights, biases, float(dt), batch_tile=batch_tile,
+            time_chunk=time_chunk, precision=precision)
     with torch.no_grad():
-        return _k1.fused_node_rollout(y0, u_half, weights, biases, float(dt),
-                                      batch_tile=batch_tile,
-                                      precision=precision)
+        return _k1.fused_node_rollout(
+            y0, u_half, weights, biases, float(dt), batch_tile=batch_tile,
+            time_chunk=time_chunk, precision=precision)
 
 
 def _vmap_drive(drive: Callable, th: torch.Tensor) -> torch.Tensor:
@@ -271,24 +283,27 @@ def fused_analogue_rollout(staged: dict, y0: torch.Tensor,
 
 class SoftDTW(torch.autograd.Function):
     """Batched soft-DTW of a (B, n, m) cost matrix: forward K5 with R,
-    backward K6, both on the row-major matrix.  ``apply(D, gamma)``
-    returns (B,) float32; the gradient is ``g[:, None, None] * E`` in D's
-    dtype, E the E-matrix."""
+    backward K6, both on the row-major matrix.  ``apply(D, gamma[, store])``
+    returns (B,) float32; both kernels read D at the storage dtype
+    ``store`` (float32 by default, bfloat16 under a bf16 policy), which the
+    residual keeps too, and R, E stay float32.  The gradient is
+    ``g[:, None, None] * E`` in D's dtype, E the E-matrix: it goes back
+    to the unrounded costs, as the JAX package's ``_sdtw_bwd`` does."""
 
     @staticmethod
-    def forward(ctx, D, gamma):
-        D32 = D.to(torch.float32).contiguous()
-        ans, R = _k5.softdtw_rowmajor(D32, gamma=gamma, return_r=True)
-        ctx.save_for_backward(D32, R)
+    def forward(ctx, D, gamma, store=torch.float32):
+        Ds = D.to(store).contiguous()
+        ans, R = _k5.softdtw_rowmajor(Ds, gamma=gamma, return_r=True)
+        ctx.save_for_backward(Ds, R)
         ctx.gamma = gamma
         ctx.d_dtype = D.dtype
         return ans
 
     @staticmethod
     def backward(ctx, g):
-        D32, R = ctx.saved_tensors
-        E = _k5.softdtw_rowmajor_bwd(D32, R, gamma=ctx.gamma)
-        return (g[:, None, None] * E).to(ctx.d_dtype), None
+        Ds, R = ctx.saved_tensors
+        E = _k5.softdtw_rowmajor_bwd(Ds, R, gamma=ctx.gamma)
+        return (g[:, None, None] * E).to(ctx.d_dtype), None, None
 
 
 def soft_dtw(x: torch.Tensor, y: torch.Tensor, gamma: float = 1.0,
@@ -298,10 +313,11 @@ def soft_dtw(x: torch.Tensor, y: torch.Tensor, gamma: float = 1.0,
     K6 backward, differentiable in ``x`` and ``y``.  The pairwise
     |x_i - y_j| cost stays in plain autograd outside the kernels, as the
     JAX package leaves it to ``jax.vjp``; the TPU kernels' diagonal
-    layout is not built.  ``precision``: ``None`` or ``"f32"`` (the bf16
-    cost slab is not ported)."""
-    _k1.resolve_precision(precision, "the soft-DTW kernels")
-    return SoftDTW.apply(_pairwise_dist(x, y), float(gamma))
+    layout is not built.  ``precision`` (``None``: f32): under
+    ``"bf16"`` and ``"bf16_f32acc"`` the cost matrix goes to the kernels
+    as bfloat16 (R, E and the answer stay float32)."""
+    store = _k1.precision_dtypes(_k1.resolve_precision(precision))[0]
+    return SoftDTW.apply(_pairwise_dist(x, y), float(gamma), store)
 
 
 def dtw_distance(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

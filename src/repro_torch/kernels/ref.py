@@ -113,6 +113,188 @@ def fused_node_rollout_bwd_ref(traj: torch.Tensor, u_half: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# the bf16 policies of K1 and K2
+# ---------------------------------------------------------------------------
+#
+# Values are held in float32 tensors; ``rnd`` rounds to the nearest bfloat16
+# (ties to even) and back, as the kernels' __float2bfloat16_rn does.  Under
+# "bf16_f32acc" every layer input is rounded and the products of two bf16
+# values are summed in float32; bias, ReLU and the RK4 combination run in
+# float32, the carry is float32 and is rounded once every ``time_chunk``
+# steps.  Under "bf16" the dot's sum, the bias add and every RK4 operation
+# (its constants dt/2, dt, dt/6 too) are rounded as well, so the carry is
+# bf16.  This is the JAX kernel's make_rk4_step term by term.
+
+BF16 = torch.bfloat16
+
+
+def rnd(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bfloat16, held as float32."""
+    return x.to(BF16).to(F32)
+
+
+def bf16_const(c: float) -> float:
+    """A Python float as the bfloat16 that JAX's weak typing makes of it
+    (through float32)."""
+    return float(torch.tensor(c, dtype=F32).to(BF16).to(F32))
+
+
+def _mlp_bf16(x, weights, biases, pure: bool):
+    """One MLP evaluation on the bf16-valued layer input ``x`` (B, in_0):
+    returns the output and every layer's input (bf16 values, the hidden
+    ones post-ReLU)."""
+    xs = [x]
+    L = len(weights)
+    for i, (w, b) in enumerate(zip(weights, biases)):
+        z = xs[-1] @ w
+        v = rnd(rnd(z) + b) if pure else z + b
+        if i == L - 1:
+            return v, xs
+        xs.append(rnd(torch.relu(v)))
+
+
+def _stage_input(u, y, B: int):
+    """The MLP input [u, y] of one RK4 stage (u shared, per twin or of
+    width 0)."""
+    if u.shape[-1] == 0:
+        return y
+    if u.ndim == 1:
+        u = u[None, :].expand(B, u.shape[0])
+    return torch.cat([u, y], dim=-1)
+
+
+def rk4_consts(dt: float, pure: bool):
+    """(dt/2, dt, dt/6) as the policy's step uses them: float32 values
+    (Python floats the kernels round once), bf16-rounded under "bf16"."""
+    cs = (dt / 2, dt, dt / 6)
+    return tuple(bf16_const(c) for c in cs) if pure else cs
+
+
+def _rk4_step_bf16(y, u0, um, u1, weights, biases, dt: float, pure: bool,
+                   keep: bool = False):
+    """One RK4 step under a bf16 policy from the carry ``y`` (B, D): the
+    stage inputs [u, y + c k] rounded to bf16, the MLP of
+    :func:`_mlp_bf16`, the update y + (dt/6) (((k1 + 2 k2) + 2 k3) + k4)
+    in float32, or rounded op by op under "bf16".  With ``keep`` also
+    returns each stage's layer inputs (for the VJP)."""
+    B = y.shape[0]
+    c2, c1, c6 = rk4_consts(dt, pure)
+    r = rnd if pure else (lambda x: x)
+    ks, stages, yin = [], [], y
+    for s, (u, c) in enumerate(((u0, None), (um, c2), (um, c2), (u1, c1))):
+        if s:
+            yin = r(y + r(c * ks[-1]))
+        k, xs = _mlp_bf16(rnd(_stage_input(u, yin, B)), weights, biases,
+                          pure)
+        ks.append(k)
+        stages.append(xs)
+    k1, k2, k3, k4 = ks
+    y = r(y + r(c6 * r(r(r(k1 + 2 * k2) + 2 * k3) + k4)))
+    return (y, stages) if keep else y
+
+
+def _bf16_operands(u_half, weights, biases):
+    """The drive, weights and biases rounded to bf16 (as float32), the
+    storage of the bf16 policies."""
+    return (rnd(u_half.to(F32)), [rnd(w.to(F32)) for w in weights],
+            [rnd(b.to(F32)) for b in biases])
+
+
+def fused_node_rollout_bf16_ref(y0: torch.Tensor, u_half: torch.Tensor,
+                                weights: Sequence[torch.Tensor],
+                                biases: Sequence[torch.Tensor], dt: float,
+                                precision: str,
+                                time_chunk: int) -> torch.Tensor:
+    """The plain version of K1 under ``precision`` "bf16" or "bf16_f32acc":
+    returns the (T+1, B, D) bfloat16 trajectory.  The carry starts from y0
+    rounded to bf16 and is rounded again after every ``time_chunk`` steps,
+    counted from step 0 of the call (a no-op under "bf16")."""
+    pure = precision == "bf16"
+    u_half, weights, biases = _bf16_operands(u_half, weights, biases)
+    u_tm = _time_major(u_half)
+    y = rnd(y0.to(F32))
+    ys = [y]
+    for t in range(u_tm.shape[0] // 2):
+        y = _rk4_step_bf16(y, u_tm[2 * t], u_tm[2 * t + 1], u_tm[2 * t + 2],
+                           weights, biases, dt, pure)
+        if (t + 1) % time_chunk == 0:
+            y = rnd(y)
+        ys.append(rnd(y))
+    return torch.stack(ys).to(BF16)
+
+
+def _mlp_bf16_vjp(delta, xs, weights, dws, dbs, pure: bool):
+    """Pull the cotangent ``delta`` of one MLP output back through the
+    layers whose inputs are ``xs``: adds x^T delta and sum(delta) to
+    ``dws`` / ``dbs`` in float32 and returns the cotangent of the layer-0
+    input, each input cotangent rounded to bf16 (the transpose of the
+    rounded layer input), the hidden ones masked by their ReLU."""
+    for li in range(len(weights) - 1, -1, -1):
+        dws[li] += xs[li].transpose(0, 1) @ delta
+        dbs[li] += delta.sum(0)
+        d = rnd(delta @ weights[li].transpose(0, 1))
+        if li == 0:
+            return d
+        delta = torch.where(xs[li] > 0, d, torch.zeros_like(d))
+
+
+def fused_node_rollout_bf16_bwd_ref(traj: torch.Tensor, u_half: torch.Tensor,
+                                    weights: Sequence[torch.Tensor],
+                                    biases: Sequence[torch.Tensor],
+                                    g: torch.Tensor, dt: float,
+                                    precision: str, time_chunk: int):
+    """The plain version of K2 under ``precision`` "bf16" or "bf16_f32acc":
+    the VJP of :func:`fused_node_rollout_bf16_ref` with the same
+    ``time_chunk``.  Returns ``(dy0, dweights, dbiases)``, float32.
+
+    Each chunk is replayed at the carry dtype from its start row (the
+    bf16 rows inside a chunk are roundings of the float32 carry, not the
+    states the forward continued from), then swept in reverse.  The
+    cotangent rows enter as bf16 (row 0 as float32), the adjoint runs at
+    the carry dtype (every operation rounded under "bf16"), an input
+    cotangent of a layer is rounded to bf16, and the weight and bias
+    cotangents are summed in float32 over twins, stages and steps.  The
+    forward's roundings of the carry at chunk starts are not transposed
+    (the JAX kernel's VJP replays from the rows and carries its adjoint
+    across them)."""
+    pure = precision == "bf16"
+    u_half, weights, biases = _bf16_operands(u_half, weights, biases)
+    u_tm = _time_major(u_half)
+    T = traj.shape[0] - 1
+    rows = traj.to(F32)
+    gs = rnd(g.to(F32))
+    c2, c1, c6 = rk4_consts(dt, pure)
+    r = rnd if pure else (lambda x: x)
+    a = torch.zeros_like(rows[0])
+    dws = [torch.zeros_like(w) for w in weights]
+    dbs = [torch.zeros_like(b) for b in biases]
+    for j0 in range(((T - 1) // time_chunk) * time_chunk, -1, -time_chunk):
+        j1 = min(j0 + time_chunk, T)
+        states, y = [], rows[j0]
+        for t in range(j0, j1):
+            states.append(y)
+            if t + 1 < j1:
+                y = _rk4_step_bf16(y, u_tm[2 * t], u_tm[2 * t + 1],
+                                   u_tm[2 * t + 2], weights, biases, dt,
+                                   pure)
+        for t in range(j1 - 1, j0 - 1, -1):
+            a = r(a + gs[t + 1])
+            _, stages = _rk4_step_bf16(states[t - j0], u_tm[2 * t],
+                                       u_tm[2 * t + 1], u_tm[2 * t + 2],
+                                       weights, biases, dt, pure, keep=True)
+            cst = r(c6 * a)
+            gk = [cst, 2 * cst, 2 * cst, cst]
+            D = a.shape[1]
+            for s in range(3, -1, -1):
+                gx = _mlp_bf16_vjp(gk[s], stages[s], weights, dws, dbs,
+                                   pure)[:, -D:]
+                a = r(a + gx)
+                if s:
+                    gk[s - 1] = r(gk[s - 1] + r((c1 if s == 3 else c2) * gx))
+    return a + g[0].to(F32), dws, dbs
+
+
+# ---------------------------------------------------------------------------
 # counter noise (K3): uint32 streams held in int64
 # ---------------------------------------------------------------------------
 #

@@ -27,8 +27,14 @@ out again (the slab's in-matrix entries only; no padding to a k-chunk).
 Device rule: the plain versions (``ref.softdtw_rowmajor_ref``,
 ``ref.softdtw_rowmajor_bwd_ref`` and the diagonal-layout
 ``ref.softdtw_wavefront_ref`` / ``ref.softdtw_wavefront_bwd_ref``) run
-only for CPU tensors.  CUDA tensors launch the kernels or raise.  Float32
-only: the bf16 cost slab of the JAX package is not ported.
+only for CPU tensors.  CUDA tensors launch the kernels or raise.
+
+Costs may be float32 or bfloat16 (the JAX package's bf16 cost slab under
+the ``"bf16"`` and ``"bf16_f32acc"`` policies, which halves the only
+O(n m) operand): the kernels' bfloat16 instantiations read each cost
+once and widen it to float32; R, E and the answer are float32 either
+way.  A padded cell (the layout's BIG, 1e10) rounds to 9.9992e9 in bf16,
+still above the half-BIG threshold that marks it invalid.
 """
 from __future__ import annotations
 
@@ -44,10 +50,17 @@ MAX_ROWS = 4096
 #: Warps of a block: a band of 32 x warps rows is one sweep.
 MAX_WARPS = 8
 
-#: K5 launches in this process (forward, soft or hard).
+#: K5 launches in this process (forward, soft or hard) on float32 costs;
+#: ``LAUNCHES_BF16`` on bfloat16 costs.
 LAUNCHES = 0
-#: K6 launches in this process (E-matrix backward).
+LAUNCHES_BF16 = 0
+#: K6 launches in this process (E-matrix backward) on float32 costs;
+#: ``BWD_LAUNCHES_BF16`` on bfloat16 costs.
 BWD_LAUNCHES = 0
+BWD_LAUNCHES_BF16 = 0
+
+#: Dtypes the kernels take for the costs (R is always float32).
+COST_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def band_warps(n: int) -> int:
@@ -58,15 +71,17 @@ def band_warps(n: int) -> int:
 
 def _device_of(caller: str, gamma: float, tensors: dict):
     """Check dtype, contiguity, shared shape and device of the operands and
-    gamma; returns their device."""
+    gamma; returns their device.  The costs (``D``, ``dd``) may be float32
+    or bfloat16, every other operand is float32."""
     if not gamma > 0:
         raise ValueError(f"{caller}: gamma={gamma} must be > 0")
     want = None
     for name, x in tensors.items():
-        if x.dtype != torch.float32:
+        cost = name in ("D", "dd")
+        if x.dtype not in (COST_DTYPES if cost else (torch.float32,)):
             raise ValueError(
                 f"{caller}: {name} has dtype {x.dtype}; the kernels take "
-                f"float32 (the bf16 cost slab is not ported)")
+                + ("float32 or bfloat16 costs" if cost else "float32"))
         if not x.is_contiguous():
             raise ValueError(f"{caller}: {name} must be contiguous")
         if want is None:
@@ -144,17 +159,19 @@ def _raise(caller: str, err: int, B: int, n: int, m: int):
 
 def softdtw_rowmajor(D: torch.Tensor, *, gamma: float = 1.0,
                      hard: bool = False, return_r: bool = False):
-    """Batched accumulated (soft-)DTW of (B, n, m) float32 costs -> (B,)
-    float32; with ``return_r`` also R, (B, n, m) float32.  ``gamma`` is
-    ignored when ``hard``."""
-    global LAUNCHES
+    """Batched accumulated (soft-)DTW of (B, n, m) float32 or bfloat16
+    costs -> (B,) float32; with ``return_r`` also R, (B, n, m) float32.
+    ``gamma`` is ignored when ``hard``."""
+    global LAUNCHES, LAUNCHES_BF16
     gamma = float(gamma)
     device = _check_matrices("softdtw_rowmajor", gamma, D=D)
+    bf16 = D.dtype == torch.bfloat16
     if device.type == "cpu":
-        return ref.softdtw_rowmajor_ref(D, gamma=gamma, hard=hard,
-                                        return_r=return_r)
+        return ref.softdtw_rowmajor_ref(D.to(torch.float32), gamma=gamma,
+                                        hard=hard, return_r=return_r)
     from repro_torch.kernels import _build
-    fn = _build.load("softdtw").k5_softdtw_f32
+    lib = _build.load("softdtw")
+    fn = lib.k5_softdtw_bf16 if bf16 else lib.k5_softdtw_f32
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                    + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
                    + [ctypes.c_void_p])
@@ -162,40 +179,50 @@ def softdtw_rowmajor(D: torch.Tensor, *, gamma: float = 1.0,
     B, n, m = D.shape
     warps, edge = _geometry(n, m, B, device)
     out = torch.empty((B,), dtype=torch.float32, device=device)
-    R = torch.empty_like(D) if return_r else None
+    R = torch.empty(D.shape, dtype=torch.float32,
+                    device=device) if return_r else None
     with torch.cuda.device(device):
         err = fn(D.data_ptr(), out.data_ptr(),
                  R.data_ptr() if return_r else None,
                  None if edge is None else edge.data_ptr(), B, n, m, gamma,
                  1.0 / gamma, int(bool(hard)), warps, _stream(device))
     _raise("softdtw_rowmajor", err, B, n, m)
-    LAUNCHES += 1
+    if bf16:
+        LAUNCHES_BF16 += 1
+    else:
+        LAUNCHES += 1
     return (out, R) if return_r else out
 
 
 def softdtw_rowmajor_bwd(D: torch.Tensor, R: torch.Tensor, *,
                          gamma: float = 1.0) -> torch.Tensor:
-    """The E-matrix dSDTW/dD, (B, n, m) float32, from the costs ``D`` and
-    the forward's R, both (B, n, m) float32."""
-    global BWD_LAUNCHES
+    """The E-matrix dSDTW/dD, (B, n, m) float32, from the costs ``D``
+    (float32 or bfloat16) and the forward's float32 R, both (B, n, m)."""
+    global BWD_LAUNCHES, BWD_LAUNCHES_BF16
     gamma = float(gamma)
     device = _check_matrices("softdtw_rowmajor_bwd", gamma, D=D, R=R)
+    bf16 = D.dtype == torch.bfloat16
     if device.type == "cpu":
-        return ref.softdtw_rowmajor_bwd_ref(D, R, gamma=gamma)
+        return ref.softdtw_rowmajor_bwd_ref(D.to(torch.float32), R,
+                                            gamma=gamma)
     from repro_torch.kernels import _build
-    fn = _build.load("softdtw").k6_softdtw_bwd_f32
+    lib = _build.load("softdtw")
+    fn = lib.k6_softdtw_bwd_bf16 if bf16 else lib.k6_softdtw_bwd_f32
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     B, n, m = D.shape
     warps, edge = _geometry(n, m, B, device)
-    E = torch.empty_like(D)
+    E = torch.empty_like(R)
     with torch.cuda.device(device):
         err = fn(D.data_ptr(), R.data_ptr(), E.data_ptr(),
                  None if edge is None else edge.data_ptr(), B, n, m,
                  1.0 / gamma, warps, _stream(device))
     _raise("softdtw_rowmajor_bwd", err, B, n, m)
-    BWD_LAUNCHES += 1
+    if bf16:
+        BWD_LAUNCHES_BF16 += 1
+    else:
+        BWD_LAUNCHES += 1
     return E
 
 
@@ -208,7 +235,8 @@ def softdtw_wavefront(dd: torch.Tensor, n: int, m: int, *,
     gamma = float(gamma)
     device = _check("softdtw_wavefront", n, m, gamma, dd=dd)
     if device.type == "cpu":
-        return ref.softdtw_wavefront_ref(dd, n, m, gamma=gamma, hard=hard,
+        return ref.softdtw_wavefront_ref(dd.to(torch.float32), n, m,
+                                         gamma=gamma, hard=hard,
                                          return_r=return_r)
     got = softdtw_rowmajor(ref.undiag_layout(dd, n, m), gamma=gamma,
                            hard=hard, return_r=return_r)
@@ -224,7 +252,8 @@ def softdtw_wavefront_bwd(dd: torch.Tensor, rd: torch.Tensor, n: int, m: int,
     gamma = float(gamma)
     device = _check("softdtw_wavefront_bwd", n, m, gamma, dd=dd, rd=rd)
     if device.type == "cpu":
-        return ref.softdtw_wavefront_bwd_ref(dd, rd, n, m, gamma=gamma)
+        return ref.softdtw_wavefront_bwd_ref(dd.to(torch.float32), rd, n,
+                                             m, gamma=gamma)
     E = softdtw_rowmajor_bwd(ref.undiag_layout(dd, n, m),
                              ref.undiag_layout(rd, n, m), gamma=gamma)
     return ref.diag_layout(E, fill=0.0).contiguous()

@@ -46,7 +46,7 @@ import torch
 
 from repro_torch.core.backends import (AnalogueBackend, DigitalBackend,
                                       FusedAnalogueCudaBackend,
-                                      resolve_backend)
+                                      FusedCudaBackend, resolve_backend)
 from repro_torch.device import resolve_device
 from repro_torch.launch import chaos
 from repro_torch.launch import journal as journal_lib
@@ -1324,6 +1324,10 @@ def main(argv=None):
                     help="analogue_fused_cuda serves on K4 with the "
                          "paper's device statistics (6-bit levels, 4.36%% "
                          "programming noise)")
+    ap.add_argument("--precision", default=None,
+                    choices=["f32", "bf16", "bf16_f32acc"],
+                    help="fused-substrate mixed-precision policy "
+                         "(default: f32, fused_ode_mlp.default_precision)")
     ap.add_argument("--ckpt-dir", default="",
                     help="trained-twin checkpoint (default: untrained "
                          "weights saved to a temp dir — substrate smoke)")
@@ -1332,10 +1336,18 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from repro_torch.train import recipes
+    backend = args.backend
+    if args.precision is not None:
+        if backend != "fused_cuda":
+            ap.error("--precision is a fused-substrate policy; it does "
+                     f"not apply to --backend {backend}")
+        backend = FusedCudaBackend(batch_tile=recipes.FLEET.batch_tile,
+                                   precision=args.precision)
     device = resolve_device(args.device)
-    fleet = recipes.make_l96_fleet(backend=args.backend)
+    fleet = recipes.make_l96_fleet(backend=backend)
     ts = recipes.l96_fleet_ts(horizon=args.horizon)
-    print(f"device {device}; backend {args.backend}")
+    print(f"device {device}; backend {args.backend} precision "
+          f"{'n/a' if args.backend != 'fused_cuda' else args.precision or 'f32'}")
 
     with tempfile.TemporaryDirectory(prefix="l96_fleet_ckpt_") as tmp:
         ckpt_dir = args.ckpt_dir

@@ -2,11 +2,22 @@
 this tree or on another tree's ``src``, so that one command can time a
 parent and a change on the same inputs.
 
-    python3 src/repro_torch/launch/kernel_timing.py --kernel k3|k4|sdtw [--src DIR]
+    python3 src/repro_torch/launch/kernel_timing.py --kernel k1|k3|k4|sdtw [--src DIR]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
 (default: the one this file lies in).  Every line is one JSON object with
 the card's name and power limit from ``nvidia-smi`` and the ``src`` timed.
+
+``k1``: K1, the fused RK4 rollout, through
+``fused_ode_mlp.fused_node_rollout`` at the shapes of its main paths:
+the Lorenz96 fleet request (1024 twins x 200 steps, 6->64->64->6,
+autonomous), Lorenz96 training (29 x 60) and HP training (9 x 50,
+2->14->14->1, a drive per twin), seeded weights.  A line per case and
+precision policy (float32, and the bf16 policies where the tree takes
+them, at the planner's rounding chunk): the CUDA-event mean of
+``K1_REPS`` rollouts after two unmeasured ones, and the first 16 hex
+digits of the SHA-256 of the trajectory's bytes, so that two trees'
+trajectories can be compared bit for bit.
 
 ``k3``: K3 on the noisy analogue serving path P2 (the Lorenz96 fleet
 twin, 6->64->64->6, uint8 storage, read noise 0.02, 1% stuck cells,
@@ -52,6 +63,7 @@ import time
 from pathlib import Path
 
 SEED = 0
+K1_REPS = 20
 K3_REPS = 20
 K3_BATCHES = 3
 K4_REPS = 10
@@ -124,6 +136,62 @@ def _k4_cases(torch, dev):
         out[name] = (staged, y0, u.to(torch.float32).to(dev), dt,
                      kw["spec"].read_noise)
     return out
+
+
+def _k1_cases(torch, dev):
+    """name -> (weights, biases, y0, u, dt), seeded: He-scaled weights,
+    biases of 0.1 N(0, 1), y0 of 0.5 N(0, 1), and for HP a sine drive per
+    twin of random amplitude and frequency."""
+    gen = torch.Generator().manual_seed(SEED)
+    specs = {"l96_fleet_1024x200": ((6, 64, 64, 6), 1024, 200, 0.0025),
+             "l96_train_29x60": ((6, 64, 64, 6), 29, 60, 0.0025),
+             "hp_train_9x50": ((2, 14, 14, 1), 9, 50, 1e-3)}
+    out = {}
+    for name, (sizes, B, T, dt) in specs.items():
+        ws = [(torch.randn((a, b), generator=gen) * (2.0 / a) ** 0.5).to(dev)
+              for a, b in zip(sizes[:-1], sizes[1:])]
+        bs = [(0.1 * torch.randn((b,), generator=gen)).to(dev)
+              for b in sizes[1:]]
+        y0 = (0.5 * torch.randn((B, sizes[-1]), generator=gen)).to(dev)
+        th = torch.arange(2 * T + 1, dtype=torch.float64) / (2 * T)
+        du = sizes[0] - sizes[-1]
+        if du:
+            amp = 0.5 + torch.rand((B, 1), generator=gen, dtype=torch.float64)
+            freq = 1.0 + 3.0 * torch.rand((B, 1), generator=gen,
+                                          dtype=torch.float64)
+            u = (amp * torch.sin(2 * torch.pi * freq * th[None]))[..., None]
+        else:
+            u = torch.zeros((2 * T + 1, 0))
+        out[name] = (ws, bs, y0, u.to(torch.float32).to(dev), dt)
+    return out
+
+
+def time_k1(torch, dev, tag: dict) -> None:
+    import hashlib
+
+    from repro_torch.kernels import fused_ode_mlp
+
+    policies = ["f32"]
+    if hasattr(fused_ode_mlp, "PRECISIONS"):
+        policies += ["bf16_f32acc", "bf16"]
+    for name, (ws, bs, y0, u, dt) in _k1_cases(torch, dev).items():
+        for prec in policies:
+            kw = {} if prec == "f32" else {"precision": prec}
+
+            def run():
+                return fused_ode_mlp.fused_node_rollout(
+                    y0, u, ws, bs, dt, batch_tile=y0.shape[0], **kw)
+            try:
+                out = run().contiguous()
+            except NotImplementedError:     # a tree that refuses the policy
+                continue
+            digest = hashlib.sha256(
+                out.view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+            print(json.dumps({
+                "kernel": "K1", "case": name, "precision": prec,
+                "B": y0.shape[0], "T": out.shape[0] - 1,
+                "ms": _events_ms(torch, run, K1_REPS),
+                "sha256_16": digest[:16], **tag}))
 
 
 def time_k3(torch, dev, tag: dict) -> None:
@@ -277,9 +345,11 @@ def time_sdtw(torch, dev, tag: dict) -> None:
 def main(argv=None) -> int:
     here = Path(__file__).resolve().parents[2]
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", required=True, choices=("k3", "k4", "sdtw"),
-                    help="k3: the counter noise on analogue serving; k4: "
-                         "the analogue rollout; sdtw: K5 and K6")
+    ap.add_argument("--kernel", required=True,
+                    choices=("k1", "k3", "k4", "sdtw"),
+                    help="k1: the fused rollout; k3: the counter noise on "
+                         "analogue serving; k4: the analogue rollout; sdtw: "
+                         "K5 and K6")
     ap.add_argument("--src", default=str(here),
                     help="directory holding the repro_torch package to time")
     args = ap.parse_args(argv)
@@ -294,7 +364,8 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    timer = {"k3": time_k3, "k4": time_k4, "sdtw": time_sdtw}[args.kernel]
+    timer = {"k1": time_k1, "k3": time_k3, "k4": time_k4,
+             "sdtw": time_sdtw}[args.kernel]
     timer(torch, torch.device("cuda"), {"src": src, "card": smi})
     return 0
 

@@ -114,7 +114,12 @@ def _wants_step(loss_fn: Callable) -> bool:
 #: each wrapper adds one where it launches, so a graph's launches are
 #: counted once at its capture and added again at every replay.
 _COUNTERS = (("fused_ode_mlp", "LAUNCHES"), ("fused_ode_mlp_bwd", "LAUNCHES"),
+             ("fused_ode_mlp", "LAUNCHES_BF16"),
+             ("fused_ode_mlp", "LAUNCHES_BF16_F32ACC"),
+             ("fused_ode_mlp_bwd", "LAUNCHES_BF16"),
+             ("fused_ode_mlp_bwd", "LAUNCHES_BF16_F32ACC"),
              ("softdtw", "LAUNCHES"), ("softdtw", "BWD_LAUNCHES"),
+             ("softdtw", "LAUNCHES_BF16"), ("softdtw", "BWD_LAUNCHES_BF16"),
              ("noise", "LAUNCHES"), ("noise", "MASK_LAUNCHES"),
              ("noise", "WRITE_LAUNCHES"), ("fused_analogue", "LAUNCHES"),
              ("fused_analogue", "NOISE_LAUNCHES"),
@@ -596,21 +601,23 @@ OBJECTIVES = ("l1", "softdtw", "l1+softdtw")
 
 
 def _segment_objective(loss: str, gamma: float, preds, ys_seg,
-                       kernelised: bool = False):
+                       kernelised: bool = False, precision=None):
     """Shared loss combinators over (S, L+1, D) predictions/targets.
 
     ``kernelised=True`` (the fused training path) sends soft-DTW through
     the wavefront kernels, K5 forward and the K6 E-matrix backward
     (:func:`repro_torch.kernels.ops.soft_dtw`), instead of the reference
-    DP differentiated by autograd."""
+    DP differentiated by autograd; ``precision`` is the backend's policy,
+    which sets the cost matrix's dtype there (bf16 under the bf16
+    policies; R and E stay float32)."""
     if loss not in OBJECTIVES:
         raise ValueError(loss)
-    preds = preds.to(torch.float32)
+    preds = preds.to(torch.float32)     # bf16 rollouts meet f32 targets
     if loss == "l1":
         return l1(preds, ys_seg)
     if kernelised:
         from repro_torch.kernels import ops
-        sdtw = torch.mean(ops.soft_dtw(preds, ys_seg, gamma))
+        sdtw = torch.mean(ops.soft_dtw(preds, ys_seg, gamma, precision))
     else:
         sdtw = torch.mean(soft_dtw_batch(preds, ys_seg, gamma))
     if loss == "softdtw":
@@ -640,7 +647,10 @@ def _fused_segment_loss_fn(twin, backend, ts_seg, ys_seg, loss: str,
     the digital path only by the substrate; the objective, segmentation
     and noise regularisation are identical.  ``hw_aware`` rolls out each
     of the step's device realisations (K1 forward and K2 backward each)
-    and averages the losses."""
+    and averages the losses.  The backend's ``precision`` and
+    ``time_chunk`` go to the rollout, and its ``precision`` to
+    the soft-DTW cost matrix, as in the JAX trainer: a bf16 backend
+    trains on the reduced substrate (bf16 slabs, float32 gradients)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.fused_ode_mlp import pad_fleet_to_tile
 
@@ -672,11 +682,14 @@ def _fused_segment_loss_fn(twin, backend, ts_seg, ys_seg, loss: str,
         y0p, uhp, bt, _ = pad_fleet_to_tile(y0s, uh, backend.batch_tile)
 
         def rollout_loss(p):
-            traj = ops.fused_node_rollout(p, y0p, uhp, dt, batch_tile=bt,
-                                          gradient="fused_vjp")
+            traj = ops.fused_node_rollout(
+                p, y0p, uhp, dt, batch_tile=bt,
+                time_chunk=backend.time_chunk,
+                gradient="fused_vjp", precision=backend.precision)
             preds = traj[::sub, :S].transpose(0, 1)      # (S, L+1, D)
             return _segment_objective(loss, gamma, preds, ys_seg,
-                                      kernelised=True)
+                                      kernelised=True,
+                                      precision=backend.precision)
 
         return _hw_aware_loss(rollout_loss, params, hw_aware, step)
 
@@ -766,7 +779,11 @@ def train_twin(twin, params, ts: torch.Tensor, ys: torch.Tensor, *,
     :func:`segment_loss_fn`): ``backend="fused_cuda"`` (or a
     ``FusedCudaBackend`` instance) runs every forward and backward solve
     through the hand-written kernels K1 and K2 (and a soft-DTW ``loss``
-    through K5 and K6).  ``gamma`` is soft-DTW's smoothing.
+    through K5 and K6).  The backend's ``precision`` policy rides along:
+    ``backend=FusedCudaBackend(precision="bf16_f32acc")`` trains on the
+    reduced-precision substrate (bf16 slabs, float32 sums and gradients;
+    the loss and the optimizer state stay float32).  ``gamma`` is
+    soft-DTW's smoothing.
     ``generator`` draws the state noise (default: a CPU generator seeded
     with 0).  ``hw_aware`` trains through the analogue write path (see
     :func:`segment_loss_fn`).  ``log_every`` and ``scan_chunk`` are

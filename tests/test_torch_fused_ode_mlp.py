@@ -218,13 +218,24 @@ def test_per_twin_drive_batch_mismatch_raises():
 
 
 def test_precision_policies():
+    """f32 stays float32; both bf16 policies store the trajectory as
+    bfloat16 and equal the JAX kernel (interpret mode) bit for bit on the
+    same inputs; an unknown policy still raises."""
     y0, u, ws, bs = _l96_inputs()
     out = tk.fused_node_rollout(y0, u, ws, bs, 0.01, batch_tile=4,
                                 precision="f32")
     assert out.dtype == torch.float32
     for p in ("bf16", "bf16_f32acc"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tk.fused_node_rollout(y0, u, ws, bs, 0.01, precision=p)
+        got = tk.fused_node_rollout(y0, u, ws, bs, 0.01, batch_tile=4,
+                                    precision=p)
+        want = jk.fused_node_rollout(
+            jnp.asarray(y0.numpy()), jnp.asarray(u.numpy()),
+            [jnp.asarray(w.numpy()) for w in ws],
+            [jnp.asarray(b.numpy()) for b in bs], 0.01, batch_tile=4,
+            precision=p, interpret=True)
+        assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+        np.testing.assert_array_equal(
+            got.float().numpy(), np.asarray(want.astype(jnp.float32)))
     with pytest.raises(ValueError, match="unknown precision"):
         tk.fused_node_rollout(y0, u, ws, bs, 0.01, precision="fp8")
 

@@ -245,10 +245,16 @@ def test_losses_soft_dtw_and_batch_match_jax(n, m, d, gamma):
 
 
 def test_soft_dtw_refuses_what_it_does_not_take():
+    """Both bf16 policies are taken (the cost matrix rounded to bf16, as
+    the JAX kernel's slab: its value to float32 rounding of JAX's); an
+    unknown policy and a diagonal layout of the wrong shape still raise."""
     x, y = series(0, 2, 6, 7, 1)
     for policy in ("bf16", "bf16_f32acc"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            tops.soft_dtw(t(x), t(y), 0.1, precision=policy)
+        got = tops.soft_dtw(t(x), t(y), 0.1, precision=policy)
+        want = np.asarray(jops.soft_dtw(jnp.asarray(x), jnp.asarray(y), 0.1,
+                                        True, policy))
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
     with pytest.raises(ValueError, match="unknown precision"):
         tops.soft_dtw(t(x), t(y), 0.1, precision="fp8")
     dd = tref.diag_layout(tlosses._pairwise_dist(t(x), t(y))).contiguous()
