@@ -323,6 +323,36 @@ result line:
    float32 at the same shapes, the plain versions and the bounds (bytes
    at the bf16 itemsizes, K1's and K2's products at the bf16 tensor-core
    peak).
+26. P13, the twin mesh (``launch/mesh.py``, ``shard_rollout_batch``): the
+   Lorenz96 fleet of phase 4 (6->64->64->6, 1024 x 200) served from a
+   ``save_twin`` checkpoint, each path with the K1, K3 and K4 counts
+   zeroed just before and read just after: (a) ``serve_fleet(mesh=
+   make_twin_mesh())`` (one shard per card) bitwise ``serve_fleet``
+   without a mesh, one K1 launch per request and card; (b) a mesh of 4
+   shards on the one card (a ``Mesh`` naming it 4 times) serving 1021
+   twins (padded to
+   1024, 256 rows a shard): 4 K1 launches per request, within 1e-4 of
+   the peak of (a) (bitwise printed) and each shard's launch within 1e-4
+   of K1's plain version on its recorded inputs; (c) the same mesh through
+   ``rollout_batch(mesh=, precision="bf16_f32acc")``: 4 K1 launches of
+   that policy, within phase 25's K1 limits of the unsharded bf16 request
+   and of the plain version over the shards; (d) ``FleetServer(mesh=,
+   slo=ServingSLO(0.5))`` on P2's noisy faulty ``analogue_fused_cuda``,
+   its weights from ``load_twin(shardings=fleet_param_shardings(...))``:
+   2 K3 mask launches when it is built, as many as the unsharded server's
+   and none while serving (programmed once, copied to the shards); the
+   masks K3 drew while both servers were built bitwise its plain version
+   on the same arguments, and every tier's program as each shard holds
+   it bitwise the unsharded server's, tensor for tensor; one K4
+   and pre-pass per shard beside the probe's, within 1e-4 of the
+   unsharded server's request (bitwise printed) and a shard within 1e-4
+   of K4's plain version; (e) ``StreamingFleetServer`` on
+   ``FusedCudaBackend(precision="bf16_f32acc")``, a Poisson trace of 1024
+   requests over 256 twins in batches of 256: every completion finite
+   float32, one K1 launch of that policy per pump, and the same stream on
+   the plain K1 within phase 25's K1 limits.  Printed: the batch wall
+   times of (a)-(d) and the stream's, K1 per shard and on the whole 1024
+   (CUDA events), K4 per shard, their plain versions and bounds.
 
 Training (phases 7, 12, 15, 16, 22, 24 and 25) runs through the training engines
 by default, as the JAX package's does through its scan engine: on the
@@ -361,6 +391,7 @@ from repro_torch.configs.lorenz96_twin import CONFIG as L96_CONFIG  # noqa: E402
 from repro_torch.core.analogue import (AnalogueSpec,  # noqa: E402
                                        drift_from_calibration,
                                        spec_from_calibration)
+from repro_torch.core import faults as core_faults  # noqa: E402
 from repro_torch.core import ode, scorecard  # noqa: E402
 from repro_torch.core.backends import (AnalogueBackend, DigitalBackend,  # noqa: E402
                                        FusedAnalogueCudaBackend,
@@ -385,6 +416,11 @@ from repro_torch.launch.fleet_serving import (FleetServer,  # noqa: E402
                                               ServingSLO,
                                               StreamingFleetServer,
                                               serve_fleet)
+from repro_torch.launch.mesh import (TWIN_AXIS, Mesh,  # noqa: E402
+                                     make_twin_mesh, twin_shard_count)
+from repro_torch.launch.mesh_check import (max_abs_diff,  # noqa: E402
+                                           programs_diff)
+from repro_torch.launch.sharding import fleet_param_shardings  # noqa: E402
 from repro_torch.launch.state_store import TwinStateStore  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import model as lm_model  # noqa: E402
@@ -4132,6 +4168,470 @@ def p12_entries(p12) -> list:
     return out
 
 
+# -- phase 26: P13, the twin mesh (K1, K3 and K4 per shard) --------------------
+#: Shards of the split mesh: a ``Mesh`` naming the one card this often.
+P13_SHARDS = 4
+#: The uneven fleet of (b)-(d): 1021 twins pad to 1024, 256 rows a shard.
+P13_UNEVEN = 1021
+#: (e): the bf16 stream at 256 twins (P7's server cut to one slab of 256).
+P13_POPULATION = 256
+P13_STREAM = dict(hot_capacity=256, max_batch=256, max_window=200,
+                  horizon_quantum=8)
+P13_TRACE = dict(seed=26, n_requests=1024, min_horizon=8, max_horizon=64)
+P13_COUNTERS = {
+    "K1": (fused_ode_mlp, "LAUNCHES"),
+    "K1 bf16_f32acc": (fused_ode_mlp, "LAUNCHES_BF16_F32ACC"),
+    "K1 bf16": (fused_ode_mlp, "LAUNCHES_BF16"),
+    "K3": (noise, "LAUNCHES"),
+    "K3_masks": (noise, "MASK_LAUNCHES"),
+    "K4": (fused_analogue, "LAUNCHES"),
+    "K4_noise": (fused_analogue, "NOISE_LAUNCHES"),
+}
+
+
+def p13_zero():
+    for mod, name in P13_COUNTERS.values():
+        setattr(mod, name, 0)
+
+
+def p13_read(path: str, want: dict) -> dict:
+    """Phase 26's counts after ``path``; every counter not in ``want`` must
+    be 0."""
+    torch.cuda.synchronize()
+    got = {k: getattr(mod, name) for k, (mod, name) in P13_COUNTERS.items()}
+    print(f"{path}: launches " + ", ".join(
+        f"{k} {v}" for k, v in got.items() if v or k in want))
+    for k, v in got.items():
+        check(v == want.get(k, 0), f"{path}: expected {want.get(k, 0)} {k} "
+                                   f"launches, got {v}")
+    return got
+
+
+def record_calls(name: str, rows: int, into: list):
+    """Wrap the kernel entry point ``ops.<name>`` so that every call on
+    ``rows`` twins (a shard, not a probe) keeps its inputs and output in
+    ``into``; returns the undo."""
+    fn = getattr(ops, name)
+
+    def run(*a, **k):
+        out = fn(*a, **k)
+        if a[1].shape[0] == rows:
+            into.append(((a[0], a[1].clone(), a[2].clone(), a[3]), dict(k),
+                         out.clone()))
+        return out
+    setattr(ops, name, run)
+    return lambda: setattr(ops, name, fn)
+
+
+def p13_serve(ckpt, fleet, ts, reqs, mesh):
+    """``serve_fleet`` over ``mesh``: the outputs and each batch's wall ms
+    (host clock to a device sync)."""
+    outs, ms = [], []
+    stream = serve_fleet(ckpt, fleet, ts, reqs, mesh=mesh)
+    while True:
+        t_b = time.perf_counter()
+        out = next(stream, None)
+        torch.cuda.synchronize()
+        if out is None:
+            return outs, ms
+        ms.append((time.perf_counter() - t_b) * 1e3)
+        outs.append(out)
+
+
+def p13_mesh(card, smi, noisy_faulty) -> dict:
+    """Phase 26 (P13): the Lorenz96 fleet (6->64->64->6, 1024 x 200) served
+    over twin meshes from a ``save_twin`` checkpoint: (a) ``serve_fleet(
+    mesh=make_twin_mesh())`` bitwise the unsharded serve, one K1 launch a
+    request per card; (b) 4 shards on one card, 1021 twins (256 rows a
+    shard): 4 K1 launches a request, against (a) and each shard against
+    K1's plain version; (c) the same mesh at a per-call
+    ``precision="bf16_f32acc"`` against the unsharded bf16 request and the
+    plain version; (d) ``FleetServer(mesh=, slo=)`` on the noisy faulty
+    analogue substrate: K3 masks at construction only, as many as the
+    unsharded server's, K4 per shard against the unsharded request and a
+    shard against K4's plain version; (e) ``StreamingFleetServer`` on
+    ``bf16_f32acc`` (float32 completions) against the same stream on the
+    plain K1.  Returns the counts and numbers."""
+    t_phase = time.perf_counter()
+    cfg = recipes.FLEET
+    ts = recipes.l96_fleet_ts()
+    T = cfg.horizon
+    one = make_twin_mesh(device=card.type)
+    four = Mesh((TWIN_AXIS,), (P13_SHARDS,), (card,) * P13_SHARDS)
+    n_one = twin_shard_count(one)
+    check(n_one == torch.cuda.device_count(),
+          f"P13: make_twin_mesh() has {n_one} shard(s) for "
+          f"{torch.cuda.device_count()} card(s)")
+    rows = -(-P13_UNEVEN // P13_SHARDS)
+    counts, numbers = {}, {}
+    fleet = recipes.make_l96_fleet(
+        backend=FusedCudaBackend(batch_tile=cfg.batch_tile))
+    sizes = tuple(fleet.twin.field.sizes)
+    template = fleet.twin.init(torch.Generator().manual_seed(SEED),
+                               device="cpu")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p13_") as ckpt:
+        checkpoint.save_twin(ckpt, template)
+        params = checkpoint.load_twin(ckpt, template, device=card)
+        reqs = list(recipes.l96_fleet_requests(num_batches=2, seed=SEED + 13,
+                                               device=card))
+        ref1 = list(serve_fleet(ckpt, fleet, ts, reqs, device=card))
+
+        # (a) the default mesh: every card, one shard here
+        p13_zero()
+        outs_a, ms_a = p13_serve(ckpt, fleet, ts, reqs, one)
+        counts["P13_serve_fleet_make_twin_mesh"] = p13_read(
+            f"P13 (a) serve_fleet over make_twin_mesh() ({n_one} shard(s))",
+            {"K1": 2 * n_one})
+        same_a = all(torch.equal(o, r) for o, r in zip(outs_a, ref1))
+        print(f"[{smi}] P13 (a) {len(outs_a)} batches of "
+              f"{tuple(outs_a[0].shape)}: wall ms {ms_a[0]:.3f}; "
+              f"{ms_a[1]:.3f}; bitwise serve_fleet without a mesh: {same_a}")
+        check(same_a, "P13 (a): the mesh serve is not bitwise the unmeshed "
+                      "one")
+
+        # (b) four shards on the card, an uneven fleet
+        uneven = [r[:P13_UNEVEN] for r in reqs]
+        shard_k1 = []
+        undo = record_calls("fused_node_rollout", rows, shard_k1)
+        try:
+            p13_zero()
+            outs_b, ms_b = p13_serve(ckpt, fleet, ts, uneven, four)
+            counts["P13_serve_fleet_4_shards_1021"] = p13_read(
+                f"P13 (b) serve_fleet over {P13_SHARDS} shards on one card, "
+                f"{P13_UNEVEN} twins", {"K1": 2 * P13_SHARDS})
+        finally:
+            undo()
+        check(len(shard_k1) == 2 * P13_SHARDS,
+              f"P13 (b): {len(shard_k1)} shard launches of {rows} rows")
+        errs_b, same_b = [], True
+        for o, a in zip(outs_b, outs_a):
+            check(tuple(o.shape) == (P13_UNEVEN, T + 1, cfg.state_dim),
+                  f"P13 (b): shape {tuple(o.shape)}")
+            errs_b.append(rel_err(o, a[:P13_UNEVEN]))
+            same_b &= torch.equal(o, a[:P13_UNEVEN])
+        plain_b = [rel_err(out, k1_window_plain(*a, **k))
+                   for a, k, out in shard_k1]
+        print(f"[{smi}] P13 (b) wall ms {ms_b[0]:.3f}; {ms_b[1]:.3f} "
+              f"({P13_SHARDS} K1 launches of {rows} rows a request); vs (a) "
+              f"max err of the peak {max(e[1] for e in errs_b):.3e}, bitwise "
+              f"{same_b}; each shard vs K1's plain version: " + ", ".join(
+                  f"{e[1]:.3e}" for e in plain_b) + f" (limit {TOL:g})")
+        check(max(e[1] for e in errs_b) <= TOL,
+              "P13 (b): the sharded serve disagrees with (a)")
+        check(max(e[1] for e in plain_b) <= TOL,
+              "P13 (b): a shard's K1 disagrees with its plain version")
+
+        # K1 per shard beside the whole request, CUDA events
+        (p_s, y_s, u_s, dt_s), _, _ = shard_k1[0]
+        ws = [p["w"] for p in p_s]
+        bs = [p["b"] for p in p_s]
+        y_all = torch.cat([a[1] for a, _, _ in shard_k1[:P13_SHARDS]])
+        shard_ms = cuda_ms(lambda: fused_ode_mlp.fused_node_rollout(
+            y_s, u_s, ws, bs, dt_s, batch_tile=cfg.batch_tile), reps=20,
+            warmup=3)
+        whole_ms = cuda_ms(lambda: fused_ode_mlp.fused_node_rollout(
+            y_all, u_s, ws, bs, dt_s, batch_tile=cfg.batch_tile), reps=20,
+            warmup=3)
+        shard_plain_ms = cuda_ms(lambda: ref.fused_node_rollout_ref(
+            y_s, u_s, ws, bs, dt_s), reps=3, warmup=1)
+        b_ms, b_by, gflop, mb = k1_bound(sizes, rows, T, u_s)
+        g_s = fused_ode_mlp.launch_geometry(rows, sizes)
+        g_w = fused_ode_mlp.launch_geometry(y_all.shape[0], sizes)
+        print(f"[{smi}] P13 K1 per shard B={rows} T={T} at "
+              f"{geometry_str(g_s)}: kernel_ms {shard_ms:.4f} (x"
+              f"{P13_SHARDS} = {P13_SHARDS * shard_ms:.4f}), the whole "
+              f"{y_all.shape[0]} at {geometry_str(g_w)} {whole_ms:.4f}; "
+              f"plain_ms {shard_plain_ms:.4f}; bound_ms {b_ms:.4f} ({b_by}: "
+              f"{gflop:.4f} GFLOP, {mb:.4f} MB)")
+        numbers["k1"] = dict(
+            ms=shard_ms, whole_ms=whole_ms, plain_ms=shard_plain_ms,
+            bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=max(e[0] for e in plain_b),
+            max_rel_err_of_peak=max(e[1] for e in plain_b),
+            vs_unsharded_of_peak=max(e[1] for e in errs_b),
+            bitwise_unsharded=same_b, wall_ms_a=ms_a, wall_ms_b=ms_b)
+
+        # (c) bf16_f32acc passed per call, over the same four shards
+        be = fleet.backend
+        state = be.program(fleet.twin.node.field, params)
+        kw16 = dict(method="rk4", gradient="stopgrad",
+                    precision="bf16_f32acc")
+        y_c = uneven[0]
+        shard16 = []
+        with torch.no_grad():
+            unsh16 = be.rollout_batch(state, y_c, ts, **kw16)
+            undo = record_calls("fused_node_rollout", rows, shard16)
+            try:
+                p13_zero()
+                t_b = time.perf_counter()
+                sh16 = be.rollout_batch(state, y_c, ts, mesh=four, **kw16)
+                torch.cuda.synchronize()
+                ms_c = (time.perf_counter() - t_b) * 1e3
+                counts["P13_rollout_batch_4_shards_bf16_f32acc"] = p13_read(
+                    f"P13 (c) rollout_batch over {P13_SHARDS} shards, "
+                    f"precision='bf16_f32acc' per call",
+                    {"K1 bf16_f32acc": P13_SHARDS})
+            finally:
+                undo()
+            with p12_plain_kernels():
+                plain16 = be.rollout_batch(state, y_c, ts, mesh=four, **kw16)
+        check(sh16.dtype == torch.bfloat16, f"P13 (c): {sh16.dtype}")
+        r_c = rel_err(sh16.float(), unsh16.float())
+        share_c = bitwise_share(sh16, unsh16)
+        r_cp = rel_err(sh16.float(), plain16.float())
+        share_cp = bitwise_share(sh16, plain16)
+        print(f"[{smi}] P13 (c) wall ms {ms_c:.3f}; vs the unsharded bf16 "
+              f"request {r_c[1]:.3e} of the peak, bitwise share "
+              f"{share_c:.6f}; vs the plain version over the shards "
+              f"{r_cp[1]:.3e} / {share_cp:.6f} (limits {P12_K1_TOL:g}, "
+              f"{P12_K1_SHARE:g})")
+        check(p12_k1_pass(r_c[1], share_c),
+              "P13 (c): the sharded bf16 rollout disagrees with the unsharded")
+        check(p12_k1_pass(r_cp[1], share_cp),
+              "P13 (c): the sharded bf16 rollout disagrees with the plain")
+        (p16, y16, u16, dt16), k16, _ = shard16[0]
+        ms16 = cuda_ms(lambda: ops.fused_node_rollout(p16, y16, u16, dt16,
+                                                      **k16),
+                       reps=20, warmup=3)
+        with p12_plain_kernels():
+            plain16_ms = cuda_ms(lambda: ops.fused_node_rollout(
+                p16, y16, u16, dt16, **k16), reps=3, warmup=1)
+        flops, nbytes = fused_ode_mlp.rollout_work(sizes, rows, T,
+                                                   u16.numel(), 2)
+        b16 = bound(flops, nbytes, BF16_PEAK)
+        print(f"[{smi}] P13 K1 bf16_f32acc per shard B={rows} T={T}: "
+              f"kernel_ms {ms16:.4f}, plain_ms {plain16_ms:.4f}, bound_ms "
+              f"{b16[0]:.6f} ({b16[1]})")
+        numbers["k1_bf16"] = dict(
+            ms=ms16, plain_ms=plain16_ms, bound_ms=b16[0], bound_by=b16[1],
+            max_abs_err=r_cp[0], max_rel_err_of_peak=r_cp[1],
+            bitwise_share_plain=share_cp, vs_unsharded_of_peak=r_c[1],
+            bitwise_share_unsharded=share_c, wall_ms_c=ms_c)
+
+        # (d) FleetServer(mesh=, slo=) on the noisy faulty analogue substrate
+        afleet = recipes.make_l96_fleet(backend=FusedAnalogueCudaBackend(
+            batch_tile=cfg.batch_tile, prog_seed=SEED, read_seed=SEED,
+            **noisy_faulty))
+        slo = ServingSLO(max_rel_error=0.5)
+        # the sharded server takes its weights as load_twin places them
+        placed = checkpoint.load_twin(
+            ckpt, template, shardings=fleet_param_shardings(four, template))
+        check(len(placed) == P13_SHARDS and all(
+            p[0]["w"] is placed[0][0]["w"] for p in placed),
+            "P13 (d): load_twin(shardings=) did not place one copy a card")
+        built, mask_calls = {}, []
+        real_masks = core_faults.stuck_cell_masks_many
+
+        def record_masks(*a, **k):
+            out = real_masks(*a, **k)
+            mask_calls.append((a, k, out))
+            return out
+        for name, kw in (("unsharded", dict(device=card, params=params)),
+                         ("4_shards", dict(mesh=four, params=placed))):
+            p13_zero()
+            core_faults.stuck_cell_masks_many = record_masks
+            try:
+                srv = FleetServer(afleet, ts=ts, slo=slo, **kw)
+            finally:
+                core_faults.stuck_cell_masks_many = real_masks
+            built[name] = (srv, p13_read(
+                f"P13 (d) FleetServer({name}, slo) built", {"K3_masks": 2}))
+        u_srv, s_srv = built["unsharded"][0], built["4_shards"][0]
+        # what K3 drew while the servers were built, against its plain
+        # version on the same arguments; and the programs each shard holds
+        # against the unsharded server's, tensor for tensor
+        check(len(mask_calls) == 4, f"P13 (d): {len(mask_calls)} mask calls")
+        mask_err, mask_same = 0.0, True
+        for a, k, out in mask_calls:
+            want = ref.stuck_cell_masks_many_ref(*a, **k)
+            for g_pair, w_pair in zip(out, want):
+                for g, w in zip(g_pair, w_pair):
+                    mask_same &= torch.equal(g, w)
+                    mask_err = max(mask_err, max_abs_diff(g, w))
+        prog_err, prog_n, prog_same = programs_diff(u_srv, s_srv, four)
+        print(f"[{smi}] P13 (d) K3 masks drawn at construction vs the plain "
+              f"version: {len(mask_calls)} calls, max abs {mask_err:g}, "
+              f"bitwise {mask_same}; the {P13_SHARDS} shards' placed "
+              f"programs vs the unsharded server's: {prog_n} tensors, max "
+              f"abs {prog_err:g}, bitwise {prog_same}")
+        check(mask_same and mask_err == 0.0,
+              "P13 (d): K3's masks differ from the plain version's")
+        check(prog_same and prog_err == 0.0,
+              "P13 (d): a shard's program differs from the unsharded one")
+        # the first request probes the primary (one K4 and pre-pass), which
+        # meets the SLO and serves: one more per shard
+        p13_zero()
+        out_u = u_srv.serve(uneven[0])
+        p13_read("P13 (d) unsharded FleetServer(slo) serve",
+                 {"K4": 2, "K4_noise": 2})
+        shard_k4 = []
+        undo = record_calls("fused_analogue_rollout", rows, shard_k4)
+        try:
+            p13_zero()
+            t_b = time.perf_counter()
+            out_s = s_srv.serve(uneven[0])
+            torch.cuda.synchronize()
+            ms_d = (time.perf_counter() - t_b) * 1e3
+            got_d = p13_read(
+                f"P13 (d) FleetServer(mesh={P13_SHARDS} shards, slo) serve",
+                {"K4": 1 + P13_SHARDS, "K4_noise": 1 + P13_SHARDS})
+        finally:
+            undo()
+        counts["P13_fleet_server_4_shards_slo_analogue"] = {
+            **got_d, "K3_masks": built["4_shards"][1]["K3_masks"]}
+        check(s_srv.active_tier == u_srv.active_tier == afleet.backend.name
+              and s_srv.stats.served_by == u_srv.stats.served_by,
+              f"P13 (d): tiers {s_srv.stats.served_by} vs "
+              f"{u_srv.stats.served_by}")
+        r_d = rel_err(out_s, out_u)
+        same_d = torch.equal(out_s, out_u)
+        check(len(shard_k4) == P13_SHARDS, f"P13 (d): {len(shard_k4)} shards")
+        (st4, y4, u4, dt4), k4kw, out4 = shard_k4[0]
+        plain4, plain4_ms = timed_once(lambda: k4_window_plain(
+            st4, y4, u4, dt4, **k4kw))
+        r_dp = rel_err(out4, plain4)
+        ms4 = cuda_ms(lambda: ops.fused_analogue_rollout(st4, y4, u4, dt4,
+                                                         **k4kw),
+                      reps=10, warmup=2)
+        flops4, bytes4 = k4_work(st4, y4, u4, T, noisy=True)
+        b4 = bound(flops4, bytes4)
+        print(f"[{smi}] P13 (d) wall ms {ms_d:.3f} ({len(shard_k4)} K4 "
+              f"shard launches of {rows} rows); vs the unsharded request "
+              f"{r_d[1]:.3e} of the peak, bitwise {same_d} (limit {TOL:g}); "
+              f"shard 0 vs K4's plain version {r_dp[1]:.3e}; K4 per shard "
+              f"kernel_ms {ms4:.4f} (pre-pass included), plain_ms "
+              f"{plain4_ms:.4f}, bound_ms {b4[0]:.4f} ({b4[1]}); K3 mask "
+              f"launches at construction: unsharded "
+              f"{built['unsharded'][1]['K3_masks']}, {P13_SHARDS} shards "
+              f"{built['4_shards'][1]['K3_masks']}, while serving 0")
+        check(same_d or r_d[1] <= TOL, "P13 (d): sharded K4 disagrees")
+        check(r_dp[1] <= TOL, "P13 (d): K4 disagrees with its plain version")
+        numbers["k3"] = dict(max_abs_err=mask_err, bitwise=mask_same,
+                             programs_max_abs_vs_unsharded=prog_err,
+                             programs_tensors_compared=prog_n,
+                             programs_bitwise=prog_same)
+        numbers["k4"] = dict(ms=ms4, plain_ms=plain4_ms, bound_ms=b4[0],
+                             bound_by=b4[1], max_abs_err=r_dp[0],
+                             max_rel_err_of_peak=r_dp[1],
+                             vs_unsharded_of_peak=r_d[1],
+                             bitwise_unsharded=same_d, wall_ms_d=ms_d)
+
+    # (e) the bf16 stream: float32 completions, vs the plain K1's stream
+    sfleet = recipes.make_l96_fleet(backend=FusedCudaBackend(
+        batch_tile=cfg.batch_tile, precision="bf16_f32acc"))
+    y0_table = (cfg.y0_spread * torch.randn(
+        (P13_POPULATION, cfg.state_dim),
+        generator=torch.Generator().manual_seed(SEED + 26))).numpy()
+    trace = traffic.poisson_trace(population=P13_POPULATION, **P13_TRACE)
+
+    def stream():
+        srv = StreamingFleetServer(sfleet, template, dt=cfg.dt, device=card,
+                                   **P13_STREAM)
+        return srv, srv.serve_trace(trace, y0_of=lambda i: y0_table[i])
+
+    p13_zero()
+    t_b = time.perf_counter()
+    srv, done = stream()
+    torch.cuda.synchronize()
+    ms_e = (time.perf_counter() - t_b) * 1e3
+    counts["P13_stream_bf16_f32acc"] = p13_read(
+        "P13 (e) StreamingFleetServer on bf16_f32acc",
+        {"K1 bf16_f32acc": srv.stream_stats.batches})
+    check(len(done) == len(trace), f"P13 (e): {len(done)} of {len(trace)}")
+    check(all(c.trajectory.dtype == np.float32
+              and np.isfinite(c.trajectory).all() for c in done),
+          "P13 (e): a completion is not finite float32")
+    with p12_plain_kernels():
+        _, plain_done = stream()
+    got = torch.from_numpy(np.concatenate(
+        [c.trajectory for c in sorted(done, key=lambda c: c.seq)]))
+    want = torch.from_numpy(np.concatenate(
+        [c.trajectory for c in sorted(plain_done, key=lambda c: c.seq)]))
+    r_e, share_e = rel_err(got, want), bitwise_share(got, want)
+    print(f"[{smi}] P13 (e) {len(done)} float32 completions in "
+          f"{srv.stream_stats.batches} pumps, {ms_e:.3f} ms; vs the stream "
+          f"on K1's plain version {r_e[1]:.3e} of the peak, bitwise share "
+          f"{share_e:.6f} (limits {P12_K1_TOL:g}, {P12_K1_SHARE:g})")
+    check(p12_k1_pass(r_e[1], share_e),
+          "P13 (e): the bf16 stream disagrees with the plain stream")
+    numbers["stream"] = dict(ms=ms_e, pumps=srv.stream_stats.batches,
+                             err_of_peak=r_e[1], bitwise_share=share_e)
+    sec = time.perf_counter() - t_phase
+    print(f"[{smi}] phase 26 (P13) in {sec:.1f} s")
+    return {"counts": counts, "numbers": numbers, "s": sec, "rows": rows}
+
+
+def p13_entries(p13, k3_masks_row) -> list:
+    """The kernels line's entries of the sharded paths (P13)."""
+    c, n = p13["counts"], p13["numbers"]
+
+    def by(key):
+        return {p: v[key] for p, v in c.items() if v.get(key)}
+
+    shape = (f"{P13_SHARDS} shards x {p13['rows']} rows of {P13_UNEVEN} "
+             f"twins, T={recipes.FLEET.horizon}, 6-64-64-6")
+    k1, k16, k4 = n["k1"], n["k1_bf16"], n["k4"]
+    return [{
+        "name": "fused_node_rollout_sharded", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_ode_mlp.cu",
+        "replaces": "src/repro/kernels/fused_ode_mlp.py:390", "shape": shape,
+        "launches": sum(by("K1").values()), "launches_by_path": by("K1"),
+        "max_abs_err": k1["max_abs_err"],
+        "max_rel_err_of_peak": k1["max_rel_err_of_peak"],
+        "vs_unsharded_of_peak": k1["vs_unsharded_of_peak"],
+        "bitwise_unsharded": k1["bitwise_unsharded"],
+        "ms": k1["ms"], "whole_request_ms": k1["whole_ms"],
+        "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"], "library_ms": None,
+        "wall_ms_make_twin_mesh": k1["wall_ms_a"],
+        "wall_ms_4_shards": k1["wall_ms_b"],
+    }, {
+        "name": "fused_node_rollout_bf16_f32acc_sharded", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_ode_mlp.cu",
+        "replaces": "src/repro/kernels/fused_ode_mlp.py:390", "shape": shape,
+        "precision": "bf16_f32acc",
+        "launches": sum(by("K1 bf16_f32acc").values()),
+        "launches_by_path": by("K1 bf16_f32acc"),
+        "max_abs_err": k16["max_abs_err"],
+        "max_rel_err_of_peak": k16["max_rel_err_of_peak"],
+        "bitwise_share": k16["bitwise_share_plain"],
+        "vs_unsharded_of_peak": k16["vs_unsharded_of_peak"],
+        "bitwise_share_unsharded": k16["bitwise_share_unsharded"],
+        "ms": k16["ms"], "plain_ms": k16["plain_ms"],
+        "bound_ms": k16["bound_ms"], "bound_by": k16["bound_by"],
+        "library_ms": None, "wall_ms": k16["wall_ms_c"],
+        "stream": n["stream"],
+    }, {
+        "name": "counter_noise_stuck_masks_sharded_serving", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/counter_noise.cu",
+        "replaces": "src/repro/kernels/noise.py:80",
+        "shape": "P2's programming, once per tier when FleetServer(mesh=, "
+                 "slo=) is built, whatever the shard count",
+        "launches": sum(by("K3_masks").values()),
+        "launches_by_path": by("K3_masks"),
+        "max_abs_err": n["k3"]["max_abs_err"],
+        "bitwise_plain": n["k3"]["bitwise"],
+        "programs_max_abs_vs_unsharded":
+            n["k3"]["programs_max_abs_vs_unsharded"],
+        "programs_tensors_compared": n["k3"]["programs_tensors_compared"],
+        **k3_masks_row, "library_ms": None,
+    }, {
+        "name": "fused_analogue_rollout_sharded", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_analogue.cu",
+        "replaces": "src/repro/kernels/fused_analogue.py:208",
+        "shape": shape + ", uint8, read noise 0.02, 1% stuck, drift",
+        "launches": sum(by("K4").values()), "launches_by_path": by("K4"),
+        "noise_launches": sum(by("K4_noise").values()),
+        "max_abs_err": k4["max_abs_err"],
+        "max_rel_err_of_peak": k4["max_rel_err_of_peak"],
+        "vs_unsharded_of_peak": k4["vs_unsharded_of_peak"],
+        "bitwise_unsharded": k4["bitwise_unsharded"],
+        "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
+        "library_ms": None, "wall_ms": k4["wall_ms_d"],
+    }]
+
+
 def main() -> int:
     # -- 1. environment ----------------------------------------------------
     if not torch.cuda.is_available():
@@ -5334,6 +5834,12 @@ def main() -> int:
     # -- 25. P12: the bf16 policies (K1, K2, K5, K6 on the reduced substrate) --
     p12 = p12_bf16(dev, smi, hp_f32, l96_twin, l96_params, ts_tr, ys_tr)
 
+    # -- 26. P13: the twin mesh (K1, K3 and K4 per shard) ---------------------
+    p13 = p13_mesh(torch.device("cuda", torch.cuda.current_device()), smi,
+                   noisy_faulty)
+    path_counts.update({p: {k: c.get(k, 0) for k in counters}
+                        for p, c in p13["counts"].items()})
+
     k1_paths = {"serve_fleet": launches, "train_hp_twin": hp_counts[0],
                 "hp_40_steps_fused_cuda": hp40_counts["fused_cuda"][0],
                 "train_l96_twin": l96_counts[0],
@@ -5343,7 +5849,8 @@ def main() -> int:
                 **{p: c["K1"] for p, c in p7.items() if c["K1"]},
                 **{p: c["K1"] for p, c in p8.items() if c["K1"]},
                 **p9_paths_of("K1"),
-                "P10_scorecard": p10["counts"]["P10_scorecard"]["K1"]}
+                "P10_scorecard": p10["counts"]["P10_scorecard"]["K1"],
+                **{p: c["K1"] for p, c in p13["counts"].items() if c["K1"]}}
     k2_paths = {"train_hp_twin": hp_counts[1],
                 **{p: c["K2"] for p, c in p6["counts"].items()},
                 "hp_40_steps_fused_cuda": hp40_counts["fused_cuda"][1],
@@ -5553,7 +6060,8 @@ def main() -> int:
         ("softdtw_rowmajor", "K5", "src/repro/kernels/softdtw.py:110"),
         ("softdtw_rowmajor_bwd", "K6",
          "src/repro/kernels/softdtw.py:215"))], *lm_entries,
-        *p10["kernels"], *p12_entries(p12)]}
+        *p10["kernels"], *p12_entries(p12),
+        *p13_entries(p13, k3_rows["masks"])]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

@@ -20,12 +20,16 @@ crossbar kernel K7); ``FusedAnalogueCudaBackend``
 (``"analogue_fused_cuda"``) runs the same deployment's whole trajectory
 in one launch of K4 (:mod:`repro_torch.kernels.fused_analogue`), the
 counterpart of ``FusedAnalogueBackend``.  The fleet axis is a batch
-dimension written out, where JAX vmaps.
+dimension written out, where JAX vmaps.  ``rollout_batch(mesh=...)``
+splits it over the ``"twins"`` axis of a
+:class:`~repro_torch.launch.mesh.Mesh`
+(:func:`repro_torch.launch.fleet_serving.shard_rollout_batch`): the
+programmed state is copied to each shard's device and each shard runs
+``rollout_batch_local``, which is what the backends override.
 
 The adaptive ``dopri5`` solver runs on the digital backend and on the
 crossbar simulator (one step controller per twin); the fused backends
-integrate RK4 only.  Not ported yet (ROADMAP.md, queue 1 item 11): mesh
-sharding.
+integrate RK4 only.
 """
 from __future__ import annotations
 
@@ -94,7 +98,7 @@ class Backend(Protocol):
     def rollout_batch(self, state: ExecState, y0s, ts,
                       **kw) -> torch.Tensor:
         """Fleet solve: N initial conditions -> (N, T+1, D) in one
-        program."""
+        program; ``mesh=`` splits the fleet axis across devices."""
         ...
 
 
@@ -166,11 +170,24 @@ class BaseBackend:
     def rollout_batch(self, state: ExecState, y0s, ts, *,
                       drive_family: Optional[Callable] = None,
                       drive_params: Optional[torch.Tensor] = None,
-                      **kw) -> torch.Tensor:
+                      mesh=None, **kw) -> torch.Tensor:
         """Fleet rollout: N independent twins -> (N, T+1, D), matching
         ``torch.stack([rollout(y0_i) for i])``.  ``drive_family(t, theta)``
         with per-twin ``drive_params`` (N, ...) re-binds each member's
-        drive.  One device; the JAX package's ``mesh=`` is not ported."""
+        drive.
+
+        ``mesh``: a :class:`~repro_torch.launch.mesh.Mesh` with a
+        ``"twins"`` axis splits the fleet over its devices (the state
+        copied to each, N padded up to a multiple of the shard count, the
+        padding dropped, the result on the mesh's first device) and each
+        shard runs :meth:`rollout_batch_local`; ``mesh=None`` runs the
+        whole fleet where ``y0s`` lies.  Sharding changes only where the
+        work runs."""
+        if mesh is not None:
+            from repro_torch.launch.fleet_serving import shard_rollout_batch
+            return shard_rollout_batch(self, state, y0s, ts, mesh=mesh,
+                                       drive_family=drive_family,
+                                       drive_params=drive_params, **kw)
         return self.rollout_batch_local(state, y0s, ts,
                                         drive_family=drive_family,
                                         drive_params=drive_params, **kw)
@@ -179,8 +196,10 @@ class BaseBackend:
                             drive_family: Optional[Callable] = None,
                             drive_params: Optional[torch.Tensor] = None,
                             **kw) -> torch.Tensor:
-        """Single-device fleet implementation: the fleet is the leading
-        batch axis of one rollout (the JAX package vmaps N rollouts)."""
+        """Single-device fleet implementation (the shard body): the fleet
+        is the leading batch axis of one rollout (the JAX package vmaps N
+        rollouts).  Subclasses override THIS, not ``rollout_batch``, so
+        the mesh dispatch stays in one place."""
         if drive_family is not None:
             state = _with_drive(state, _fleet_drive(drive_family,
                                                     drive_params))

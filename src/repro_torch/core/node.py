@@ -124,13 +124,17 @@ class NeuralODE:
 
     def trajectory_batch(self, params: Params, y0s: torch.Tensor,
                          ts: torch.Tensor, *, drive_family=None,
-                         drive_params=None) -> torch.Tensor:
+                         drive_params=None, mesh=None) -> torch.Tensor:
         """Fleet solve: N initial conditions (and optionally per-twin
-        drive parameters) in one program, (N, len(ts), D)."""
+        drive parameters) in one program, (N, len(ts), D).
+
+        ``mesh``: optional twin mesh; splits the fleet dimension across
+        its devices, the substrate programmed once (see
+        :meth:`repro_torch.core.backends.BaseBackend.rollout_batch`)."""
         from repro_torch.core.backends import resolve_backend
         backend = resolve_backend(self.backend)
         state = backend.program(self.field, params)
         return backend.rollout_batch(state, y0s, ts,
                                      drive_family=drive_family,
-                                     drive_params=drive_params,
+                                     drive_params=drive_params, mesh=mesh,
                                      **self._solver_kw())

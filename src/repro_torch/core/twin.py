@@ -50,13 +50,20 @@ class DigitalTwin:
     def simulate_batch(self, params: Params, y0s: torch.Tensor,
                        ts: torch.Tensor, *,
                        drive_family: Optional[Callable] = None,
-                       drive_params: Optional[torch.Tensor] = None):
+                       drive_params: Optional[torch.Tensor] = None,
+                       mesh=None):
         """Batched fleet rollout: (N, D) initial conditions -> (N, T+1, D),
         equal to stacking N single-trajectory solves but executed as one
-        program (one kernel launch on the fused backend)."""
+        program (one kernel launch on the fused backend).
+
+        ``mesh``: optional :class:`~repro_torch.launch.mesh.Mesh` with a
+        ``"twins"`` axis; splits the fleet dimension across its devices
+        (weights copied to each, uneven N padded, padding dropped, one
+        launch per shard); ``None`` stays on one device."""
         return self.node.trajectory_batch(params, y0s, ts,
                                           drive_family=drive_family,
-                                          drive_params=drive_params)
+                                          drive_params=drive_params,
+                                          mesh=mesh)
 
     def deploy_analogue(self, prog_seed: int, params: Params,
                         spec: AnalogueSpec,
@@ -102,15 +109,20 @@ class TwinFleet:
 
     def rollout_batch(self, params: Params, y0s: torch.Tensor,
                       ts: torch.Tensor,
-                      drive_params: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
-        """Fleet rollout on the current device -> (N, T+1, D)."""
+                      drive_params: Optional[torch.Tensor] = None, *,
+                      mesh=None) -> torch.Tensor:
+        """Fleet rollout -> (N, T+1, D): on the device of ``y0s`` with
+        ``mesh=None``, else split over the ``"twins"`` axis of ``mesh``
+        (the substrate programmed once and copied to each device, each
+        device rolling out its slice; the same trajectories either way).
+        See :mod:`repro_torch.launch.fleet_serving` for the serving
+        pipeline on top."""
         if (drive_params is None) != (self.drive_family is None):
             raise ValueError(
                 "drive_params and drive_family must be given together")
         return self.twin.simulate_batch(params, y0s, ts,
                                         drive_family=self.drive_family,
-                                        drive_params=drive_params)
+                                        drive_params=drive_params, mesh=mesh)
 
     def rollout_batch_resumed(self, params: Params, ys: torch.Tensor, *,
                               dt: float, num_steps: int, t0: float = 0.0,

@@ -65,6 +65,20 @@ class TokenPipeline:
             step += 1
 
 
+def input_specs(cfg, shape, mesh_axes=None) -> dict:
+    """The step inputs of a dry run as ``meta``-device tensors (shape and
+    dtype only, never allocated), the JAX package's
+    ``ShapeDtypeStruct``s: train/prefill ``{'tokens': (B, S+1)}``,
+    decode the single-token step ``{'tokens': (B, 1)}``, int32.
+    ``cfg`` and ``mesh_axes`` keep the JAX signature; the shapes need
+    neither, as in JAX."""
+    del cfg, mesh_axes
+    b, s = shape.global_batch, shape.seq_len
+    rows = s + 1 if shape.kind in ("train", "prefill") else 1
+    return {"tokens": torch.empty((b, rows), dtype=torch.int32,
+                                  device="meta")}
+
+
 def split_batch(batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, S+1) tokens -> (inputs (B, S), labels (B, S))."""
     toks = batch["tokens"]

@@ -1,12 +1,20 @@
-"""Fleet serving: one trained twin, many assets, one device (port of ``repro/launch/fleet_serving.py``).
+"""Fleet serving: one trained twin, many assets, one or many devices (port of ``repro/launch/fleet_serving.py``).
 
 Layers (bottom-up):
 
+  ``shard_rollout_batch``   the fleet axis split over the ``"twins"`` axis
+                            of a :class:`~repro_torch.launch.mesh.Mesh`:
+                            the programmed substrate copied once per
+                            distinct device, each shard's slice rolled out
+                            there by the backend's ``rollout_batch_local``,
+                            the results gathered on the mesh's first
+                            device (``Backend.rollout_batch(mesh=...)``)
   ``fallback_chain``        degradation tiers of an analogue fleet
                             (primary -> quiet analogue -> digital)
   ``FleetServer``           programmed server: weights placed on the
-                            device once, request batches in,
-                            trajectories out; with a ``ServingSLO``,
+                            device once, request batches in (split over
+                            a mesh when one is given), trajectories out;
+                            with a ``ServingSLO``,
                             health probes and retries down the chain
   ``serve_fleet``           end-to-end pipeline: checkpoint -> server ->
                             streamed request batches -> results, in order
@@ -22,11 +30,12 @@ On the ``fused_cuda`` backend each request batch is one launch of the
 hand-written CUDA kernel K1 (:mod:`repro_torch.kernels.fused_ode_mlp`); on
 ``analogue_fused_cuda`` the twin is deployed on memristor crossbars and
 each batch is one launch of K4 (:mod:`repro_torch.kernels.fused_analogue`).
+On a mesh each shard of a batch is one such launch on its shard's device.
+The JAX package's ``shard_map`` is single-controller, and so is this: one
+process walks the shards, with no process group.
 
-Not ported yet (ROADMAP.md, queue 1): the multi-device mesh
-(``shard_rollout_batch``, item 11).
-
-CLI (Lorenz96 fleet; ``--device cpu`` runs the kernel's plain version):
+CLI (Lorenz96 fleet over the twin mesh of every visible card;
+``--device cpu`` runs the kernel's plain version on one CPU shard):
 
   PYTHONPATH=src python -m repro_torch.launch.fleet_serving --device cpu \\
       --fleet 16 --horizon 20
@@ -50,6 +59,9 @@ from repro_torch.core.backends import (AnalogueBackend, DigitalBackend,
 from repro_torch.device import resolve_device
 from repro_torch.launch import chaos
 from repro_torch.launch import journal as journal_lib
+from repro_torch.launch.mesh import (TWIN_AXIS, make_twin_mesh, twin_devices,
+                                     twin_shard_count)
+from repro_torch.launch.sharding import Placed, replicate
 from repro_torch.launch.state_store import StoreStats, TwinStateStore
 from repro_torch.train import checkpoint as ckpt_lib
 
@@ -123,6 +135,54 @@ def pad_fleet_inputs(y0s: torch.Tensor,
         return torch.cat([x, x[-1:].expand(np_ - n, *x.shape[1:])])
 
     return pad(y0s), pad(drive_params), mask
+
+
+# ---------------------------------------------------------------------------
+# The sharded rollout (the Backend.rollout_batch(mesh=...) implementation)
+# ---------------------------------------------------------------------------
+
+def shard_rollout_batch(backend, state, y0s: torch.Tensor, ts, *, mesh,
+                        drive_family=None,
+                        drive_params: Optional[torch.Tensor] = None,
+                        **solver_kw) -> torch.Tensor:
+    """Split a fleet rollout over the twin axis of ``mesh``.
+
+    ``backend`` / ``state``: a programmed execution substrate (see
+    :mod:`repro_torch.core.backends`).  The state is copied once to each
+    distinct device of the mesh and never programmed again, so every
+    shard reads the same conductances (and programming noise); a state
+    already placed on ``mesh`` by
+    :func:`repro_torch.launch.sharding.replicate` is used as it is.  ``y0s`` (N, D) and the
+    optional ``drive_params`` (N, ...) are padded up to a multiple of the
+    shard count (:func:`pad_fleet_inputs`), split along dim 0, and each
+    shard calls ``backend.rollout_batch_local`` on its slice on its
+    device, so a shard runs exactly the single-device program.  The
+    results are gathered on the mesh's first device, padding dropped:
+    (N, T+1, D).
+
+    ``solver_kw`` goes verbatim to every shard's ``rollout_batch_local``,
+    the fused backend's per-call ``precision=`` included.
+    """
+    validate_fleet_request("shard_rollout_batch", y0s=y0s, ts=ts,
+                           drive_params=drive_params)
+    devices = twin_devices(mesh)
+    n = y0s.shape[0]
+    y0s_p, dp_p, _ = pad_fleet_inputs(y0s, drive_params, len(devices))
+    states = state if isinstance(state, Placed) else replicate(state, mesh)
+    if len(states) != len(devices):
+        raise ValueError(
+            f"shard_rollout_batch: the state is placed on {len(states)} "
+            f"position(s), the mesh has {len(devices)}")
+    rows = y0s_p.shape[0] // len(devices)
+    outs = []
+    for k, dev in enumerate(devices):
+        part = slice(k * rows, (k + 1) * rows)
+        outs.append(backend.rollout_batch_local(
+            states[k], y0s_p[part].to(dev), ts,
+            drive_family=drive_family,
+            drive_params=None if dp_p is None else dp_p[part].to(dev),
+            **solver_kw))
+    return torch.cat([o.to(devices[0]) for o in outs])[:n]
 
 
 # ---------------------------------------------------------------------------
@@ -227,7 +287,21 @@ def _program_tiers(tiers, params) -> list:
     return out
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one (``cuda`` is the current card)."""
+    def index(d):
+        if d.type == "cuda" and d.index is None:
+            return torch.cuda.current_device()
+        return d.index
+    return a.type == b.type and index(a) == index(b)
+
+
 def _params_to(params, device) -> list:
+    """The weights whole on ``device``: a list of layers, or a placement
+    (``load_twin(shardings=)``) gathered there (its first copy, when it
+    is replicated and already there)."""
+    if isinstance(params, Placed):
+        params = params.gather(device)
     return [{k: torch.as_tensor(v).to(device) for k, v in layer.items()}
             for layer in params]
 
@@ -246,14 +320,23 @@ def _rel_err(out: torch.Tensor, ref: torch.Tensor, scale: float) -> float:
 
 @dataclasses.dataclass
 class FleetServer:
-    """A twin fleet programmed for serving on one device.
+    """A twin fleet programmed for serving on one device or a twin mesh.
 
-    Construction places ``params`` on ``device`` (default ``cuda``) once
-    and freezes the time grid; each :meth:`serve` call validates a
-    request batch, rolls it out without autograd and returns the (N, T+1,
-    D) trajectories on the device.  Without an SLO each batch is served
-    through ``fleet.rollout_batch``, which programs the substrate per
-    batch (as the JAX package's eager path does).
+    Construction places ``params`` (a list of layers, or a placement
+    from ``load_twin(shardings=)``) on ``device`` (default ``cuda``, or
+    the mesh's first device) once and freezes the time grid; each
+    :meth:`serve` call validates a request batch, rolls it out without
+    autograd and returns the (N, T+1, D) trajectories on that device.
+    Without an SLO each batch is served through ``fleet.rollout_batch``,
+    which programs the substrate per batch (as the JAX package's jitted
+    path does).
+
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh` with a
+    ``"twins"`` axis; None = ``device`` alone) splits every batch over
+    its shards (:func:`shard_rollout_batch`): uneven batches are padded
+    and the padding dropped, and each shard runs the single-device
+    program on its slice.  A mesh whose first device is not ``device``
+    raises.
 
     Passing a :class:`ServingSLO` arms graceful degradation: the
     :func:`fallback_chain` tiers are programmed once, here; every
@@ -262,17 +345,28 @@ class FleetServer:
     requests are served from the first tier that meets the SLO (probing
     restarts from the primary, so a recovered array is promoted back).  A
     request whose trajectories come back non-finite is retried down the
-    chain; ``RuntimeError`` only when even the digital tier fails.
-    ``stats`` counts what happened.  One device: the JAX package's
-    ``mesh=`` is ROADMAP.md queue 1 item 11.
+    chain; ``RuntimeError`` only when even the digital tier fails.  The
+    tiers are programmed once, on ``device``, and copied once to each
+    other distinct device of the mesh; probes run on ``device`` alone.
+    ``stats`` counts what happened.
     """
     fleet: Any                        # repro_torch.core.twin.TwinFleet
     params: Params
     ts: Any                           # concrete uniform time grid
-    device: Any = None                # None -> cuda
+    device: Any = None                # None -> cuda (or the mesh's first)
     slo: Optional[ServingSLO] = None  # None -> no degradation machinery
+    mesh: Any = None                  # None -> device alone
 
     def __post_init__(self):
+        if self.mesh is not None:
+            first = twin_devices(self.mesh)[0]
+            if self.device is None:
+                self.device = first
+            elif not _same_device(resolve_device(self.device), first):
+                raise ValueError(
+                    f"FleetServer: device={self.device!s} but the mesh's "
+                    f"first device is {first!s}; results are gathered "
+                    f"there, so give one or make them agree")
         self.device = resolve_device(self.device)
         self.ts = torch.as_tensor(self.ts).detach().cpu()
         validate_fleet_request("FleetServer", ts=self.ts)
@@ -282,20 +376,35 @@ class FleetServer:
                        else fallback_chain(self.fleet))
         self._programs = (None if self.slo is None
                           else _program_tiers(self._tiers, self.params))
+        self._placed = (None if self._programs is None or self.mesh is None
+                        else [replicate(state, self.mesh)
+                              for _, state in self._programs])
         self._active = 0
+
+    @property
+    def n_shards(self) -> int:
+        return 1 if self.mesh is None else twin_shard_count(self.mesh)
 
     @property
     def active_tier(self) -> str:
         """Name of the tier requests are currently served from."""
         return self._tiers[self._active][0]
 
-    def _rollout(self, i: int, y0s, ts, thetas) -> torch.Tensor:
+    def _rollout(self, i: int, y0s, ts, thetas,
+                 sharded: bool = True) -> torch.Tensor:
+        """Tier ``i``'s programmed rollout: over the mesh with the copies
+        placed at construction, or on ``device`` alone (``sharded=False``,
+        the probes)."""
         backend, state = self._programs[i]
         tier_fleet = self._tiers[i][1]
+        kw = tier_fleet.twin.node._solver_kw()
+        if sharded and self._placed is not None:
+            kw["mesh"] = self.mesh
+            state = self._placed[i]
         with torch.inference_mode():
             return backend.rollout_batch(
                 state, y0s, ts, drive_family=tier_fleet.drive_family,
-                drive_params=thetas, **tier_fleet.twin.node._solver_kw())
+                drive_params=thetas, **kw)
 
     def _probe(self, y0s, thetas) -> None:
         """Golden-trajectory health check: roll the request's first
@@ -308,11 +417,13 @@ class FleetServer:
         ts_p = self.ts[:h]
         yp = y0s[: s.probe_fleet]
         tp = None if thetas is None else thetas[: s.probe_fleet]
-        ref = self._rollout(len(self._tiers) - 1, yp, ts_p, tp)
+        ref = self._rollout(len(self._tiers) - 1, yp, ts_p, tp,
+                            sharded=False)
         scale = float(ref.abs().max()) + 1e-9
         prev, chosen = self._active, len(self._tiers) - 1
         for i, (name, _) in enumerate(self._tiers[:-1]):
-            err = _rel_err(self._rollout(i, yp, ts_p, tp), ref, scale)
+            err = _rel_err(self._rollout(i, yp, ts_p, tp, sharded=False),
+                           ref, scale)
             self.stats.probe_errors[name] = err
             if np.isfinite(err) and err <= s.max_rel_error:
                 chosen = i
@@ -335,7 +446,7 @@ class FleetServer:
         if s is None:
             with torch.inference_mode():
                 out = self.fleet.rollout_batch(self.params, y0s, self.ts,
-                                               drive_params)
+                                               drive_params, mesh=self.mesh)
             self.stats.requests += 1
             _bump(self.stats.served_by, "primary")
             return out
@@ -366,7 +477,7 @@ class FleetServer:
 
 
 def serve_fleet(ckpt_dir: str, fleet, ts, requests: Iterable[Request], *,
-                step: Optional[int] = None,
+                step: Optional[int] = None, mesh=None,
                 params_template: Optional[Params] = None,
                 device=None) -> Iterator[torch.Tensor]:
     """End-to-end serving pipeline over a stream of request batches.
@@ -374,20 +485,23 @@ def serve_fleet(ckpt_dir: str, fleet, ts, requests: Iterable[Request], *,
     checkpoint load (:func:`repro_torch.train.checkpoint.load_twin`, which
     also reads the JAX package's checkpoints) -> weights placed on
     ``device`` once (:class:`FleetServer`) -> each request batch rolled
-    out -> trajectories yielded in order.
+    out, split over ``mesh`` when one is given (``device`` then defaults
+    to its first device) -> trajectories yielded in order.
 
     ``requests`` yields either ``y0s`` tensors (autonomous fleets) or
     ``(y0s, drive_params)`` tuples (driven fleets).  ``params_template``
     gives the weight structure for the restore; by default it is built
     with ``fleet.twin.init`` on the CPU (the values are overwritten).
     """
+    if device is None and mesh is not None:
+        device = twin_devices(mesh)[0]
     device = resolve_device(device)
     if params_template is None:
         params_template = fleet.twin.init(torch.Generator().manual_seed(0),
                                           device="cpu")
     params = ckpt_lib.load_twin(ckpt_dir, params_template, step=step,
                                 device=device)
-    server = FleetServer(fleet, params, ts, device=device)
+    server = FleetServer(fleet, params, ts, device=device, mesh=mesh)
     for req in requests:
         y0s, thetas = req if isinstance(req, tuple) else (req, None)
         yield server.serve(y0s, thetas)
@@ -902,7 +1016,9 @@ class StreamingFleetServer:
         share it, which is what makes a replayed window the crash-free
         state transition."""
         tier_name = self._tiers[tier_idx][0]
-        traj_h = traj[:n].cpu().numpy()
+        # float32 on the host whatever the substrate's storage dtype
+        # (numpy has no bfloat16), as the JAX package's completions are
+        traj_h = traj[:n].cpu().to(torch.float32).numpy()
         served = [min(r.remaining, H) for r in picked]
         rows = torch.arange(n, device=traj.device)
         end_states = traj[rows, torch.as_tensor(served, device=traj.device)]
@@ -1307,12 +1423,12 @@ class StreamingFleetServer:
 
 
 # ---------------------------------------------------------------------------
-# CLI: the Lorenz96 fleet workload on one device
+# CLI: the Lorenz96 fleet workload over the local twin mesh
 # ---------------------------------------------------------------------------
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="Serve a Lorenz96 twin fleet on one device")
+        description="Serve a Lorenz96 twin fleet over the local twin mesh")
     ap.add_argument("--fleet", type=int, default=256,
                     help="assets per request batch")
     ap.add_argument("--horizon", type=int, default=100,
@@ -1343,10 +1459,12 @@ def main(argv=None):
                      f"not apply to --backend {backend}")
         backend = FusedCudaBackend(batch_tile=recipes.FLEET.batch_tile,
                                    precision=args.precision)
-    device = resolve_device(args.device)
+    mesh = make_twin_mesh(device=args.device)
+    device = twin_devices(mesh)[0]
     fleet = recipes.make_l96_fleet(backend=backend)
     ts = recipes.l96_fleet_ts(horizon=args.horizon)
-    print(f"device {device}; backend {args.backend} precision "
+    print(f"mesh: {twin_shard_count(mesh)} device(s) on axis '{TWIN_AXIS}'; "
+          f"backend {args.backend} precision "
           f"{'n/a' if args.backend != 'fused_cuda' else args.precision or 'f32'}")
 
     with tempfile.TemporaryDirectory(prefix="l96_fleet_ckpt_") as tmp:
@@ -1363,9 +1481,10 @@ def main(argv=None):
         t0 = time.perf_counter()
         outs = []
         for i, traj in enumerate(serve_fleet(ckpt_dir, fleet, ts, reqs,
-                                             device=device)):
+                                             mesh=mesh)):
             if device.type == "cuda":
-                torch.cuda.synchronize(device)
+                for d in dict.fromkeys(twin_devices(mesh)):
+                    torch.cuda.synchronize(d)
             outs.append(traj)
             dt_s = time.perf_counter() - t0
             rate = (i + 1) * args.fleet * args.horizon / dt_s

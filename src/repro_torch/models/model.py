@@ -6,9 +6,10 @@ identical *periods* (Jamba's 8-layer Mamba/attention/MoE group, or one
 dense block).  Period parameters keep the JAX package's tree: every leaf
 of ``params["stack"]`` has a leading ``n_periods`` axis, which the port
 walks with a Python loop where JAX runs ``lax.scan``; the caches of the
-periods are stacked on that axis as ``lax.scan`` stacks them.  The
-sharding constraints and remat of the JAX module are devices of a mesh
-and of training, no-ops on one card, and are left out.  MLA, xLSTM and
+periods are stacked on that axis as ``lax.scan`` stacks them.
+``set_batch_axes`` keeps the JAX module's ambient batch axes; the
+sharding constraint they feed is the identity here (no GSPMD), and the
+remat of training is left out.  MLA, xLSTM and
 ``ode_depth`` raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -29,6 +30,20 @@ from repro_torch.models.layers import (F32, embed_init, mlp_apply, mlp_init,
 from repro_torch.tree import tree_map
 
 Pytree = Any
+
+# Ambient batch mesh axes for activation sharding constraints, set by a
+# launcher before it builds a step (None: one device).  The JAX package
+# feeds them to ``with_sharding_constraint`` at block boundaries so GSPMD
+# keeps (B, S, d) activations batch-split; the port has no GSPMD (a
+# program runs where its tensors lie), so that constraint is the identity,
+# left out, and the axes are only kept.
+_BATCH_AXES: tuple | None = None
+
+
+def set_batch_axes(axes):
+    global _BATCH_AXES
+    _BATCH_AXES = tuple(axes) if axes else None
+
 
 #: Where ``ode_depth`` waits (ROADMAP.md).
 ODE_DEPTH_TODO = ("ode_depth > 0 (ContinuousDepthBlock) is not ported yet "

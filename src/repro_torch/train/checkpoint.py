@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.launch import chaos
+from repro_torch.launch.sharding import device_put
 
 Tree = Any
 
@@ -70,7 +71,8 @@ def _to_numpy(x) -> np.ndarray:
 
 def save(ckpt_dir: str, step: int, tree: Tree, *, keep: int = 3,
          blocking: bool = True, extra: Optional[dict] = None) -> str:
-    """Atomically persist a tree of tensors; returns the step directory.
+    """Atomically persist a tree of tensors; returns the step directory
+    (a placement is saved from ``Placed.gather()``).
     Retention keeps the newest ``keep`` steps.  ``extra`` (JSON-ready) is
     stored in the manifest and published with the arrays.  With
     ``blocking=False`` the device-to-host copies happen here and the
@@ -245,12 +247,25 @@ def load_arrays(path: str):
 
 
 def restore(ckpt_dir: str, step: int, target: Tree, *,
-            device=None) -> Tree:
+            device=None, shardings: Optional[Tree] = None) -> Tree:
     """Restore into the structure of ``target`` (tensors give the shape
     and dtype of each leaf).  Leaves go to ``device``, or to the device of
-    the matching template tensor when ``device`` is None.  Raises for
-    on-disk damage and for template mismatches (a leaf the checkpoint
-    never stored, or stored with another shape)."""
+    the matching template tensor when ``device`` is None.
+
+    ``shardings``: a tree of :class:`repro_torch.launch.sharding
+    .NamedSharding` with ``target``'s structure, all on one mesh; the
+    tree is then placed by them
+    (:func:`repro_torch.launch.sharding.device_put`, which returns a
+    :class:`~repro_torch.launch.sharding.Placed`), whatever placement the
+    checkpoint was saved from: restarts are elastic across topologies.
+    Giving ``device`` too raises.
+
+    Raises for on-disk damage and for template mismatches (a leaf the
+    checkpoint never stored, or stored with another shape)."""
+    if shardings is not None and device is not None:
+        raise ValueError(
+            "restore: give device= or shardings=, not both (a sharding "
+            "names its devices)")
     path = os.path.join(ckpt_dir, f"step_{step:010d}")
     manifest = read_manifest(path)["leaves"]
     out = {}
@@ -266,9 +281,16 @@ def restore(ckpt_dir: str, step: int, target: Tree, *,
                 f"{name}: checkpoint shape {tuple(arr.shape)} != template "
                 f"shape {tuple(tgt.shape)} — the checkpointed twin has a "
                 f"different architecture than the params template")
-        out[name] = torch.from_numpy(arr).to(
-            device=tgt.device if device is None else device, dtype=tgt.dtype)
-    return _unflatten(target, out)
+        if shardings is not None:
+            out[name] = torch.from_numpy(arr).to(dtype=tgt.dtype)
+        else:
+            out[name] = torch.from_numpy(arr).to(
+                device=tgt.device if device is None else device,
+                dtype=tgt.dtype)
+    tree = _unflatten(target, out)
+    if shardings is None:
+        return tree
+    return device_put(tree, shardings)
 
 
 def save_twin(ckpt_dir: str, params: Tree, *, step: int = 0,
@@ -281,16 +303,30 @@ def save_twin(ckpt_dir: str, params: Tree, *, step: int = 0,
 
 
 def load_twin(ckpt_dir: str, params_template: Tree, *,
-              step: Optional[int] = None, device=None) -> Tree:
+              step: Optional[int] = None, device=None,
+              shardings: Optional[Tree] = None) -> Tree:
     """Restore twin weights saved by :func:`save_twin` in either package.
 
     ``params_template`` supplies the structure, shapes and dtypes (an
     untrained ``twin.init(generator)`` works — values are discarded);
-    ``step=None`` loads the newest checkpoint."""
+    ``step=None`` loads the newest checkpoint.  ``shardings`` places the
+    weights on a serving mesh instead of one ``device`` (normally the
+    replicated placement of
+    :func:`repro_torch.launch.sharding.fleet_param_shardings`); the
+    :class:`~repro_torch.launch.sharding.Placed` it returns is what
+    ``FleetServer`` and ``StreamingFleetServer`` take as ``params``."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
             raise FileNotFoundError(
                 f"no twin checkpoint found under {ckpt_dir!r}")
-    return restore(ckpt_dir, step, {"params": params_template},
-                   device=device)["params"]
+    if shardings is not None and device is not None:
+        raise ValueError(
+            "load_twin: give device= or shardings=, not both (a sharding "
+            "names its devices)")
+    params = restore(ckpt_dir, step, {"params": params_template},
+                     device="cpu" if shardings is not None else device
+                     )["params"]
+    if shardings is None:
+        return params
+    return device_put(params, shardings)

@@ -58,3 +58,22 @@ def tree_unflatten(template: Tree, leaves) -> Tree:
         return next(it)
 
     return build(template)
+
+
+def tree_map_with_path(fn: Callable, tree: Tree) -> Tree:
+    """``fn(path, leaf)`` leaf by leaf; ``path`` is the tuple of keys from
+    the root: a dict's key, a NamedTuple's field name, a list's or tuple's
+    index (the JAX package's ``DictKey``, ``GetAttrKey`` and
+    ``SequenceKey``)."""
+    def walk(path, t):
+        if isinstance(t, dict):
+            return {k: walk((*path, k), v) for k, v in t.items()}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return _rebuild(t, [walk((*path, f), v)
+                                for f, v in zip(t._fields, t)])
+        if isinstance(t, (list, tuple)):
+            return _rebuild(t, [walk((*path, i), v)
+                                for i, v in enumerate(t)])
+        return fn(path, t)
+
+    return walk((), tree)
