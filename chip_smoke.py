@@ -16,8 +16,9 @@ result line:
    ``nvcc`` (one process per source, in parallel), with ptxas's registers
    and spills printed; then a line per kernel library counting, with
    ``cuobjdump --dump-sass``, the tensor-core ``HMMA`` instructions of
-   each kernel function in it: the bf16 K8 (``k8_flash_mma_kernel``) and
-   K7's GEMM (``k7_gemm_kernel``) must have some, the float32 K8
+   each kernel function in it: the bf16 K8 (``k8_flash_mma_kernel`` and
+   ``k8_flash_mla_kernel``) and K7's GEMM (``k7_gemm_kernel``) must have
+   some, the float32 K8
    (``k8_flash_kernel``) none; for K1, K2 and K4 the ``FFMA`` and ``LDS``
    instructions of each kernel function and of its densest phase between
    two barriers, with their ratios; for K9 the ``MUFU`` (expf), ``FFMA``
@@ -353,6 +354,24 @@ result line:
    the plain K1 within phase 25's K1 limits.  Printed: the batch wall
    times of (a)-(d) and the stream's, K1 per shard and on the whole 1024
    (CUDA events), K4 per shard, their plain versions and bounds.
+27. P14, DeepSeek-V2-Lite served at full width (d_model 2048, 16 MLA
+   heads of head_dim 128 + rope 64 over a 512-wide latent, 64 routed + 2
+   shared experts top-6, vocab 102400): (a) in float32 at batch 1 with
+   its depth cut from 27 layers to 4 (1 dense + 3 MoE),
+   ``make_prefill_step`` on (1, 4097) tokens through the kernels (one
+   K8 launch a layer, at (d, dv) = (576, 512)) and again with
+   ``ops.flash_attention`` swapped to its plain version (last logits <=
+   1e-3 of the peak, the ckv / k_rope caches <= 1e-4; MoE top-6 choices
+   that differ, printed); (b) in bf16 at its full 27 layers, two prefill
+   batches of (2, 4097) (27 K8 launches each, finite float32 logits,
+   caches of ``init_cache``'s shapes) and ``greedy_generate`` of 16
+   tokens from a 16-token prompt (no K8 launch, finite logits); (c) K8
+   alone at (B, H, Hkv, S, d, dv) = (2, 16, 1, 4096, 576, 512) in bf16
+   and float32, and at the smoke configs' (48, 32) at S = 97 and 4096,
+   against its plain version at phase 17's limits (bf16 per element
+   within the rounding bound too), timed with CUDA events beside its
+   bound, the plain version and ``scaled_dot_product_attention`` (the
+   backend PyTorch's dispatcher picks, printed).
 
 Training (phases 7, 12, 15, 16, 22, 24 and 25) runs through the training engines
 by default, as the JAX package's does through its scan engine: on the
@@ -386,7 +405,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs import get_config, param_count  # noqa: E402
+from repro_torch.configs import get_config, get_smoke, param_count  # noqa: E402
 from repro_torch.configs.lorenz96_twin import CONFIG as L96_CONFIG  # noqa: E402
 from repro_torch.core.analogue import (AnalogueSpec,  # noqa: E402
                                        drift_from_calibration,
@@ -1489,15 +1508,17 @@ def k9_inputs(gen, bsz, s, di, n, dev):
         -torch.exp(rn(di, n) * 0.3)
 
 
-def k8_work(b, h, hkv, s, d, elem_bytes):
+def k8_work(b, h, hkv, s, d, elem_bytes, dv=None):
     """(bound_ms, bound_by, GFLOP of products, MB) of one causal K8 call:
-    the products of the s(s+1)/2 visible pairs of each (batch, head) at
-    the bf16 tensor-core peak (or FP32 for float32 inputs), their softmax
-    at the FP32 peak, and Q, K, V read and O written once."""
+    the products (2 d for Q K^T and 2 dv for P V a pair) of the s(s+1)/2
+    visible pairs of each (batch, head) at the bf16 tensor-core peak (or
+    FP32 for float32 inputs), their softmax at the FP32 peak, and Q, K, V
+    read and O written once.  ``dv`` defaults to d."""
+    dv = d if dv is None else dv
     pairs = b * h * s * (s + 1) // 2
-    products = 4 * d * pairs
+    products = 2 * (d + dv) * pairs
     peak = BF16_PEAK if elem_bytes == 2 else FP32_PEAK
-    moved = flash_attention.hbm_traffic_bytes(b, h, hkv, s, d, d,
+    moved = flash_attention.hbm_traffic_bytes(b, h, hkv, s, d, dv,
                                               elem_bytes)["total"]
     times = {"operations": max(products / peak,
                                K8_SOFTMAX_OPS * pairs / FP32_PEAK) * 1e3,
@@ -1534,6 +1555,77 @@ def k9_work(bsz, s, di, n):
             flops / 1e9, moved / 1e6, times)
 
 
+def k8_vs_plain(name, q, k, v, scale) -> tuple:
+    """K8 against its plain version on the same inputs (phases 17 and 27):
+    of the peak within K8_TOL, repeats bitwise, bf16 per element
+    within the rounding bound.  Returns (max abs err, of peak, bf16
+    rounding ratio or None)."""
+    got = flash_attention.flash_attention(q, k, v, scale=scale)
+    again = flash_attention.flash_attention(q, k, v, scale=scale)
+    want = ref.flash_attention_ref(q, k, v, scale=scale)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape == (*q.shape[:3], v.shape[-1])
+          and got.dtype == q.dtype, f"K8 {name}: {got.shape} {got.dtype}")
+    a, r = rel_err(got.float(), want.float())
+    tol = K8_TOL[q.dtype]
+    ratio = None
+    if q.dtype == torch.bfloat16:
+        want32 = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                         scale=scale)
+        limit = BF16_ROUND * want32.abs() + K8_TOL[torch.float32] * \
+            float(want32.abs().max())
+        ratio = float(((got.float() - want32).abs() / limit).max())
+        del want32, limit
+    print(f"K8 vs plain {name} {q.dtype}: max abs err {a:.3e}, of peak "
+          f"{r:.3e} (limit {tol:g}); repeat bitwise "
+          f"{torch.equal(got, again)}" + (
+              "" if ratio is None else f"; per element vs the float32 "
+              f"plain output: max |err| / (2^-8 |want| + "
+              f"{K8_TOL[torch.float32]:g} of the peak) = {ratio:.4f} "
+              f"(limit 1)"))
+    check(r <= tol, f"K8 {name} {q.dtype} disagrees with its plain version")
+    check(torch.equal(got, again), f"K8 {name} {q.dtype}: repeats differ")
+    check(ratio is None or ratio <= 1.0,
+          f"K8 {name} bf16 beyond the rounding bound of its plain version")
+    return a, r, ratio
+
+
+def prefill_trace(label, prefill, params, batch, kernels) -> None:
+    """A ``torch.profiler`` trace of one prefill: wall and device-busy ms,
+    the idle share, the device ms and share of each named kernel family
+    (``kernels``: name -> substring of its kernel functions) and the top
+    five kernels by device time, printed."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t_p = time.perf_counter()
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t_p) * 1e3
+    kernels_us = {ev.key: ev.self_device_time_total
+                  for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA
+                  and ev.self_device_time_total > 0}
+    busy_ms = sum(kernels_us.values()) / 1e3
+    if busy_ms <= 0:
+        print(f"{label} trace: the profiler recorded no device time (device "
+              f"idle share not measured)")
+        return
+    shares = []
+    for name, sub in kernels.items():
+        dev_ms = sum(t for key, t in kernels_us.items() if sub in key) / 1e3
+        shares.append(f"{name} {dev_ms:.3f} ms "
+                      f"({100 * dev_ms / busy_ms:.1f}% of device time)")
+    top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:5]
+    b, s1 = batch["tokens"].shape
+    print(f"{label} trace, one bf16 prefill ({b}, {s1 - 1}): wall "
+          f"{traced_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"(idle {100 * (1 - busy_ms / traced_ms):.1f}%); "
+          + ", ".join(shares) + "; top five by device time: " + "; ".join(
+              f"{key[:60]} {t / 1e3:.3f} ms" for key, t in top))
+
+
 def lm_slice(dev, smi, hmma, sass9):
     """Phases 17-19; returns the K8 and K9 entries of the kernel record
     (``hmma``: K8's SASS HMMA counts by kernel function, ``sass9`` K9's
@@ -1543,37 +1635,15 @@ def lm_slice(dev, smi, hmma, sass9):
     # -- 17. K8 and K9 vs their plain versions -----------------------------------
     k8_errs, k9_errs = {}, {}
     for b, h, hkv, s, d in K8_SHAPES:
-        for dtype, tol in K8_TOL.items():
+        for dtype in K8_TOL:
             q, k, v = k8_inputs(gen, b, h, hkv, s, d, dtype, dev)
-            got = flash_attention.flash_attention(q, k, v)
-            again = flash_attention.flash_attention(q, k, v)
-            want = ref.flash_attention_ref(q, k, v)
-            torch.cuda.synchronize()
-            check(got.shape == want.shape and got.dtype == dtype,
-                  f"K8 {(b, h, hkv, s, d)}: {got.shape} {got.dtype}")
-            a, r = rel_err(got.float(), want.float())
+            a, r, ratio = k8_vs_plain(f"(B, H, Hkv, S, d) = "
+                                      f"{(b, h, hkv, s, d)}", q, k, v,
+                                      d ** -0.5)
             k8_errs[b, h, hkv, s, d, dtype] = (a, r)
-            print(f"K8 vs plain (B, H, Hkv, S, d) = {(b, h, hkv, s, d)} "
-                  f"{dtype}: max abs err {a:.3e}, of peak {r:.3e} (limit "
-                  f"{tol:g}); repeat bitwise {torch.equal(got, again)}")
-            check(r <= tol, f"K8 {(b, h, hkv, s, d)} {dtype} disagrees with "
-                            f"its plain version")
-            check(torch.equal(got, again), f"K8 {(b, h, hkv, s, d)} {dtype}: "
-                                           f"repeats differ")
-            if dtype == torch.bfloat16:
-                want32 = ref.flash_attention_ref(q.float(), k.float(),
-                                                 v.float())
-                limit = BF16_ROUND * want32.abs() + K8_TOL[torch.float32] * \
-                    float(want32.abs().max())
-                worst = float(((got.float() - want32).abs() / limit).max())
-                k8_errs["bf16_rounding", b, h, hkv, s, d] = worst
-                print(f"  per element vs the float32 plain output: max "
-                      f"|err| / (2^-8 |want| + {K8_TOL[torch.float32]:g} of "
-                      f"the peak) = {worst:.4f} (limit 1)")
-                check(worst <= 1.0, f"K8 {(b, h, hkv, s, d)} bf16 beyond "
-                                    f"the rounding bound of its plain version")
-                del want32, limit
-            del q, k, v, got, again, want
+            if ratio is not None:
+                k8_errs["bf16_rounding", b, h, hkv, s, d] = ratio
+            del q, k, v
     for bsz, s, di, n in K9_SHAPES:
         args = k9_inputs(gen, bsz, s, di, n, dev)
         y, hf = ssm_scan.ssm_scan(*args)
@@ -1800,36 +1870,9 @@ def lm_slice(dev, smi, hmma, sass9):
           f"library_ms n/a (no single PyTorch call computes the scan)")
     del args
 
-    batch = {"tokens": pipe.batch_at(1)["tokens"].to(dev)}
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t_p = time.perf_counter()
-        prefill(params, batch)
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t_p) * 1e3
-    kernels_us = {ev.key: ev.self_device_time_total
-                  for ev in prof.key_averages()
-                  if ev.device_type == torch.autograd.DeviceType.CUDA
-                  and ev.self_device_time_total > 0}
-    busy_ms = sum(kernels_us.values()) / 1e3
-    if busy_ms > 0:
-        k8_dev = sum(t for key, t in kernels_us.items()
-                     if "k8_flash" in key) / 1e3
-        k9_dev = sum(t for key, t in kernels_us.items()
-                     if "k9_ssm_scan" in key) / 1e3
-        top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:5]
-        print(f"[{smi}] P5 trace, one bf16 prefill (2, {s_len}): wall "
-              f"{traced_ms:.3f} ms, device busy {busy_ms:.3f} ms (idle "
-              f"{100 * (1 - busy_ms / traced_ms):.1f}%); K8 {k8_dev:.3f} ms "
-              f"({100 * k8_dev / busy_ms:.1f}% of device time), K9 "
-              f"{k9_dev:.3f} ms ({100 * k9_dev / busy_ms:.1f}%); top five by "
-              f"device time: " + "; ".join(
-                  f"{key[:60]} {t / 1e3:.3f} ms" for key, t in top))
-    else:
-        print("P5 trace: the profiler recorded no device time (device idle "
-              "share not measured)")
+    prefill_trace(f"[{smi}] P5", prefill, params,
+                  {"tokens": pipe.batch_at(1)["tokens"].to(dev)},
+                  {"K8": "k8_flash", "K9": "k9_ssm_scan"})
     del params
     torch.cuda.empty_cache()
 
@@ -4632,6 +4675,288 @@ def p13_entries(p13, k3_masks_row) -> list:
     }]
 
 
+# -- phase 27: P14, DeepSeek-V2-Lite at full width (MLA through K8) ----------
+
+#: K8 at DeepSeek-V2-Lite's absorbed MLA prefill, (B, H, Hkv, S, d, dv):
+#: kv_lora 512 + rope 64 scored against one latent kv head, the kv_lora
+#: columns read as the values.  Held against plain and timed in phase 27.
+K8_P14 = (2, 16, 1, 4096, 576, 512)
+#: The smoke configs' MLA pair (48, 32) at a ragged and a long S.
+K8_P14_SMOKE = [(1, 4, 1, 97, 48, 32), (2, 4, 1, 4096, 48, 32)]
+P14_SEQ = 4096        # P14 prompt length: K8_P14's S
+#: Depth of P14's float32 parity prefill: the dense prelude block and 3 MoE
+#: blocks of the config's 27.
+P14_F32_LAYERS = 4
+#: Depth of P14's bf16 serving run: the config's own 27 (cut here, and the
+#: cut printed, if the phase outgrows its share of the script's budget).
+P14_BF16_LAYERS = 27
+#: P14 f32 latent caches (ckv, k_rope), kernels vs plain, of the peak.
+P14_CACHE_TOL = 1e-4
+
+
+def mla_k8_inputs(gen, b, h, s, d, dv, dtype, dev):
+    """q, k, v as MLA's absorbed flash branch hands them to K8: q the
+    (B, S, H, d) concatenation [q_lat, q_rope], k the one-head (B, S, 1,
+    d) concatenation [ckv, k_rope], v the latent ckv (B, S, 1, dv), each
+    seen as (B, heads, S, .) without a copy."""
+    q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+    ckv = torch.randn((b, s, dv), generator=gen, device=dev).to(dtype)
+    k_rope = torch.randn((b, s, d - dv), generator=gen, device=dev).to(dtype)
+    k = torch.cat([ckv, k_rope], dim=-1)[:, :, None, :]
+    return (q.transpose(1, 2), k.transpose(1, 2),
+            ckv[:, :, None, :].transpose(1, 2))
+
+
+def sdpa_backend(q, k, v, scale) -> str:
+    """The backend ``scaled_dot_product_attention`` picks for these
+    inputs (causal, GQA), as PyTorch's dispatcher reports it."""
+    from torch.nn.attention import SDPBackend
+    try:
+        return SDPBackend(torch._fused_sdp_choice(
+            q, k, v, None, 0.0, True, scale=scale, enable_gqa=True)).name
+    except (AttributeError, RuntimeError, TypeError, ValueError) as e:
+        return f"not reported ({type(e).__name__})"
+
+
+def p14_deepseek(dev, smi) -> dict:
+    """Phase 27 (P14): DeepSeek-V2-Lite served at full width through
+    ``make_prefill_step`` / ``greedy_generate``: (a) float32 parity at 4
+    layers, kernels against plain; (b) bf16 at its full depth, two
+    prefills of (2, 4096) with one K8 launch a layer, then a greedy
+    decode (no K8); (c) K8 alone at the MLA prefill's (576, 512) and the
+    smoke configs' (48, 32) against plain, timed beside its bound and
+    SDPA.  Returns K8's launch counts by path and the new pairs' numbers
+    for the kernels line."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    full = get_config("deepseek-v2-lite-16b")
+    scale = (full.hd + full.mla_rope_dim) ** -0.5
+    counts = {}
+
+    def zero():
+        flash_attention.LAUNCHES = 0
+
+    def read(path, want):
+        torch.cuda.synchronize()
+        got = flash_attention.LAUNCHES
+        print(f"{path}: launches {{'K8': {got}}}")
+        check(got == want, f"{path}: expected {want} K8 launches, got {got}")
+        counts[path] = got
+
+    print(f"P14 config {full.name}: d_model {full.d_model}, heads "
+          f"{full.n_heads} (head_dim {full.hd}, rope {full.mla_rope_dim}, "
+          f"kv_lora {full.mla_kv_lora}, q_lora {full.mla_q_lora}), MoE "
+          f"{full.moe.n_experts} routed + {full.moe.n_shared} shared top-"
+          f"{full.moe.top_k} (d_ff {full.moe.d_ff}), first_k_dense "
+          f"{full.first_k_dense} (d_ff_dense {full.d_ff_dense}), vocab "
+          f"{full.vocab}, {full.n_layers} layers, "
+          f"{param_count(full) / 1e9:.2f} B params; K8 at (d, dv) = "
+          f"({full.mla_kv_lora + full.mla_rope_dim}, {full.mla_kv_lora}), "
+          f"scale {scale:.6f}")
+
+    # -- (a) float32 parity: kernels, then the plain K8 ------------------------
+    cfg32 = dataclasses.replace(full, n_layers=P14_F32_LAYERS,
+                                dtype="float32")
+    prelude, period, n_per = lm_model.block_program(cfg32)
+    print(f"P14 reduced (float32 parity): n_layers {full.n_layers} -> "
+          f"{cfg32.n_layers} ({len(prelude)} dense + {n_per * len(period)} "
+          f"MoE, {param_count(cfg32) / 1e9:.2f} B params of "
+          f"{param_count(full) / 1e9:.2f} B), batch 1")
+    params = lm_model.init_params(cfg32, seed=SEED, device=dev)
+    batch = {"tokens": TokenPipeline(full.vocab, P14_SEQ, 1, seed=SEED)
+             .batch_at(0)["tokens"].to(dev)}
+    prefill32 = lm_trainer.make_prefill_step(cfg32)
+    choices, runs = [], {}
+    route_moe = lm_moe.moe_apply
+    kernel_flash = ops.flash_attention
+
+    def recording_moe(p, mcfg, x):
+        choices[-1].append(torch.sort(lm_moe.route(p, mcfg, x)[2],
+                                      dim=-1).values)
+        return route_moe(p, mcfg, x)
+
+    lm_moe.moe_apply = recording_moe
+    try:
+        for mode in ("kernels", "plain"):
+            choices.append([])
+            if mode == "plain":
+                ops.flash_attention = lambda q, k, v, scale=None: \
+                    ref.flash_attention_ref(q, k, v, scale=scale)
+            zero()
+            t_p = time.perf_counter()
+            logits, cache = prefill32(params, batch)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t_p
+            read(f"P14 float32 prefill (1, {P14_SEQ}) on {mode}",
+                 cfg32.n_layers if mode == "kernels" else 0)
+            runs[mode] = (logits, tree_leaves(cache))
+            print(f"P14 float32 prefill on {mode}: {secs:.3f} s")
+            del cache
+    finally:
+        lm_moe.moe_apply = route_moe
+        ops.flash_attention = kernel_flash
+    la, lr = rel_err(runs["kernels"][0], runs["plain"][0])
+    cr = max(rel_err(a, b)[1] for a, b in zip(runs["kernels"][1],
+                                              runs["plain"][1]))
+    flips = sum(int((a != b).sum()) for a, b in zip(*choices))
+    n_choices = sum(int(a.numel()) for a in choices[0])
+    print(f"P14 float32 kernels vs plain: last logits max abs err {la:.3e}, "
+          f"of peak {lr:.3e} (limit {P5_LOGIT_TOL:g}); ckv / k_rope caches "
+          f"({len(runs['plain'][1])} leaves) of peak {cr:.3e} (limit "
+          f"{P14_CACHE_TOL:g}); MoE top-{full.moe.top_k} choices that "
+          f"differ: {flips} of {n_choices}")
+    check(bool(torch.isfinite(runs["kernels"][0]).all()),
+          "P14 float32 logits not finite")
+    check(lr <= P5_LOGIT_TOL, "P14 float32 logits: kernels vs plain differ")
+    check(cr <= P14_CACHE_TOL, "P14 float32 caches: kernels vs plain differ")
+    del params, runs, logits, choices
+    torch.cuda.empty_cache()
+
+    # -- (b) bf16 serving at full depth: two prefills, then decode -------------
+    cfg = dataclasses.replace(full, n_layers=P14_BF16_LAYERS)
+    if cfg.n_layers != full.n_layers:
+        print(f"P14 reduced (bf16): n_layers {full.n_layers} -> "
+              f"{cfg.n_layers} ({param_count(cfg) / 1e9:.2f} B params)")
+    t_i = time.perf_counter()
+    params = lm_model.init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    print(f"P14 bf16 params ({cfg.n_layers} layers, "
+          f"{param_count(cfg) / 1e9:.2f} B) on {dev}: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, drawn in "
+          f"{time.perf_counter() - t_i:.2f} s")
+    prefill = lm_trainer.make_prefill_step(cfg)
+    want_cache = lm_model.init_cache(cfg, 2, P14_SEQ, device=dev)
+    want_leaves = [(tuple(x.shape), x.dtype) for x in tree_leaves(want_cache)]
+    del want_cache
+    pipe = TokenPipeline(cfg.vocab, P14_SEQ, 2, seed=SEED)
+    prefill_ms = []
+    for i in range(2):
+        batch = {"tokens": pipe.batch_at(1 + i)["tokens"].to(dev)}
+        torch.cuda.synchronize()
+        zero()
+        t_p = time.perf_counter()
+        logits, cache = prefill(params, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t_p
+        read(f"P14 bf16 prefill {i} (2, {P14_SEQ})", cfg.n_layers)
+        check(tuple(logits.shape) == (2, cfg.vocab)
+              and logits.dtype == torch.float32, f"P14 logits {logits.shape}")
+        check(bool(torch.isfinite(logits).all()), "P14 bf16 logits not finite")
+        got_leaves = [(tuple(x.shape), x.dtype) for x in tree_leaves(cache)]
+        check(got_leaves == want_leaves, f"P14 cache leaves {got_leaves} vs "
+                                         f"init_cache's {want_leaves}")
+        prefill_ms.append(secs * 1e3)
+        print(f"[{smi}] P14 bf16 prefill {i}: (2, {P14_SEQ}) in "
+              f"{secs * 1e3:.3f} ms, {2 * P14_SEQ / secs:,.0f} tokens/s")
+        del logits, cache
+    finite = []
+    decode_step = lm_trainer.decode_step
+
+    def checking_decode(*args):
+        out = decode_step(*args)
+        finite.append(torch.isfinite(out[0]).all())
+        return out
+
+    prompt = pipe.batch_at(3)["tokens"][:, :16].to(dev)
+    zero()
+    lm_trainer.decode_step = checking_decode
+    try:
+        torch.cuda.synchronize()
+        t_g = time.perf_counter()
+        toks = lm_trainer.greedy_generate(params, cfg, prompt, 16, 32)
+        torch.cuda.synchronize()
+        gen_secs = time.perf_counter() - t_g
+    finally:
+        lm_trainer.decode_step = decode_step
+    read("P14 greedy_generate (16 + 16 tokens)", 0)
+    steps = prompt.shape[1] + 16 - 1
+    check(tuple(toks.shape) == (2, 16), f"generated {tuple(toks.shape)}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), "token range")
+    check(len(finite) == steps and bool(torch.stack(finite).all()),
+          "P14 decode logits not finite")
+    decode_ms = gen_secs / steps * 1e3
+    print(f"[{smi}] P14 greedy_generate: {steps} decode steps of batch 2 in "
+          f"{gen_secs:.3f} s, {decode_ms:.3f} ms per token step; first "
+          f"tokens {toks[0, :6].tolist()}")
+    prefill_trace(f"[{smi}] P14", prefill, params,
+                  {"tokens": pipe.batch_at(1)["tokens"].to(dev)},
+                  {"K8": "k8_flash"})
+    del params
+    torch.cuda.empty_cache()
+
+    # -- (c) K8 alone at the new pairs, against plain, timed --------------------
+    b, h, hkv, s, d, dv = K8_P14
+    pairs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = mla_k8_inputs(gen, b, h, s, d, dv, dtype, dev)
+        a, r, ratio = k8_vs_plain(str(K8_P14), q, k, v, scale)
+        bound, by, gf, mb = k8_work(b, h, hkv, s, d, q.element_size(), dv)
+        ms = cuda_ms(lambda: flash_attention.flash_attention(
+            q, k, v, scale=scale), reps=5 if dtype == torch.bfloat16 else 2,
+            warmup=1)
+        row = {"shape": list(K8_P14), "max_abs_err": a,
+               "max_rel_err_of_peak": r, "ms": ms, "bound_ms": bound,
+               "bound_by": by, "tflops": gf / ms}
+        if ratio is not None:
+            row["bf16_err_of_rounding_bound"] = ratio
+        if dtype == torch.bfloat16:
+            row["plain_ms"] = cuda_ms(lambda: ref.flash_attention_ref(
+                q, k, v, scale=scale), reps=2, warmup=1)
+            backend = sdpa_backend(q, k, v, scale)
+            try:
+                row["library_ms"] = cuda_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, scale=scale,
+                        enable_gqa=True), reps=3, warmup=1)
+            except RuntimeError as e:      # the yardstick only
+                row["library_ms"] = None
+                print(f"  scaled_dot_product_attention at {K8_P14}: "
+                      f"{type(e).__name__}: {str(e)[:200]}")
+            row["library_backend"] = backend
+            print(f"[{smi}] K8 flash_attention (B, H, Hkv, S, d, dv) = "
+                  f"{K8_P14} bf16: kernel_ms {ms:.4f}, plain_ms "
+                  f"{row['plain_ms']:.4f}, bound_ms {bound:.4f} ({by}: "
+                  f"{gf:.1f} GFLOP of products, {mb:.1f} MB), library_ms "
+                  + ("n/a" if row["library_ms"] is None
+                     else f"{row['library_ms']:.4f}") +
+                  f" (scaled_dot_product_attention, causal, enable_gqa; "
+                  f"backend {backend}); achieved {gf / ms:.1f} TFLOP/s of "
+                  f"the causal products")
+            pairs["576x512"] = row
+        else:
+            print(f"[{smi}] K8 flash_attention {K8_P14} float32 (CUDA "
+                  f"cores): kernel_ms {ms:.4f}, bound_ms {bound:.4f} ({by}, "
+                  f"FP32 peak); achieved {gf / ms:.2f} TFLOP/s")
+            pairs["576x512"]["f32"] = row
+        del q, k, v
+        torch.cuda.empty_cache()
+    small = get_smoke("deepseek-v2-lite-16b")
+    for shape in K8_P14_SMOKE:
+        b, h, hkv, s, d, dv = shape
+        sc = (small.hd + small.mla_rope_dim) ** -0.5
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = mla_k8_inputs(gen, b, h, s, d, dv, dtype, dev)
+            a, r, ratio = k8_vs_plain(str(shape), q, k, v, sc)
+            if shape == K8_P14_SMOKE[-1] and dtype == torch.bfloat16:
+                bound, by, gf, mb = k8_work(b, h, hkv, s, d, 2, dv)
+                ms = cuda_ms(lambda: flash_attention.flash_attention(
+                    q, k, v, scale=sc), reps=20, queue_ahead=True)
+                pairs["48x32"] = {
+                    "shape": list(shape), "max_abs_err": a,
+                    "max_rel_err_of_peak": r,
+                    "bf16_err_of_rounding_bound": ratio, "ms": ms,
+                    "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(
+                        q, k, v, scale=sc), reps=2, warmup=1),
+                    "bound_ms": bound, "bound_by": by}
+                print(f"[{smi}] K8 flash_attention {shape} bf16: kernel_ms "
+                      f"{ms:.4f}, bound_ms {bound:.4f} ({by})")
+            del q, k, v
+    sec = time.perf_counter() - t_phase
+    print(f"[{smi}] phase 27 (P14) in {sec:.1f} s")
+    return {"counts": counts, "pairs": pairs, "prefill_ms": prefill_ms,
+            "decode_ms": decode_ms, "seconds": sec}
+
+
 def main() -> int:
     # -- 1. environment ----------------------------------------------------
     if not torch.cuda.is_available():
@@ -4700,6 +5025,7 @@ def main() -> int:
           f"(the read-noise instantiations) > 0")
     for src, kernel, tensor_cores in (
             ("flash_attention", "k8_flash_mma_kernel", True),
+            ("flash_attention", "k8_flash_mla_kernel", True),
             ("flash_attention", "k8_flash_kernel", False),
             ("crossbar_vmm", "k7_gemm_kernel", True)):
         found = {fn: n for fn, n in hmma[src].items() if kernel in fn}
@@ -5839,6 +6165,15 @@ def main() -> int:
                    noisy_faulty)
     path_counts.update({p: {k: c.get(k, 0) for k in counters}
                         for p, c in p13["counts"].items()})
+
+    # -- 27. P14: DeepSeek-V2-Lite at full width (MLA through K8) -----------
+    p14 = p14_deepseek(dev, smi)
+    k8_row = lm_entries[0]
+    k8_row["launches"] += sum(p14["counts"].values())
+    k8_row["launches_by_path"].update(
+        {p: c for p, c in p14["counts"].items() if c})
+    k8_row["pairs"] = "(16,16) (32,32) (64,64) (128,128) (48,32) (576,512)"
+    k8_row["mla"] = p14["pairs"]
 
     k1_paths = {"serve_fleet": launches, "train_hp_twin": hp_counts[0],
                 "hp_40_steps_fused_cuda": hp40_counts["fused_cuda"][0],

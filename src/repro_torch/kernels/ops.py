@@ -334,8 +334,8 @@ def dtw_distance(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float | None = None) -> torch.Tensor:
-    """Causal GQA attention through K8: q (B, H, S, d), k and v
-    (B, Hkv, S, d) with Hkv | H -> (B, H, S, d) in q's dtype
+    """Causal GQA attention through K8: q (B, H, S, d), k (B, Hkv, S, d)
+    and v (B, Hkv, S, dv) with Hkv | H -> (B, H, S, dv) in q's dtype
     (:func:`repro_torch.kernels.flash_attention.flash_attention`)."""
     return _k8.flash_attention(q, k, v, scale=scale)
 

@@ -994,9 +994,9 @@ ATTN_NEG_INF = -1e30
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, scale: Optional[float] = None) -> torch.Tensor:
     """Plain K8 (port of ``flash_attention_pallas_ref``): dense causal
-    softmax attention in float32.  q (B, H, S, d); k, v (B, Hkv, S, d)
-    with Hkv | H, kv head h // (H / Hkv); returns (B, H, S, d) in q's
-    dtype."""
+    softmax attention in float32.  q (B, H, S, d); k (B, Hkv, S, d) and v
+    (B, Hkv, S, dv) with Hkv | H, kv head h // (H / Hkv); returns (B, H,
+    S, dv) in q's dtype."""
     b, h, s, d = q.shape
     group = h // k.shape[1]
     scale = scale if scale is not None else d ** -0.5

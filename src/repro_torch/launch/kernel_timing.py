@@ -2,7 +2,7 @@
 this tree or on another tree's ``src``, so that one command can time a
 parent and a change on the same inputs.
 
-    python3 src/repro_torch/launch/kernel_timing.py --kernel k1|k3|k4|sdtw [--src DIR]
+    python3 src/repro_torch/launch/kernel_timing.py --kernel k1|k3|k4|k8|sdtw [--src DIR]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
 (default: the one this file lies in).  Every line is one JSON object with
@@ -39,6 +39,17 @@ CUDA-event mean of ``K4_REPS`` rollouts after two unmeasured ones (a
 noisy rollout's read-noise pre-pass included) and K4's launches per
 rollout.
 
+``k8``: K8, causal flash attention, through
+``flash_attention.flash_attention`` on the model's (B, S, heads, d)
+layout seen as (B, heads, S, d), seeded normal inputs, float32 and bf16:
+the JAX package's three test shapes, the Jamba prefill's (B, H, Hkv, S,
+d) = (2, 32, 8, 4096, 128) and, where the tree takes dv != d, DeepSeek-V2
+MLA's (2, 16, 1, 4096, 576 -> 512) with V the first 512 columns of K's
+latent (a tree that refuses a pair skips it).  A line a case: the
+CUDA-event mean of ``K8_REPS`` launches and the first 16 hex digits of
+the SHA-256 of the output's bytes, so that two trees' outputs can be
+compared bit for bit.
+
 ``sdtw``: K5 and K6, the soft-DTW wavefront kernels, at the Lorenz96
 training shapes (29, 61, 61) and (8, 201, 201), gamma 0.1.  A tree with
 the row-major entry points (``softdtw.softdtw_rowmajor``) is timed
@@ -67,6 +78,12 @@ K1_REPS = 20
 K3_REPS = 20
 K3_BATCHES = 3
 K4_REPS = 10
+K8_REPS = 5
+#: (B, H, Hkv, S, d, dv): the JAX package's test shapes, the Jamba
+#: prefill's and DeepSeek-V2-Lite's absorbed MLA prefill.
+K8_CASES = [(1, 2, 2, 32, 16, 16), (2, 4, 2, 64, 32, 32),
+            (1, 8, 2, 128, 64, 64), (2, 32, 8, 4096, 128, 128),
+            (2, 16, 1, 4096, 576, 512)]
 SDTW_REPS = 50
 SDTW_SHAPES = [(29, 61, 61), (8, 201, 201)]
 
@@ -191,6 +208,34 @@ def time_k1(torch, dev, tag: dict) -> None:
                 "kernel": "K1", "case": name, "precision": prec,
                 "B": y0.shape[0], "T": out.shape[0] - 1,
                 "ms": _events_ms(torch, run, K1_REPS),
+                "sha256_16": digest[:16], **tag}))
+
+
+def time_k8(torch, dev, tag: dict) -> None:
+    import hashlib
+
+    from repro_torch.kernels import flash_attention
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for b, h, hkv, s, d, dv in K8_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k = (torch.randn((b, s, n, d), generator=gen, device=dev).to(
+                dtype).transpose(1, 2) for n in (h, hkv))
+            v = k[..., :dv]
+            scale = (d // 3 if dv != d else d) ** -0.5
+
+            def run():
+                return flash_attention.flash_attention(q, k, v, scale=scale)
+            try:
+                out = run().contiguous()
+            except ValueError:       # a tree that refuses the pair
+                continue
+            digest = hashlib.sha256(out.view(torch.uint8).cpu().numpy()
+                                    .tobytes()).hexdigest()
+            print(json.dumps({
+                "kernel": "K8", "shape": [b, h, hkv, s, d, dv],
+                "dtype": str(dtype).replace("torch.", ""),
+                "ms": _events_ms(torch, run, K8_REPS),
                 "sha256_16": digest[:16], **tag}))
 
 
@@ -346,10 +391,10 @@ def main(argv=None) -> int:
     here = Path(__file__).resolve().parents[2]
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", required=True,
-                    choices=("k1", "k3", "k4", "sdtw"),
+                    choices=("k1", "k3", "k4", "k8", "sdtw"),
                     help="k1: the fused rollout; k3: the counter noise on "
-                         "analogue serving; k4: the analogue rollout; sdtw: "
-                         "K5 and K6")
+                         "analogue serving; k4: the analogue rollout; k8: "
+                         "flash attention; sdtw: K5 and K6")
     ap.add_argument("--src", default=str(here),
                     help="directory holding the repro_torch package to time")
     args = ap.parse_args(argv)
@@ -364,7 +409,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    timer = {"k1": time_k1, "k3": time_k3, "k4": time_k4,
+    timer = {"k1": time_k1, "k3": time_k3, "k4": time_k4, "k8": time_k8,
              "sdtw": time_sdtw}[args.kernel]
     timer(torch, torch.device("cuda"), {"src": src, "card": smi})
     return 0

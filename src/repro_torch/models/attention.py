@@ -1,17 +1,24 @@
-"""GQA attention (llama/qwen/internlm/musicgen/chameleon/jamba), port of
-the GQA half of ``repro/models/attention.py``.
+"""Attention variants (port of ``repro/models/attention.py``): GQA
+(llama/qwen/internlm/musicgen/chameleon/jamba) and MLA (DeepSeek-V2
+multi-head latent attention, compressed KV cache).
 
-Entry points, as in the JAX package:
-    gqa_init(gen, cfg)                    -> params
-    gqa_prefill(params, cfg, x, pos0)     -> (out, cache)
-    gqa_decode(params, cfg, x, pos, cache)-> (out, cache)
+Both expose the same three entry points, as in the JAX package:
+    init(gen, cfg)                    -> params
+    prefill(params, cfg, x, pos0)     -> (out, cache)
+    decode(params, cfg, x, pos, cache)-> (out, cache)
 
-Cache layout: {"k": (B, S_max, n_kv, hd), "v": same}, or int8 values
-with per-(token, head) float32 scales under ``kv_cache_quant``.  A prefill
-longer than ``flash_threshold`` runs the causal attention through
-:func:`repro_torch.kernels.ops.flash_attention` (K8); shorter ones, and
-every decode step, through the dense :func:`_sdpa`.  MLA (DeepSeek-V2)
-is not ported yet.
+Cache layouts:
+    GQA: {"k": (B, S_max, n_kv, hd), "v": same}, or int8 values with
+         per-(token, head) float32 scales under ``kv_cache_quant``;
+    MLA: {"ckv": (B, S_max, kv_lora), "k_rope": (B, S_max, rope_dim)},
+         the compressed latent.
+
+A prefill longer than ``flash_threshold`` runs the causal attention
+through :func:`repro_torch.models.flash.flash_attention` (on the card one
+K8 launch; MLA's absorbed form scores [q_lat, q_rope] against [ckv,
+k_rope] and reads ckv as the values, so K8 runs at (d, dv) = (kv_lora +
+rope_dim, kv_lora)); shorter ones, and every decode step, through the
+dense :func:`_sdpa` / :func:`_mla_attend`.
 """
 from __future__ import annotations
 
@@ -19,15 +26,10 @@ import dataclasses
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.models.flash import flash_attention
 from repro_torch.models.layers import F32, apply_rope, dense_init, head_rmsnorm
 
 NEG_INF = -1e30
-
-#: Where MLA and the multi-part flash schedule wait (ROADMAP.md).
-MLA_TODO = ("MLA attention (DeepSeek-V2) and the multi-part flash schedule "
-            "of models/flash.py are not ported yet (ROADMAP.md, queue 1 "
-            "item 13)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,20 +126,11 @@ def gqa_prefill(params, cfg: AttnConfig, x, *, pos0: int = 0):
     q, k, v = _gqa_qkv(params, cfg, x, positions)
     scale = cfg.head_dim ** -0.5
     if s > cfg.flash_threshold:
-        if cfg.score_dtype != "float32":
-            raise NotImplementedError(
-                f"score_dtype={cfg.score_dtype!r}: K8 keeps float32 scores; "
-                f"the bf16 score tiles of the JAX flash schedule are not "
-                f"ported (ROADMAP.md, queue 3)")
-        qc, kc = min(cfg.q_chunk, s), min(cfg.kv_chunk, s)
-        if s % qc or s % kc:
-            raise ValueError(
-                f"seq {s} not divisible by the flash chunks (q_chunk {qc}, "
-                f"kv_chunk {kc})")
-        # equal q and kv offsets (pos0): the causal mask is K8's own
-        out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), scale=scale)
-        out = out.transpose(1, 2)
+        out = flash_attention([q], [k], v, scale=scale, q_pos0=pos0,
+                              kv_pos0=pos0, q_chunk=cfg.q_chunk,
+                              kv_chunk=cfg.kv_chunk,
+                              causal_skip=cfg.causal_skip,
+                              score_dtype=cfg.score_dtype)
     else:
         mask = _causal_mask(s, s, 0, x.device)
         out = _sdpa(q, k, v, mask, scale)
@@ -188,13 +181,107 @@ def gqa_decode(params, cfg: AttnConfig, x, pos, cache):
     return torch.einsum("bshk,hkd->bsd", out, params["wo"]), cache
 
 
-def mla_init(*args, **kwargs):
-    raise NotImplementedError(MLA_TODO)
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+def mla_init(gen: torch.Generator, cfg: AttnConfig, dtype=F32, *,
+             lead=()) -> dict:
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    vd = cfg.v_head_dim or hd
+    p = {
+        # KV compression path
+        "w_dkv": dense_init(gen, (d, cfg.kv_lora), dtype, lead=lead),
+        "w_uk": dense_init(gen, (cfg.kv_lora, h, hd), dtype, lead=lead),
+        "w_uv": dense_init(gen, (cfg.kv_lora, h, vd), dtype, lead=lead),
+        "w_kr": dense_init(gen, (d, cfg.rope_dim), dtype, lead=lead),
+        "wo": dense_init(gen, (h, vd, d), dtype, scale=(h * vd) ** -0.5,
+                         lead=lead),
+    }
+    if cfg.q_lora:
+        p["w_dq"] = dense_init(gen, (d, cfg.q_lora), dtype, lead=lead)
+        p["w_uq"] = dense_init(gen, (cfg.q_lora, h, hd + cfg.rope_dim),
+                               dtype, lead=lead)
+    else:
+        p["wq"] = dense_init(gen, (d, h, hd + cfg.rope_dim), dtype,
+                             lead=lead)
+    return p
 
 
-def mla_prefill(*args, **kwargs):
-    raise NotImplementedError(MLA_TODO)
+def _mla_q(params, cfg: AttnConfig, x, positions):
+    """(q_nope (B, S, H, hd), q_rope (B, S, H, rope_dim)): the direct
+    projection, or the q-LoRA down and up projections."""
+    if cfg.q_lora:
+        cq = x @ params["w_dq"]
+        q = torch.einsum("bsl,lhk->bshk", cq, params["w_uq"])
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    q_nope, q_rope = q[..., :cfg.head_dim], q[..., cfg.head_dim:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
 
 
-def mla_decode(*args, **kwargs):
-    raise NotImplementedError(MLA_TODO)
+def _mla_kv(params, cfg: AttnConfig, x, positions):
+    """The compressed cache entries of x: (ckv (B, S, kv_lora), k_rope
+    (B, S, rope_dim)), k_rope rotated as one shared head."""
+    ckv = x @ params["w_dkv"]
+    k_rope = apply_rope((x @ params["w_kr"])[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    return ckv, k_rope
+
+
+def _mla_attend(params, cfg: AttnConfig, q_nope, q_rope, ckv, k_rope, mask):
+    """Absorbed-matrix MLA attention: scores against the latent cache
+    directly (q_nope absorbed through w_uk), float32 scores from operands
+    of any dtype (the JAX einsums' f32 results), float32 softmax, the
+    probabilities cast to the cache's dtype before the values."""
+    scale = (cfg.head_dim + cfg.rope_dim) ** -0.5
+    # absorb W_uk into the query: (B, S, H, hd) x (lora, H, hd) -> (B, S, H, lora)
+    q_lat = torch.einsum("bshk,lhk->bshl", q_nope, params["w_uk"])
+    s_lat = torch.einsum("bshl,btl->bhst", q_lat.to(F32), ckv.to(F32))
+    s_rope = torch.einsum("bshk,btk->bhst", q_rope.to(F32), k_rope.to(F32))
+    scores = (s_lat + s_rope) * scale
+    scores = torch.where(mask[None, None], scores,
+                         torch.tensor(NEG_INF, dtype=F32, device=ckv.device))
+    probs = torch.softmax(scores, dim=-1).to(ckv.dtype)
+    o_lat = torch.einsum("bhst,btl->bshl", probs, ckv)
+    out = torch.einsum("bshl,lhv->bshv", o_lat, params["w_uv"])
+    return torch.einsum("bshv,hvd->bsd", out, params["wo"])
+
+
+def mla_prefill(params, cfg: AttnConfig, x, *, pos0: int = 0):
+    """x: (B, S, d) -> (out, {"ckv", "k_rope"}).  S > ``flash_threshold``
+    takes the absorbed flash branch (latent + rope scores, latent values;
+    K8 on the card), otherwise the dense ``_mla_attend``, as in JAX."""
+    b, s, _ = x.shape
+    positions = pos0 + torch.arange(s, device=x.device)[None, :]
+    q_nope, q_rope = _mla_q(params, cfg, x, positions)
+    ckv, k_rope = _mla_kv(params, cfg, x, positions)
+    if s > cfg.flash_threshold:
+        q_lat = torch.einsum("bshk,lhk->bshl", q_nope, params["w_uk"])
+        o_lat = flash_attention(
+            [q_lat, q_rope], [ckv[:, :, None, :], k_rope[:, :, None, :]],
+            ckv[:, :, None, :], scale=(cfg.head_dim + cfg.rope_dim) ** -0.5,
+            q_pos0=pos0, kv_pos0=pos0, q_chunk=cfg.q_chunk,
+            kv_chunk=cfg.kv_chunk, causal_skip=cfg.causal_skip,
+            score_dtype=cfg.score_dtype)
+        out = torch.einsum("bshl,lhv->bshv", o_lat, params["w_uv"])
+        out = torch.einsum("bshv,hvd->bsd", out, params["wo"])
+    else:
+        mask = _causal_mask(s, s, 0, x.device)
+        out = _mla_attend(params, cfg, q_nope, q_rope, ckv, k_rope, mask)
+    return out, {"ckv": ckv, "k_rope": k_rope}
+
+
+def mla_decode(params, cfg: AttnConfig, x, pos, cache):
+    """x: (B, 1, d); pos: the current index (int or 0-d tensor); the
+    latent cache pre-allocated to S_max.  Returns (out, cache')."""
+    b = x.shape[0]
+    pos = int(pos)
+    positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    q_nope, q_rope = _mla_q(params, cfg, x, positions)
+    ckv_new, kr_new = _mla_kv(params, cfg, x, positions)
+    ckv = _update(cache["ckv"], ckv_new, pos)
+    k_rope = _update(cache["k_rope"], kr_new, pos)
+    mask = torch.arange(ckv.shape[1], device=x.device)[None, :] <= pos
+    out = _mla_attend(params, cfg, q_nope, q_rope, ckv, k_rope, mask)
+    return out, {"ckv": ckv, "k_rope": k_rope}

@@ -1,5 +1,6 @@
 """Model assembly: config -> init / forward / decode (port of
-``repro/models/model.py``) for the GQA and Jamba architectures.
+``repro/models/model.py``) for the GQA, MLA (DeepSeek-V2) and Jamba
+architectures.
 
 Each architecture is an optional *prelude* (unstacked blocks) plus N
 identical *periods* (Jamba's 8-layer Mamba/attention/MoE group, or one
@@ -9,8 +10,8 @@ walks with a Python loop where JAX runs ``lax.scan``; the caches of the
 periods are stacked on that axis as ``lax.scan`` stacks them.
 ``set_batch_axes`` keeps the JAX module's ambient batch axes; the
 sharding constraint they feed is the identity here (no GSPMD), and the
-remat of training is left out.  MLA, xLSTM and
-``ode_depth`` raise ``NotImplementedError``.
+remat of training is left out.  xLSTM and ``ode_depth`` raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -107,8 +108,6 @@ def attn_config(cfg: ArchConfig) -> AttnConfig:
 
 
 def _unported(mixer: str):
-    if mixer == "mla":
-        raise NotImplementedError(attn_lib.MLA_TODO)
     if mixer in ("mlstm", "slstm"):
         raise NotImplementedError(XLSTM_TODO)
     raise ValueError(mixer)
@@ -120,7 +119,7 @@ def _program(cfg: ArchConfig):
         raise NotImplementedError(ODE_DEPTH_TODO)
     prelude, period, n_periods = block_program(cfg)
     for spec in (*prelude, *period):
-        if spec.mixer not in ("gqa", "mamba"):
+        if spec.mixer not in ("gqa", "mla", "mamba"):
             _unported(spec.mixer)
     return prelude, period, n_periods
 
@@ -135,6 +134,9 @@ def _init_block(gen, cfg: ArchConfig, spec: BlockSpec, lead=()) -> dict:
                                device=gen.device)}
     if spec.mixer == "gqa":
         p["mixer"] = attn_lib.gqa_init(gen, attn_config(cfg), dtype,
+                                       lead=lead)
+    elif spec.mixer == "mla":
+        p["mixer"] = attn_lib.mla_init(gen, attn_config(cfg), dtype,
                                        lead=lead)
     else:
         p["mixer"] = mamba_lib.mamba_init(gen, cfg.mamba, dtype, lead=lead)
@@ -180,6 +182,9 @@ def _apply_block(p, cfg: ArchConfig, spec: BlockSpec, h, *, pos0=0,
     x = rmsnorm(p["norm1"], h, cfg.norm_eps)
     if spec.mixer == "gqa":
         out, cache = attn_lib.gqa_prefill(p["mixer"], attn_config(cfg), x,
+                                          pos0=pos0)
+    elif spec.mixer == "mla":
+        out, cache = attn_lib.mla_prefill(p["mixer"], attn_config(cfg), x,
                                           pos0=pos0)
     else:
         out, cache = mamba_lib.mamba_prefill(p["mixer"], cfg.mamba, x)
@@ -242,7 +247,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                device=None) -> Pytree:
     """Zero caches on ``device`` (default ``cuda``): the GQA KV cache (int8
     with per-(token, head) float32 scales under ``kv_cache_quant``), the
-    Mamba (ssm, conv) state, and the mLSTM state with its -1e30 initial
+    MLA latent cache (ckv, k_rope), the Mamba (ssm, conv) state, and the mLSTM state with its -1e30 initial
     stabiliser (kept for the xLSTM port).  Stacked leaves are allocated
     at their (n_periods, ...) shape, never broadcast views."""
     device = resolve_device(device)
@@ -263,6 +268,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                         "v_scale": zeros(sshape, F32, lead)}
             return {"k": zeros(shape, lead=lead),
                     "v": zeros(shape, lead=lead)}
+        if spec.mixer == "mla":
+            return {"ckv": zeros((batch, max_seq, cfg.mla_kv_lora),
+                                 lead=lead),
+                    "k_rope": zeros((batch, max_seq, cfg.mla_rope_dim),
+                                    lead=lead)}
         if spec.mixer == "mamba":
             mc = cfg.mamba
             return {"ssm": zeros((batch, mc.d_inner, mc.d_state), F32, lead),
@@ -286,6 +296,9 @@ def _decode_block(p, cfg: ArchConfig, spec: BlockSpec, h, pos, cache):
     x = rmsnorm(p["norm1"], h, cfg.norm_eps)
     if spec.mixer == "gqa":
         out, cache = attn_lib.gqa_decode(p["mixer"], attn_config(cfg), x,
+                                         pos, cache)
+    elif spec.mixer == "mla":
+        out, cache = attn_lib.mla_decode(p["mixer"], attn_config(cfg), x,
                                          pos, cache)
     else:
         out, cache = mamba_lib.mamba_decode(p["mixer"], cfg.mamba, x, cache)

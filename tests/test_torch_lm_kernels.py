@@ -110,11 +110,21 @@ def test_flash_wrapper_checks_and_traffic():
     with pytest.raises(ValueError, match="Hkv dividing H"):
         tops.flash_attention(q, torch.zeros((1, 3, 8, 16)),
                              torch.zeros((1, 3, 8, 16)))
+    with pytest.raises(ValueError, match="dv"):
+        tops.flash_attention(q, torch.zeros((1, 2, 8, 16)),
+                             torch.zeros((1, 2, 7, 8)))
+    # v of its own width dv: (B, H, S, dv) out
+    assert tops.flash_attention(q, torch.zeros((1, 2, 8, 16)),
+                                torch.zeros((1, 2, 8, 8))).shape == \
+        (1, 4, 8, 8)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tops.flash_attention(q.double(), q.double(), q.double())
     from repro.kernels.legacy.flash_attention import hbm_traffic_bytes
     assert tk8.hbm_traffic_bytes(2, 32, 8, 4096, 128, 128) == \
         hbm_traffic_bytes(2, 32, 8, 4096, 128, 128)
+    # at dv != d, V is counted at its own width (JAX's contract counts d)
+    assert tk8.hbm_traffic_bytes(2, 16, 1, 4096, 576, 512)["kv"] == \
+        2 * 4096 * (576 + 512) * 2
 
 
 @pytest.mark.parametrize("bsz,s,di,n,d_tile", SCAN_SHAPES)
@@ -153,25 +163,27 @@ MMA_SHAPES = [shape[:5] for shape in FLASH_SHAPES] + [(1, 4, 2, 97, 32),
                                                      (1, 4, 2, 1024, 128)]
 
 
-def k8_mma_emulation(q, k, v, *, split_p=True):
-    """What ``csrc/flash_attention.cu``'s bf16 kernel computes, in plain
-    torch: bf16 inputs, float32 scores per 64-key tile (bf16 x bf16
-    products are exact in float32), the online softmax in float32 and in
-    base 2 (scores times scale * log2(e), causal mask -1e30, exp2), P split into bf16 hi + lo for the P.V product (or,
-    with ``split_p=False``, P rounded to bf16 alone), the output divided by
-    max(l, 1e-30) and rounded to bf16."""
+def k8_mma_emulation(q, k, v, *, split_p=True, bk=64, scale=None):
+    """What ``csrc/flash_attention.cu``'s bf16 kernels compute, in plain
+    torch: bf16 inputs, float32 scores per ``bk``-key tile (64; 32 in the
+    (576, 512) kernel; bf16 x bf16 products are exact in float32), the
+    online softmax in float32 and in base 2 (scores times scale * log2(e),
+    causal mask -1e30, exp2), P split into bf16 hi + lo for the P.V
+    product (or, with ``split_p=False``, P rounded to bf16 alone), the
+    output divided by max(l, 1e-30) and rounded to bf16."""
     b, h, s, d = q.shape
     group = h // k.shape[1]
-    scale_log2 = float(torch.tensor(d ** -0.5) * torch.tensor(1.4426950408889634))
+    scale = d ** -0.5 if scale is None else scale
+    scale_log2 = float(torch.tensor(scale) * torch.tensor(1.4426950408889634))
     qf = q.float()
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
     m = torch.full((b, h, s, 1), -1e30)
     l = torch.zeros((b, h, s, 1))
-    o = torch.zeros((b, h, s, d))
+    o = torch.zeros((b, h, s, v.shape[-1]))
     rows = torch.arange(s)[:, None]
-    for k0 in range(0, s, 64):
-        kt, vt = kf[:, :, k0:k0 + 64], vf[:, :, k0:k0 + 64]
+    for k0 in range(0, s, bk):
+        kt, vt = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
         sc = (qf @ kt.transpose(-1, -2)) * scale_log2
         sc = sc.masked_fill(torch.arange(k0, k0 + kt.shape[2])[None, :]
                             > rows, -1e30)
@@ -188,11 +200,12 @@ def k8_mma_emulation(q, k, v, *, split_p=True):
     return (o / l.clamp_min(1e-30)).to(torch.bfloat16)
 
 
-def bf16_rounding_ratio(got, q, k, v) -> float:
+def bf16_rounding_ratio(got, q, k, v, scale=None) -> float:
     """max |got - want| / (2^-8 |want| + 2e-5 of the peak), want the plain
     float32 output on the same (bf16-valued) inputs: the per-element bound
     ``chip_smoke.py`` holds the bf16 kernel to."""
-    want = tref.flash_attention_ref(q.float(), k.float(), v.float())
+    want = tref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                    scale=scale)
     limit = 2.0 ** -8 * want.abs() + 2e-5 * want.abs().max()
     return float(((got.float() - want).abs() / limit).max())
 
@@ -204,6 +217,26 @@ def test_k8_mma_scheme_meets_the_bf16_rounding_bound(b, h, hkv, s, d):
     got = k8_mma_emulation(q, k, v)
     assert got.shape == q.shape and got.dtype == torch.bfloat16
     assert bf16_rounding_ratio(got, q, k, v) <= 1.0
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,dv,bk", [
+    (1, 4, 1, 97, 48, 32, 64),        # the smoke configs' MLA, 64-key tiles
+    (1, 16, 1, 640, 576, 512, 32),    # DeepSeek-V2's MLA kernel, 32-key tiles
+], ids=["48-32", "576-512"])
+def test_k8_mla_scheme_meets_the_bf16_rounding_bound(b, h, hkv, s, d, dv, bk):
+    """The same scheme at MLA's (d, dv) pairs and its scale (kv_lora +
+    rope scored, (head_dim + rope_dim) ** -0.5), K = [ckv, k_rope] and
+    V = ckv as the model hands them over."""
+    rng = np.random.default_rng(s + d)
+    q = torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(
+        np.float32)).to(torch.bfloat16)
+    k = torch.from_numpy(rng.standard_normal((b, hkv, s, d)).astype(
+        np.float32)).to(torch.bfloat16)
+    v = k[..., :dv]
+    scale = (d // 3) ** -0.5
+    got = k8_mma_emulation(q, k, v, bk=bk, scale=scale)
+    assert got.shape == (b, h, s, dv) and got.dtype == torch.bfloat16
+    assert bf16_rounding_ratio(got, q, k, v, scale=scale) <= 1.0
 
 
 def test_k8_bf16_p_alone_breaks_the_bound():
