@@ -372,6 +372,35 @@ result line:
    within the rounding bound too), timed with CUDA events beside its
    bound, the plain version and ``scaled_dot_product_attention`` (the
    backend PyTorch's dispatcher picks, printed).
+28. P15, continuous depth, xLSTM and the torch examples, on Llama-3-8B
+   at full width (d_model 4096, 32 heads, 8 kv heads of head_dim 128,
+   d_ff 14336, vocab 128256) with ``ode_depth = 4``: one weight-tied layer
+   integrated over depth 32 in 4 RK4 steps (16 block evaluations, each
+   one K8 launch at phase 17's (2, 32, 8, 4096, 128)).  First, on a quiet
+   card: (b) two bf16 prefills of (2, 4097), ms and tokens/s, (c) exactly
+   16 K8 launches each, finite float32 logits and no stack cache; (d) a
+   profiler trace of one prefill (idle share, K8's share of device time);
+   (e) ``decode_step`` raising ``NotImplementedError("ODE-depth mode is
+   train/prefill only")`` as the JAX package's does; xlstm-125m at full
+   width (12 layers, d_model 768, 4 heads, an sLSTM every 6th layer; no
+   kernel on its path): two bf16 prefills of (2, 4097) with the sLSTM
+   layers' share by host clock around ``slstm_prefill`` and a greedy
+   decode of 16 tokens from a 16-token prompt (31 steps).  Then the six
+   ``examples/torch`` drivers start together as processes on the card
+   (``hp_memristor_twin.py --fast``, ``lorenz96_twin.py --fast
+   --no-baselines``, ``fleet_serving_sharded.py --smoke``, the other three
+   at their own budgets), and beside them run (a) a float32 Llama prefill
+   of (2, 4097) tokens through the kernels (16 K8 launches) and again with
+   ``ops.flash_attention`` swapped to its plain version (none), last
+   logits <= 1e-3 of the peak, and xlstm-125m's prefill of (1, 1025) on
+   the card against the same call on the CPU (float64 compute within
+   1e-4 of the peak; float32 on each beside the float64 answer, the
+   card's within 2x the CPU's distance).  Each example exits 0 within
+   300 s; the quickstart's analogue MRE < 0.3, the backend matrix's
+   ``digital`` and ``fused_cuda`` MREs within 1e-4 of each other, the
+   sharded example's own parity assert and "OK"; each one's wall time
+   printed.  Their kernel launches are their own processes' and are not
+   counted here.
 
 Training (phases 7, 12, 15, 16, 22, 24 and 25) runs through the training engines
 by default, as the JAX package's does through its scan engine: on the
@@ -406,6 +435,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config, get_smoke, param_count  # noqa: E402
+from repro_torch.configs.base import ArchConfig  # noqa: E402
 from repro_torch.configs.lorenz96_twin import CONFIG as L96_CONFIG  # noqa: E402
 from repro_torch.core.analogue import (AnalogueSpec,  # noqa: E402
                                        drift_from_calibration,
@@ -444,11 +474,12 @@ from repro_torch.launch.state_store import TwinStateStore  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import model as lm_model  # noqa: E402
 from repro_torch.models import moe as lm_moe  # noqa: E402
+from repro_torch.models import xlstm as lm_xlstm  # noqa: E402
 from repro_torch.train import (checkpoint, hw_aware, lm_trainer,  # noqa: E402
                                recipes, trainer)
 from repro_torch.train.hw_aware import HwAwareConfig  # noqa: E402
 from repro_torch.train.optimizer import adam  # noqa: E402
-from repro_torch.tree import tree_leaves  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 TOL = 1e-4          # kernel vs plain, fused vs digital: of the peak |y|
 HIST_TOL = 1e-3     # fused vs digital-adjoint loss history, rel per step
@@ -4957,6 +4988,425 @@ def p14_deepseek(dev, smi) -> dict:
             "decode_ms": decode_ms, "seconds": sec}
 
 
+# -- phase 28: P15, continuous depth, xLSTM and the torch examples ----------
+
+#: P15's Llama-3-8B in ``ode_depth`` mode: one weight-tied layer integrated
+#: over depth 32 in 4 RK4 steps, 16 block evaluations a prefill, each one
+#: K8 launch at (2, 32, 8, 4096, 128) (phase 17's ``K8_P5``, held against
+#: plain there).
+P15_ODE_DEPTH = 4
+P15_SEQ = 4096        # P15 prompt length: K8_P5's S
+#: P15 xlstm-125m: a prefill of (1, P15_XLSTM_CPU_SEQ) on the card vs the
+#: same call on the CPU, in float64 compute, of the peak.  (In float32 the
+#: model itself lands ~1e-4 of the peak from its float64 answer at this
+#: width on either device, as phase 28 prints, so float32 card vs CPU is
+#: printed and the card's float32 is held to the float64 answer within
+#: P15_XLSTM_F32_RATIO x the CPU's own distance to it.)
+P15_XLSTM_CPU_SEQ = 1024
+P15_XLSTM_TOL = 1e-4
+P15_XLSTM_F32_RATIO = 2.0
+#: The torch examples, each run as a subprocess on the card: (file, flags,
+#: the gate read from its output).
+P15_EXAMPLES = (
+    ("quickstart.py", ()),
+    ("hp_memristor_twin.py", ("--fast",)),
+    ("lorenz96_twin.py", ("--fast", "--no-baselines")),
+    ("analogue_inference.py", ()),
+    ("twin_fleet_serving.py", ()),
+    ("fleet_serving_sharded.py", ("--smoke",)),
+)
+P15_QUICKSTART_MRE = 0.3   # the quickstart's analogue MRE must be below
+P15_MATRIX_TOL = 1e-4      # backend matrix: |digital - fused_cuda| MRE
+P15_EXAMPLE_TIMEOUT = 300
+
+
+@contextlib.contextmanager
+def float64_compute(on: bool):
+    """Run the LM modules in float64 where they compute in float32 (their
+    ``F32`` upcasts, the norms, the gates and states of the xLSTM) and a
+    ``float32`` config's activations in float64: the float64 answer of a
+    float32 call.  Off: nothing changes."""
+    if not on:
+        yield
+        return
+    mods = (lm_layers, lm_xlstm, lm_model)
+    saved = [m.F32 for m in mods]
+    prop = ArchConfig.torch_dtype
+    try:
+        for m in mods:
+            m.F32 = torch.float64
+        ArchConfig.torch_dtype = property(lambda self: torch.float64)
+        yield
+    finally:
+        for m, f in zip(mods, saved):
+            m.F32 = f
+        ArchConfig.torch_dtype = prop
+
+
+def p15_llama_config():
+    """P15's Llama-3-8B at ``ode_depth = 4`` and its K8 launches a prefill
+    (one a block evaluation: 4 RK4 stages x ``ode_depth`` steps)."""
+    full = dataclasses.replace(get_config("llama3-8b"),
+                               ode_depth=P15_ODE_DEPTH)
+    return full, 4 * full.ode_depth
+
+
+def p15_k8_zero():
+    flash_attention.LAUNCHES = 0
+
+
+def p15_k8_read(path, want, counts):
+    torch.cuda.synchronize()
+    got = flash_attention.LAUNCHES
+    print(f"{path}: launches {{'K8': {got}}}")
+    check(got == want, f"{path}: expected {want} K8 launches, got {got}")
+    counts[path] = got
+
+
+def p15_llama_serving(dev, smi, counts) -> dict:
+    """(b)-(e) of phase 28: two bf16 prefills of (2, 4096), each with 16
+    K8 launches; a profiler trace of one; ``decode_step`` raising."""
+    full, evals = p15_llama_config()
+    _, _, n_per = lm_model.block_program(full)
+    print(f"P15 config {full.name} with ode_depth {full.ode_depth}: d_model "
+          f"{full.d_model}, {full.n_heads} heads ({full.n_kv} kv, head_dim "
+          f"{full.hd}), d_ff {full.d_ff}, vocab {full.vocab}; one weight-"
+          f"tied layer integrated over depth {n_per} in {full.ode_depth} "
+          f"RK4 steps ({evals} block evaluations, one K8 launch each)")
+    pipe = TokenPipeline(full.vocab, P15_SEQ, 2, seed=SEED)
+    # -- (b), (c) bf16: two prefills, 16 K8 launches each ---------------------
+    t_i = time.perf_counter()
+    params = lm_model.init_params(full, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    print(f"P15 bf16 params on {dev}: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, drawn in "
+          f"{time.perf_counter() - t_i:.2f} s")
+    prefill = lm_trainer.make_prefill_step(full)
+    prefill_ms = []
+    for i in range(2):
+        batch = {"tokens": pipe.batch_at(1 + i)["tokens"].to(dev)}
+        torch.cuda.synchronize()
+        p15_k8_zero()
+        t_p = time.perf_counter()
+        logits, cache = prefill(params, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t_p
+        p15_k8_read(f"P15 bf16 ode_depth prefill {i} (2, {P15_SEQ})",
+                    evals, counts)
+        check(tuple(logits.shape) == (2, full.vocab)
+              and logits.dtype == torch.float32, f"P15 logits {logits.shape}")
+        check(bool(torch.isfinite(logits).all()), "P15 bf16 logits not finite")
+        prefill_ms.append(secs * 1e3)
+        print(f"[{smi}] P15 bf16 ode_depth prefill {i}: (2, {P15_SEQ}) in "
+              f"{secs * 1e3:.3f} ms, {2 * P15_SEQ / secs:,.0f} tokens/s")
+        del logits, cache
+    # -- (d) a profiler trace of one prefill ----------------------------------
+    prefill_trace(f"[{smi}] P15", prefill, params,
+                  {"tokens": pipe.batch_at(1)["tokens"].to(dev)},
+                  {"K8": "k8_flash"})
+    # -- (e) decode raises, as JAX's does -------------------------------------
+    cache = lm_model.init_cache(full, 2, 16, device=dev)
+    try:
+        lm_model.decode_step(params, full, batch["tokens"][:, :1], 0, cache)
+        raised = None
+    except NotImplementedError as e:
+        raised = str(e)
+    print(f"P15 decode_step with ode_depth raises NotImplementedError: "
+          f"{raised!r}")
+    check(raised == "ODE-depth mode is train/prefill only",
+          "P15 decode_step did not raise as the JAX package's does")
+    del params, cache
+    torch.cuda.empty_cache()
+    return {"prefill_ms": prefill_ms}
+
+
+def p15_llama_parity(dev, counts):
+    """(a) of phase 28: a float32 prefill of (2, 4096) through the kernels
+    (16 K8 launches), then with K8's plain version (none); last logits
+    within P5_LOGIT_TOL of the peak."""
+    full, evals = p15_llama_config()
+    pipe = TokenPipeline(full.vocab, P15_SEQ, 2, seed=SEED)
+    # -- (a) float32: kernels, then the plain K8 ------------------------------
+    cfg32 = dataclasses.replace(full, dtype="float32")
+    t_i = time.perf_counter()
+    params = lm_model.init_params(cfg32, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    print(f"P15 float32 params ({n_params / 1e9:.3f} B, one period; the "
+          f"discrete stack has {param_count(full) / 1e9:.2f} B) on {dev}: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, drawn in "
+          f"{time.perf_counter() - t_i:.2f} s")
+    batch = {"tokens": pipe.batch_at(0)["tokens"].to(dev)}
+    prefill32 = lm_trainer.make_prefill_step(cfg32)
+    runs = {}
+    kernel_flash = ops.flash_attention
+    try:
+        for mode in ("kernels", "plain"):
+            if mode == "plain":
+                ops.flash_attention = lambda q, k, v, scale=None: \
+                    ref.flash_attention_ref(q, k, v, scale=scale)
+            p15_k8_zero()
+            t_p = time.perf_counter()
+            logits, cache = prefill32(params, batch)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t_p
+            p15_k8_read(f"P15 float32 ode_depth prefill (2, {P15_SEQ}) on "
+                        f"{mode}", evals if mode == "kernels" else 0, counts)
+            check(cache["stack"] is None, "P15: the ode_depth cache stack "
+                                          "is not None")
+            runs[mode] = logits.clone()
+            print(f"P15 float32 prefill on {mode}: {secs:.3f} s")
+            del logits, cache
+    finally:
+        ops.flash_attention = kernel_flash
+    la, lr = rel_err(runs["kernels"], runs["plain"])
+    print(f"P15 float32 kernels vs plain: last logits max abs err {la:.3e}, "
+          f"of peak {lr:.3e} (limit {P5_LOGIT_TOL:g}); peak |logit| "
+          f"{float(runs['plain'].abs().max()):.3f}")
+    check(bool(torch.isfinite(runs["kernels"]).all()),
+          "P15 float32 logits not finite")
+    check(lr <= P5_LOGIT_TOL, "P15 float32 logits: kernels vs plain differ")
+    del params, runs
+    torch.cuda.empty_cache()
+    return lr
+
+
+def p15_xlstm_serving(dev, smi) -> dict:
+    """xlstm-125m at full width on phase 28: two bf16 prefills of (2, 4096)
+    with the sLSTM layers' share by host clock and a greedy decode of 31
+    steps."""
+    full = get_config("xlstm-125m")
+    xc = full.xlstm_cfg()
+    _, period, n_per = lm_model.block_program(full)
+    print(f"P15 config {full.name}: {full.n_layers} layers (periods of "
+          f"{len(period)}: {', '.join(s.mixer for s in period)}), d_model "
+          f"{full.d_model}, {full.n_heads} heads (mLSTM d_inner {xc.d_inner},"
+          f" head_dim {xc.head_dim}, chunk {xc.chunk}), vocab {full.vocab}, "
+          f"{param_count(full) / 1e6:.1f} M params (analytic)")
+    params = lm_model.init_params(full, seed=SEED, device=dev)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    prefill = lm_trainer.make_prefill_step(full)
+    pipe = TokenPipeline(full.vocab, P15_SEQ, 2, seed=SEED)
+    slstm_prefill = lm_xlstm.slstm_prefill
+    slstm_s = []
+
+    def timed_slstm(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = slstm_prefill(*args)
+        torch.cuda.synchronize()
+        slstm_s.append(time.perf_counter() - t)
+        return out
+
+    prefill_ms, shares = [], []
+    lm_xlstm.slstm_prefill = timed_slstm
+    try:
+        for i in range(2):
+            batch = {"tokens": pipe.batch_at(i)["tokens"].to(dev)}
+            slstm_s.clear()
+            torch.cuda.synchronize()
+            t_p = time.perf_counter()
+            logits, cache = prefill(params, batch)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t_p
+            check(tuple(logits.shape) == (2, full.vocab) and bool(
+                torch.isfinite(logits).all()), "P15 xLSTM bf16 logits")
+            check(len(slstm_s) == n_per, f"P15: {len(slstm_s)} sLSTM calls")
+            prefill_ms.append(secs * 1e3)
+            shares.append(sum(slstm_s) / secs)
+            print(f"[{smi}] P15 xLSTM bf16 prefill {i}: (2, {P15_SEQ}) in "
+                  f"{secs * 1e3:.3f} ms, {2 * P15_SEQ / secs:,.0f} tokens/s; "
+                  f"sLSTM layers {sum(slstm_s) * 1e3:.3f} ms "
+                  f"({100 * shares[-1]:.1f}% of the prefill, host clock, "
+                  f"{n_per} layers x {P15_SEQ} steps)")
+            del logits, cache
+    finally:
+        lm_xlstm.slstm_prefill = slstm_prefill
+    prompt = pipe.batch_at(2)["tokens"][:, :16].to(dev)
+    torch.cuda.synchronize()
+    t_g = time.perf_counter()
+    toks = lm_trainer.greedy_generate(params, full, prompt, 16, 32)
+    torch.cuda.synchronize()
+    gen_secs = time.perf_counter() - t_g
+    steps = prompt.shape[1] + 16 - 1
+    check(tuple(toks.shape) == (2, 16) and bool(
+        ((toks >= 0) & (toks < full.vocab)).all()), "P15 xLSTM tokens")
+    decode_ms = gen_secs / steps * 1e3
+    print(f"[{smi}] P15 xLSTM greedy_generate: {steps} decode steps of batch "
+          f"2 in {gen_secs:.3f} s, {decode_ms:.3f} ms per token step; first "
+          f"tokens {toks[0, :6].tolist()}")
+    del params
+    torch.cuda.empty_cache()
+    return {"params": n_params, "prefill_ms": prefill_ms,
+            "slstm_share": shares, "decode_ms": decode_ms}
+
+
+def p15_xlstm_card_vs_cpu(dev) -> dict:
+    """xlstm-125m's prefill of (1, P15_XLSTM_CPU_SEQ) on the card against
+    the same call on the CPU (no kernel runs): float64 compute card vs
+    CPU within P15_XLSTM_TOL of the peak; float32 on each, beside the
+    float64 answer, the card's within P15_XLSTM_F32_RATIO x the CPU's
+    distance to it."""
+    full = get_config("xlstm-125m")
+    cfg32 = dataclasses.replace(full, dtype="float32")
+    p_dev = lm_model.init_params(cfg32, seed=SEED, device=dev)
+    batch = TokenPipeline(full.vocab, P15_XLSTM_CPU_SEQ, 1, seed=SEED
+                          ).batch_at(0)["tokens"]
+    f32 = lm_trainer.make_prefill_step(cfg32)
+    last, secs = {}, {}
+    for prec in ("float32", "float64"):
+        with float64_compute(prec == "float64"):
+            for where, d in (("card", dev), ("CPU", torch.device("cpu"))):
+                wide = torch.float64 if prec == "float64" else torch.float32
+                p = tree_map(lambda x: x.to(d, wide), p_dev)
+                t_c = time.perf_counter()
+                logits, _ = f32(p, {"tokens": batch.to(d)})
+                torch.cuda.synchronize()
+                secs[where, prec] = time.perf_counter() - t_c
+                check(bool(torch.isfinite(logits).all()),
+                      f"P15 xLSTM {prec} on the {where}: not finite")
+                last[where, prec] = logits.double().cpu()
+                del p, logits
+    exact = last["CPU", "float64"]
+    errs = {"card_vs_cpu_float64": rel_err(last["card", "float64"], exact),
+            "card_vs_cpu_float32": rel_err(last["card", "float32"],
+                                           last["CPU", "float32"]),
+            "card_float32_vs_float64": rel_err(last["card", "float32"],
+                                               exact),
+            "cpu_float32_vs_float64": rel_err(last["CPU", "float32"],
+                                              exact)}
+    print(f"P15 xLSTM prefill (1, {P15_XLSTM_CPU_SEQ}), last logits of the "
+          f"peak: float64 card vs CPU "
+          f"{errs['card_vs_cpu_float64'][1]:.3e} (limit {P15_XLSTM_TOL:g}); "
+          f"float32 card vs CPU {errs['card_vs_cpu_float32'][1]:.3e}, card "
+          f"vs the float64 answer {errs['card_float32_vs_float64'][1]:.3e}, "
+          f"CPU vs it {errs['cpu_float32_vs_float64'][1]:.3e} (the card's "
+          f"float32 within {P15_XLSTM_F32_RATIO:g}x the CPU's); seconds "
+          + ", ".join(f"{w} {p} {s:.3f}" for (w, p), s in secs.items()))
+    check(errs["card_vs_cpu_float64"][1] <= P15_XLSTM_TOL,
+          "P15 xLSTM float64: card vs CPU differ")
+    check(errs["card_float32_vs_float64"][1] <= P15_XLSTM_F32_RATIO
+          * errs["cpu_float32_vs_float64"][1],
+          "P15 xLSTM float32: the card is further from the float64 answer "
+          "than the CPU allows")
+    del p_dev, last
+    torch.cuda.empty_cache()
+    return {k: v[1] for k, v in errs.items()}
+
+
+def p15_example_gates(name: str, out: str) -> dict:
+    """The gate values an example prints, checked."""
+    if name == "quickstart.py":
+        m = re.search(r"analogue twin MRE vs ground truth: ([0-9.]+)", out)
+        check(m is not None, "quickstart printed no analogue MRE")
+        v = float(m.group(1))
+        check(v < P15_QUICKSTART_MRE, f"quickstart analogue MRE {v} >= "
+                                      f"{P15_QUICKSTART_MRE}")
+        return {"analogue_mre": v}
+    if name == "analogue_inference.py":
+        got = {k: float(v) for k, v in re.findall(
+            r"^  (digital|fused_cuda|analogue) +MRE vs truth ([0-9.]+)$",
+            out, re.M)}
+        check(set(got) == {"digital", "fused_cuda", "analogue"},
+              f"backend matrix lines: {got}")
+        gap = abs(got["digital"] - got["fused_cuda"])
+        check(gap <= P15_MATRIX_TOL, f"backend matrix: digital vs "
+                                     f"fused_cuda MRE differ by {gap}")
+        return {"backend_matrix": got, "digital_vs_fused_cuda": gap}
+    if name == "fleet_serving_sharded.py":
+        check(out.rstrip().endswith("OK"), "fleet_serving_sharded: no OK")
+    return {}
+
+
+def p15_start_examples() -> list:
+    """Every ``examples/torch`` driver started as its own process on the
+    card, all together, each logging to an anonymous temporary file."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    # the host's cores shared among the processes, not each taking all
+    env.setdefault("OMP_NUM_THREADS", str(max(
+        1, (os.cpu_count() or 1) // len(P15_EXAMPLES))))
+    procs = []
+    for name, flags in P15_EXAMPLES:
+        log = tempfile.TemporaryFile(mode="w+")
+        procs.append((name, flags, log, subprocess.Popen(
+            [sys.executable, str(ROOT / "examples" / "torch" / name),
+             *flags], cwd=ROOT, env=env, stdout=log,
+            stderr=subprocess.STDOUT)))
+    return procs
+
+
+def p15_stop_examples(procs):
+    for *_, log, proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        log.close()
+
+
+def p15_wait_examples(procs, t0, smi) -> dict:
+    """Wait for the examples started at ``t0``: each must exit 0 within
+    P15_EXAMPLE_TIMEOUT and its gates hold; each one's wall time from the
+    common start."""
+    ended, rows = {}, {}
+    while len(ended) < len(procs):
+        for name, _, _, proc in procs:
+            if name not in ended and proc.poll() is not None:
+                ended[name] = time.perf_counter() - t0
+        if time.perf_counter() - t0 > P15_EXAMPLE_TIMEOUT:
+            raise RuntimeError(
+                f"chip_smoke: examples still running after "
+                f"{P15_EXAMPLE_TIMEOUT} s: "
+                f"{sorted(set(n for n, *_ in procs) - set(ended))}")
+        time.sleep(0.2)
+    for name, flags, log, proc in procs:
+        log.seek(0)
+        out = log.read()
+        if proc.returncode != 0:
+            print(out[-4000:])
+        check(proc.returncode == 0, f"example {name} {' '.join(flags)} "
+                                    f"exited {proc.returncode}")
+        gates = p15_example_gates(name, out)
+        rows[name] = {"flags": list(flags), "seconds": ended[name], **gates}
+        print(f"[{smi}] P15 example {name} {' '.join(flags)}: exit 0 in "
+              f"{ended[name]:.1f} s (all {len(procs)} started together on "
+              f"one card, beside P15's float32 checks); gates {gates}")
+    return rows
+
+
+def p15_continuous_depth(dev, smi) -> dict:
+    """Phase 28 (P15): Llama-3-8B's weight-tied layer in ``ode_depth`` mode
+    through K8, xlstm-125m, and the torch examples.  The timed serving
+    runs go first, on a quiet card; then the examples start, and the
+    float32 checks (Llama's kernels vs plain, xLSTM's card vs CPU) run
+    beside them.  Returns K8's launch counts by path and the phase's
+    numbers."""
+    t_phase = time.perf_counter()
+    counts = {}
+    llama = p15_llama_serving(dev, smi, counts)
+    t_x = time.perf_counter()
+    xlstm = p15_xlstm_serving(dev, smi)
+    t_e = time.perf_counter()
+    procs = p15_start_examples()
+    try:
+        llama["f32_logits_of_peak"] = p15_llama_parity(dev, counts)
+        xlstm["card_vs_cpu_of_peak"] = p15_xlstm_card_vs_cpu(dev)
+        t_c = time.perf_counter()
+        examples = p15_wait_examples(procs, t_e, smi)
+    finally:
+        p15_stop_examples(procs)
+    t_end = time.perf_counter()
+    sec = t_end - t_phase
+    print(f"[{smi}] phase 28 (P15) in {sec:.1f} s: Llama bf16 serving "
+          f"{t_x - t_phase:.1f} s, xLSTM serving {t_e - t_x:.1f} s, then "
+          f"the examples {t_end - t_e:.1f} s with the float32 checks "
+          f"({t_c - t_e:.1f} s) beside them")
+    return {"counts": counts, "llama": llama, "xlstm": xlstm,
+            "examples": examples, "seconds": sec}
+
+
 def main() -> int:
     # -- 1. environment ----------------------------------------------------
     if not torch.cuda.is_available():
@@ -6174,6 +6624,13 @@ def main() -> int:
         {p: c for p, c in p14["counts"].items() if c})
     k8_row["pairs"] = "(16,16) (32,32) (64,64) (128,128) (48,32) (576,512)"
     k8_row["mla"] = p14["pairs"]
+
+    # -- 28. P15: continuous depth (K8), xLSTM and the torch examples --------
+    p15 = p15_continuous_depth(dev, smi)
+    k8_row["launches"] += sum(p15["counts"].values())
+    k8_row["launches_by_path"].update(
+        {p: c for p, c in p15["counts"].items() if c})
+    k8_row["ode_depth_P15"] = {k: p15[k] for k in ("llama", "seconds")}
 
     k1_paths = {"serve_fleet": launches, "train_hp_twin": hp_counts[0],
                 "hp_40_steps_fused_cuda": hp40_counts["fused_cuda"][0],

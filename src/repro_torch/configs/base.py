@@ -9,10 +9,7 @@ import torch
 
 from repro_torch.models.mamba import MambaConfig
 from repro_torch.models.moe import MoEConfig
-
-#: Where the xLSTM mixers wait (ROADMAP.md).
-XLSTM_TODO = ("the xLSTM mixers (models/xlstm.py) are not ported yet "
-              "(ROADMAP.md, queue 1 item 13)")
+from repro_torch.models.xlstm import XLSTMConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,8 +77,8 @@ class ArchConfig:
     def d_ff_dense_(self) -> int:
         return self.d_ff_dense or self.d_ff
 
-    def xlstm_cfg(self):
-        raise NotImplementedError(XLSTM_TODO)
+    def xlstm_cfg(self) -> XLSTMConfig:
+        return XLSTMConfig(d_model=self.d_model, n_heads=self.n_heads)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,12 +103,6 @@ def runnable_shapes(cfg: ArchConfig) -> list[str]:
     if cfg.sub_quadratic:
         names.append("long_500k")
     return names
-
-
-def _xlstm_widths(cfg: ArchConfig):
-    """(d_inner, d_conv, s_proj_factor) of the JAX package's XLSTMConfig
-    defaults, for the analytic count only."""
-    return int(2.0 * cfg.d_model), 4, 4.0 / 3.0
 
 
 def param_count(cfg: ArchConfig) -> int:
@@ -153,13 +144,14 @@ def param_count(cfg: ArchConfig) -> int:
                 + di * n + 2 * di + di * d)
 
     def xlstm_m():
-        di, d_conv, _ = _xlstm_widths(cfg)
-        return d * 2 * di + d_conv * di + 3 * di * di + 2 * di * \
+        xc = cfg.xlstm_cfg()
+        di = xc.d_inner
+        return d * 2 * di + xc.d_conv * di + 3 * di * di + 2 * di * \
             cfg.n_heads + di * d + di
 
     def xlstm_s():
-        _, _, s_proj = _xlstm_widths(cfg)
-        df = int(s_proj * d)
+        xc = cfg.xlstm_cfg()
+        df = int(xc.s_proj_factor * d)
         return d * 4 * d + cfg.n_heads * (d // cfg.n_heads) * 4 * (
             d // cfg.n_heads) + 3 * d * df // 1 + 2 * d * df - 2 * d * df \
             + d * df * 3

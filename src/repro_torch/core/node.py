@@ -8,8 +8,8 @@
 * ``MLPVectorField`` — dy/dt = MLP([u(t), y]) or MLP(y).
 * ``NeuralODE`` — ties a vector field to an integrator, a gradient mode
   and an execution backend.
-
-``ContinuousDepthBlock`` is not ported yet (ROADMAP.md, queue 1).
+* ``ContinuousDepthBlock`` — a weight-tied residual block integrated in
+  pseudo-depth (the LM configs' ``ode_depth`` mode).
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from typing import Any, Callable, Optional, Sequence
 
 import torch
 
+from repro_torch.core.ode import linspace_from_zero, odeint
 from repro_torch.device import resolve_device
 
 Params = list
@@ -138,3 +139,35 @@ class NeuralODE:
                                      drive_family=drive_family,
                                      drive_params=drive_params, mesh=mesh,
                                      **self._solver_kw())
+
+
+# ---------------------------------------------------------------------------
+# Continuous-depth residual block (paper Eq. 8 <-> Eq. 9 as a feature)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ContinuousDepthBlock:
+    """Weight-tied residual block integrated in pseudo-depth.
+
+    A discrete stack ``h <- h + block(h)`` repeated K times is the Euler
+    discretisation of ``dh/ds = block(h)`` on s in [0, K]; this module
+    integrates that ODE with ``method`` (RK4 by default) in ``num_steps``
+    steps instead, with a single block's parameters.  The grid is
+    ``jnp.linspace(0, depth, num_steps + 1)`` in ``h``'s dtype, bit for bit
+    (:func:`repro_torch.core.ode.linspace_from_zero`).
+
+    ``block_fn(params, h) -> residual`` must be s-independent (weight tied).
+    """
+    block_fn: Callable[[Any, torch.Tensor], torch.Tensor]
+    depth: float = 1.0          # pseudo-time horizon (== #discrete layers)
+    num_steps: int = 4          # solver steps across the horizon
+    method: str = "rk4"
+
+    def __call__(self, params: Any, h: torch.Tensor) -> torch.Tensor:
+        def f(t, y, p):
+            del t
+            return self.block_fn(p, y)
+
+        ts = linspace_from_zero(self.depth, self.num_steps + 1, h.dtype,
+                                device=h.device)
+        return odeint(f, h, ts, params, method=self.method)[-1]

@@ -9,6 +9,12 @@ row of a fleet state (a resumed fleet's windows, which the JAX package
 vmaps).  ``odeint_dopri5`` is the adaptive Dormand-Prince 5(4) solver
 with one step controller per row of a fleet, the arithmetic of the JAX
 package's vmapped ``lax.while_loop``.
+
+On bfloat16 and float16 states the Runge-Kutta steps round each Python
+coefficient to the state's dtype before it multiplies the state, as JAX's
+weak typing does (torch would hold it in float32); on wider states they
+are the plain arithmetic.  ``linspace_from_zero`` builds a grid as
+``jnp.linspace`` does.
 """
 from __future__ import annotations
 
@@ -22,16 +28,56 @@ from repro_torch.tree import tree_leaves, tree_map
 VectorField = Callable[..., torch.Tensor]
 
 
+_HALF = (torch.bfloat16, torch.float16)
+
+
+@functools.lru_cache(maxsize=256)
+def _rounded(c: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(c, dtype=torch.float32).to(dtype))
+
+
+def _coef(a, x: torch.Tensor):
+    """A Python coefficient ``a`` as JAX's weak typing makes it before it
+    multiplies ``x``: rounded to a 16-bit ``x``'s dtype (through float32).
+    Tensors, and every coefficient of a wider ``x``, pass unchanged: torch
+    already computes with the scalar in ``x``'s float32 there."""
+    if isinstance(a, (int, float)) and x.dtype in _HALF:
+        return _rounded(float(a), x.dtype)
+    return a
+
+
 def _axpy(a, xs, ys):
     """ys + a * xs over trees."""
-    return tree_map(lambda x, y: y + a * x, xs, ys)
+    return tree_map(lambda x, y: y + _coef(a, x) * x, xs, ys)
 
 
 def _weighted_sum(coeffs: Sequence[float], trees: Sequence):
-    acc = tree_map(lambda x: coeffs[0] * x, trees[0])
+    acc = tree_map(lambda x: _coef(coeffs[0], x) * x, trees[0])
     for c, t in zip(coeffs[1:], trees[1:]):
-        acc = tree_map(lambda a, x: a + c * x, acc, t)
+        acc = tree_map(lambda a, x: a + _coef(c, x) * x, acc, t)
     return acc
+
+
+def linspace_from_zero(stop: float, num: int, dtype=torch.float32,
+                       device=None) -> torch.Tensor:
+    """``jnp.linspace(0.0, stop, num, dtype=dtype)`` bit for bit, for the
+    float32 and bfloat16 grids of the package.  XLA folds the division
+    into the reciprocal ``r = 1 / (num - 1)``: in float32 point i is
+    ``(stop r) i``; in bfloat16 it is ``stop (i r)`` with ``i r`` rounded
+    to bfloat16 first.  The last point is ``stop`` itself.
+    (``torch.linspace`` steps from both ends and, in bfloat16, lands on
+    other values: 1.328125 for JAX's 1.3359375 at (0, 2, 4).)"""
+    num = int(num)
+    stop_t = torch.tensor(stop, dtype=torch.float32).to(dtype)
+    if num == 1:
+        return torch.zeros(1, dtype=dtype, device=device)
+    inv = torch.tensor(1.0, dtype=torch.float32) / (num - 1)
+    i = torch.arange(num - 1, dtype=torch.float32)
+    if dtype == torch.bfloat16:
+        pts = stop_t * (i * inv).to(dtype)
+    else:
+        pts = ((stop_t.to(torch.float32) * inv) * i).to(dtype)
+    return torch.cat([pts, stop_t.reshape(1)]).to(device)
 
 
 def euler_step(f: VectorField, t, y, dt, *f_args):

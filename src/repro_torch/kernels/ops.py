@@ -84,6 +84,16 @@ def fused_node_rollout(params: Sequence[dict], y0: torch.Tensor,
             time_chunk=time_chunk, precision=precision)
 
 
+def fused_node_rollout_ref(params: Sequence[dict], y0: torch.Tensor,
+                           u_half: torch.Tensor, dt: float) -> torch.Tensor:
+    """K1's plain version on an MLP's ``[{"w", "b"}, ...]`` params, every
+    operand in float32: (T+1, B, D)."""
+    return ref.fused_node_rollout_ref(
+        y0.to(torch.float32), u_half.to(torch.float32),
+        [p["w"].to(torch.float32) for p in params],
+        [p["b"].to(torch.float32) for p in params], float(dt))
+
+
 def _vmap_drive(drive: Callable, th: torch.Tensor) -> torch.Tensor:
     """``drive`` at every time of ``th`` (any shape), as ``jax.vmap``."""
     flat = th.reshape(-1)

@@ -616,6 +616,20 @@ def crossbar_matmul_ref(x: torch.Tensor, gp: torch.Tensor, gm: torch.Tensor,
     return y
 
 
+def crossbar_matmul_q_ref(x: torch.Tensor, gp_idx: torch.Tensor,
+                          gm_idx: torch.Tensor, g_step: float,
+                          inv_scale: float,
+                          clamp: Optional[float]) -> torch.Tensor:
+    """Quantised-storage variant: uint8 level indices dequantised on the
+    fly, ``gp - gm = (idx_p - idx_m) * g_step`` (the G_min offsets cancel
+    in the pair)."""
+    g = (gp_idx.to(F32) - gm_idx.to(F32)) * g_step
+    y = (x.to(F32) @ g) * inv_scale
+    if clamp is not None:
+        y = torch.clamp(y, -clamp, clamp)
+    return y
+
+
 # ---------------------------------------------------------------------------
 # fused analogue RK4 rollout (K4)
 # ---------------------------------------------------------------------------

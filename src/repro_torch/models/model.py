@@ -1,17 +1,20 @@
 """Model assembly: config -> init / forward / decode (port of
-``repro/models/model.py``) for the GQA, MLA (DeepSeek-V2) and Jamba
-architectures.
+``repro/models/model.py``) for every architecture family: GQA, MLA
+(DeepSeek-V2), Jamba and xLSTM.
 
 Each architecture is an optional *prelude* (unstacked blocks) plus N
-identical *periods* (Jamba's 8-layer Mamba/attention/MoE group, or one
-dense block).  Period parameters keep the JAX package's tree: every leaf
+identical *periods* (Jamba's 8-layer Mamba/attention/MoE group, xLSTM's
+6-block mLSTM/sLSTM group, or one dense block).  Period parameters keep
+the JAX package's tree: every leaf
 of ``params["stack"]`` has a leading ``n_periods`` axis, which the port
 walks with a Python loop where JAX runs ``lax.scan``; the caches of the
 periods are stacked on that axis as ``lax.scan`` stacks them.
 ``set_batch_axes`` keeps the JAX module's ambient batch axes; the
 sharding constraint they feed is the identity here (no GSPMD), and the
-remat of training is left out.  xLSTM and ``ode_depth`` raise
-``NotImplementedError``.
+remat of training is left out.  ``ode_depth > 0`` runs the period as one
+weight-tied group integrated in pseudo-depth
+(:class:`repro_torch.core.node.ContinuousDepthBlock`); it is
+train/prefill only, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -20,11 +23,13 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.configs.base import XLSTM_TODO, ArchConfig
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.node import ContinuousDepthBlock
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.attention import AttnConfig
 from repro_torch.models.layers import (F32, embed_init, mlp_apply, mlp_init,
                                        rmsnorm, rmsnorm_init, unembed)
@@ -44,11 +49,6 @@ _BATCH_AXES: tuple | None = None
 def set_batch_axes(axes):
     global _BATCH_AXES
     _BATCH_AXES = tuple(axes) if axes else None
-
-
-#: Where ``ode_depth`` waits (ROADMAP.md).
-ODE_DEPTH_TODO = ("ode_depth > 0 (ContinuousDepthBlock) is not ported yet "
-                  "(ROADMAP.md, queue 1 item 13)")
 
 
 # ---------------------------------------------------------------------------
@@ -107,23 +107,6 @@ def attn_config(cfg: ArchConfig) -> AttnConfig:
         kv_cache_quant=cfg.kv_cache_quant)
 
 
-def _unported(mixer: str):
-    if mixer in ("mlstm", "slstm"):
-        raise NotImplementedError(XLSTM_TODO)
-    raise ValueError(mixer)
-
-
-def _program(cfg: ArchConfig):
-    """:func:`block_program` of a config whose mixers are all ported."""
-    if cfg.ode_depth:
-        raise NotImplementedError(ODE_DEPTH_TODO)
-    prelude, period, n_periods = block_program(cfg)
-    for spec in (*prelude, *period):
-        if spec.mixer not in ("gqa", "mla", "mamba"):
-            _unported(spec.mixer)
-    return prelude, period, n_periods
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -138,8 +121,16 @@ def _init_block(gen, cfg: ArchConfig, spec: BlockSpec, lead=()) -> dict:
     elif spec.mixer == "mla":
         p["mixer"] = attn_lib.mla_init(gen, attn_config(cfg), dtype,
                                        lead=lead)
-    else:
+    elif spec.mixer == "mamba":
         p["mixer"] = mamba_lib.mamba_init(gen, cfg.mamba, dtype, lead=lead)
+    elif spec.mixer == "mlstm":
+        p["mixer"] = xlstm_lib.mlstm_init(gen, cfg.xlstm_cfg(), dtype,
+                                          lead=lead)
+    elif spec.mixer == "slstm":
+        p["mixer"] = xlstm_lib.slstm_init(gen, cfg.xlstm_cfg(), dtype,
+                                          lead=lead)
+    else:
+        raise ValueError(spec.mixer)
     if spec.ffn is not None:
         p["norm2"] = rmsnorm_init(cfg.d_model, dtype, lead=lead,
                                   device=gen.device)
@@ -156,8 +147,11 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Pytree:
     """Seeded random params on ``device`` (default ``cuda``), drawn there
     from a ``torch.Generator``: the JAX package's tree, shapes, dtypes and
     distributions, not its values.  Each stacked leaf is drawn at its full
-    (n_periods, ...) shape, so nothing is built twice."""
-    prelude, period, n_periods = _program(cfg)
+    (n_periods, ...) shape, so nothing is built twice.  With ``ode_depth``
+    the stack holds one weight-tied period."""
+    prelude, period, n_periods = block_program(cfg)
+    if cfg.ode_depth:
+        n_periods = 1              # weight-tied continuous-depth stack
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(int(seed))
     dtype = cfg.torch_dtype
@@ -186,8 +180,12 @@ def _apply_block(p, cfg: ArchConfig, spec: BlockSpec, h, *, pos0=0,
     elif spec.mixer == "mla":
         out, cache = attn_lib.mla_prefill(p["mixer"], attn_config(cfg), x,
                                           pos0=pos0)
-    else:
+    elif spec.mixer == "mamba":
         out, cache = mamba_lib.mamba_prefill(p["mixer"], cfg.mamba, x)
+    elif spec.mixer == "mlstm":
+        out, cache = xlstm_lib.mlstm_prefill(p["mixer"], cfg.xlstm_cfg(), x)
+    else:
+        out, cache = xlstm_lib.slstm_prefill(p["mixer"], cfg.xlstm_cfg(), x)
     h = h + out
     aux = torch.zeros((), dtype=F32, device=h.device)
     if spec.ffn is not None:
@@ -210,8 +208,13 @@ def _stack(trees: list) -> Pytree:
 
 def forward(params: Pytree, cfg: ArchConfig, tokens: torch.Tensor,
             *, return_cache: bool = False):
-    """tokens (B, S) int -> (logits (B, S, V) float32, aux, cache|None)."""
-    prelude, period, n_periods = _program(cfg)
+    """tokens (B, S) int -> (logits (B, S, V) float32, aux, cache|None).
+
+    With ``ode_depth`` the period is one weight-tied residual group
+    integrated by RK4 in ``ode_depth`` steps over the config's depth in
+    periods; it keeps no cache (``cache["stack"]`` is None) and its aux
+    loss is not summed, as in the JAX package."""
+    prelude, period, n_periods = block_program(cfg)
     h = params["embed"][tokens].to(cfg.torch_dtype)
     aux = torch.zeros((), dtype=F32, device=h.device)
     pre_caches = []
@@ -220,21 +223,37 @@ def forward(params: Pytree, cfg: ArchConfig, tokens: torch.Tensor,
         aux = aux + a
         pre_caches.append(c)
 
-    period_caches = []
-    for n in range(n_periods):
-        layer = tree_map(lambda x: x[n], params["stack"])
-        caches = {}
-        for i, spec in enumerate(period):
-            h, a, c = _apply_block(layer[f"b{i}"], cfg, spec, h,
-                                   want_cache=return_cache)
-            aux = aux + a
-            caches[f"b{i}"] = c
-        period_caches.append(caches)
+    if cfg.ode_depth:
+        # the paper's technique: the stacked residual group as a neural ODE
+        # (weight-tied, RK4 in pseudo-depth over the original depth)
+        group = tree_map(lambda x: x[0], params["stack"])
+
+        def residual(gp, hh):
+            out = hh
+            for i, spec in enumerate(period):
+                out, _, _ = _apply_block(gp[f"b{i}"], cfg, spec, out)
+            return out - hh
+
+        h = ContinuousDepthBlock(residual, depth=float(n_periods),
+                                 num_steps=cfg.ode_depth)(group, h)
+        stack_caches = None
+    else:
+        period_caches = []
+        for n in range(n_periods):
+            layer = tree_map(lambda x: x[n], params["stack"])
+            caches = {}
+            for i, spec in enumerate(period):
+                h, a, c = _apply_block(layer[f"b{i}"], cfg, spec, h,
+                                       want_cache=return_cache)
+                aux = aux + a
+                caches[f"b{i}"] = c
+            period_caches.append(caches)
+        stack_caches = _stack(period_caches) if return_cache else None
 
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["head"]
     logits = unembed(h, table)
-    cache = {"prelude": pre_caches, "stack": _stack(period_caches)} \
+    cache = {"prelude": pre_caches, "stack": stack_caches} \
         if return_cache else None
     return logits, aux, cache
 
@@ -247,9 +266,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                device=None) -> Pytree:
     """Zero caches on ``device`` (default ``cuda``): the GQA KV cache (int8
     with per-(token, head) float32 scales under ``kv_cache_quant``), the
-    MLA latent cache (ckv, k_rope), the Mamba (ssm, conv) state, and the mLSTM state with its -1e30 initial
-    stabiliser (kept for the xLSTM port).  Stacked leaves are allocated
-    at their (n_periods, ...) shape, never broadcast views."""
+    MLA latent cache (ckv, k_rope), the Mamba (ssm, conv) state, the mLSTM
+    (c, n, m) state with its -1e30 initial stabiliser and the sLSTM (h,
+    c, n, m) state.  Stacked leaves are allocated at their (n_periods,
+    ...) shape, never broadcast views."""
     device = resolve_device(device)
     prelude, period, n_periods = block_program(cfg)
     dtype = cfg.torch_dtype
@@ -279,13 +299,20 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                     "conv": zeros((batch, mc.d_conv - 1, mc.d_inner),
                                   lead=lead)}
         if spec.mixer == "mlstm":
-            heads = cfg.n_heads
-            hd = int(2.0 * cfg.d_model) // heads
+            xc = cfg.xlstm_cfg()
+            heads, hd = xc.n_heads, xc.head_dim
             return (zeros((batch, heads, hd, hd), F32, lead),
                     zeros((batch, heads, hd), F32, lead),
                     torch.full((*lead, batch, heads), -1e30, dtype=F32,
                                device=device))
-        _unported(spec.mixer)
+        if spec.mixer == "slstm":
+            heads = cfg.n_heads
+            shape = (batch, heads, cfg.d_model // heads)
+            return (zeros(shape, F32, lead), zeros(shape, F32, lead),
+                    zeros(shape, F32, lead),
+                    torch.full((*lead, *shape), -1e30, dtype=F32,
+                               device=device))
+        raise ValueError(spec.mixer)
 
     stack = {f"b{i}": block_cache(spec, (n_periods,))
              for i, spec in enumerate(period)}
@@ -300,8 +327,14 @@ def _decode_block(p, cfg: ArchConfig, spec: BlockSpec, h, pos, cache):
     elif spec.mixer == "mla":
         out, cache = attn_lib.mla_decode(p["mixer"], attn_config(cfg), x,
                                          pos, cache)
-    else:
+    elif spec.mixer == "mamba":
         out, cache = mamba_lib.mamba_decode(p["mixer"], cfg.mamba, x, cache)
+    elif spec.mixer == "mlstm":
+        out, cache = xlstm_lib.mlstm_decode(p["mixer"], cfg.xlstm_cfg(), x,
+                                            cache)
+    else:
+        out, cache = xlstm_lib.slstm_decode(p["mixer"], cfg.xlstm_cfg(), x,
+                                            cache)
     h = h + out
     if spec.ffn is not None:
         x = rmsnorm(p["norm2"], h, cfg.norm_eps)
@@ -319,7 +352,7 @@ def decode_step(params: Pytree, cfg: ArchConfig, tokens: torch.Tensor,
     float32, cache')."""
     if cfg.ode_depth:
         raise NotImplementedError("ODE-depth mode is train/prefill only")
-    prelude, period, n_periods = _program(cfg)
+    prelude, period, n_periods = block_program(cfg)
     h = params["embed"][tokens].to(cfg.torch_dtype)
     new_pre = []
     for p, spec, c in zip(params["prelude"], prelude, cache["prelude"]):

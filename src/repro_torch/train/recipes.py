@@ -105,6 +105,23 @@ def eval_hp_twin(twin, params, waveform: str, num_points: int = 500,
                 "pred": pred, "true": xw, "ts": ts}
 
 
+def hp_backend_matrix(twin, params, waveform: str = "sine",
+                      analogue_spec: AnalogueSpec = AnalogueSpec(),
+                      seed: int = 0, device=None) -> dict:
+    """The substrate-portability claim as numbers: the same trained
+    weights evaluated on every backend, MRE vs ground truth each time:
+    ``digital``, ``fused_cuda`` (K1) and ``analogue`` (the crossbar
+    simulator, programmed from a generator seeded with ``seed``)."""
+    backends = {
+        "digital": None,
+        "fused_cuda": FusedCudaBackend(batch_tile=1),
+        "analogue": AnalogueBackend(spec=analogue_spec, prog_seed=seed),
+    }
+    return {name: eval_hp_twin(twin, params, waveform, backend=b,
+                               device=device)["mre"]
+            for name, b in backends.items()}
+
+
 def train_hp_resnet(seed: int = 42, train_steps: int = 600,
                     hidden: int = 14, device=None):
     """The paper's digital baseline: the recurrent ResNet at the twin's

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py``, imports JAX or the JAX package ``repro``."""
+"""The port stands alone: no module of ``repro_torch``, not
+``chip_smoke.py`` and no example under ``examples/torch/`` imports JAX
+or the JAX package ``repro``."""
 import os
 import subprocess
 import sys
@@ -33,6 +34,28 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "modules" in res.stdout
+
+
+def test_torch_examples_import_neither_jax_nor_repro():
+    code = textwrap.dedent("""
+        import importlib.util, pathlib, sys
+        files = sorted(pathlib.Path("examples/torch").glob("*.py"))
+        for path in files:
+            spec = importlib.util.spec_from_file_location(
+                "example_" + path.stem, path)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, bad
+        assert len(files) >= 6, files
+        print(len(files), "examples")
+    """)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(REPO, "src")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "examples" in res.stdout
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():
